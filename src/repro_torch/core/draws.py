@@ -1,0 +1,91 @@
+"""The random draws of a sweep, as a record made before the first round.
+
+The reference draws its client indices and refresh coins inside the round
+through JAX's threefry keys (`repro.core.rounds.RoundOps.split` /
+`uniform_client` / `sample_cohort` / `bernoulli`, and Catalyst's per-stage
+`split(key, num_outer)`).  PyTorch cannot replay threefry, so the port's
+round layer reads the same decisions from a `Draws` record instead:
+
+* ``clients``: ``(K, B)`` sampled client per round and trial (sppm/svrp), or
+  ``(K, B, b)`` cohorts drawn without replacement (svrp_minibatch); Catalyst
+  takes a ``(T, K, B)`` stack, one ``(K, B)`` block per outer stage;
+* ``coins``: ``(K, B)`` (or ``(T, K, B)``) bool anchor-refresh coins, None for
+  sppm, which never refreshes.
+
+A record replayed from the reference's keys (the tests build one) makes the
+port's ``comm`` integer-equal to the reference's.  `draw_schedule` draws one
+natively: one `torch.Generator` per trial, seeded with the trial's seed, so
+trial s draws the same numbers whatever the batch size.  Either way the whole
+horizon is drawn up front and moved to the device once, and the per-round
+"does any trial refresh" mask is computed on the host once, so the
+batch-aware anchor refresh never waits on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Draws:
+    clients: torch.Tensor  # (K, B) / (K, B, b) int64; Catalyst (T, K, B)
+    coins: torch.Tensor | None = None  # (K, B) bool; Catalyst (T, K, B); None for sppm
+    # Host (K,) / (T, K) mask: does any trial refresh its anchor at that round?
+    refresh: np.ndarray | None = None
+
+    def __post_init__(self):
+        if self.coins is not None and self.refresh is None:
+            object.__setattr__(self, "refresh", self.coins.any(dim=-1).cpu().numpy())
+
+    @property
+    def num_trials(self) -> int:
+        return (self.coins if self.coins is not None else self.clients).shape[-1]
+
+    def to(self, device) -> "Draws":
+        coins = None if self.coins is None else self.coins.to(device)
+        return Draws(self.clients.to(device), coins, self.refresh)
+
+    def stage(self, t: int) -> "Draws":
+        """Catalyst's outer stage t as a plain ``(K, B)`` record."""
+        coins = None if self.coins is None else self.coins[t]
+        refresh = None if self.refresh is None else self.refresh[t]
+        return Draws(self.clients[t], coins, refresh)
+
+
+def draw_schedule(
+    seeds,
+    num_clients: int,
+    num_steps: int,
+    p=None,
+    *,
+    batch_clients: int | None = None,
+    num_outer: int | None = None,
+    device=None,
+) -> Draws:
+    """Draw a sweep's whole horizon natively, one generator per trial.
+
+    ``seeds`` is the ``(B,)`` per-trial seed array; ``p`` the ``(B,)`` (or
+    scalar) refresh probability, None for sppm; ``batch_clients`` draws
+    cohorts of that size without replacement; ``num_outer`` stacks Catalyst's
+    stages.  Trial b's generator draws its clients first, then its coins."""
+    seeds = np.asarray(seeds).reshape(-1)
+    lead = (num_steps,) if num_outer is None else (num_outer, num_steps)
+    probs = None if p is None else np.broadcast_to(np.asarray(p, np.float64), seeds.shape)
+    clients, coins = [], []
+    for b, seed in enumerate(seeds):
+        gen = torch.Generator().manual_seed(int(seed))
+        if batch_clients is None:
+            clients.append(torch.randint(0, num_clients, lead, generator=gen))
+        else:
+            keys = torch.rand(lead + (num_clients,), generator=gen, dtype=torch.float64)
+            clients.append(keys.argsort(dim=-1)[..., :batch_clients])
+        if probs is not None:
+            coins.append(torch.rand(lead, generator=gen, dtype=torch.float64) < float(probs[b]))
+    axis = len(lead)
+    draws = Draws(
+        torch.stack(clients, dim=axis),
+        None if probs is None else torch.stack(coins, dim=axis),
+    )
+    return draws if device is None else draws.to(device)

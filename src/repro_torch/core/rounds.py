@@ -1,0 +1,424 @@
+"""Round-step substrate layer: every algorithm defined ONCE, run on the fused substrate.
+
+Port of `repro.core.rounds`, fused substrate only.  Each algorithm of the
+SPPM/SVRP family is one ``RoundDef``:
+
+* ``init(ops, x0) -> state``          — round-0 state (iterate, anchor,
+  cached anchor gradient, communication counter, channel state);
+* ``round(ops, state, k) -> (state, (dist_sq, comm))`` — communication round
+  ``k``, written against the sampling / prox-oracle / anchor interface
+  ``RoundOps``.
+
+``RoundOps`` here is the reference's BATCHED substrate: ``(B, d)`` state for a
+whole sweep, with the Algorithm-7 local solves routed through the batched
+Hopper kernels (`kernels.prox_update_batched` for quadratic problems and
+Catalyst, `kernels.logistic_prox_gd_batched` for logistic ones).  Where the
+reference draws from PRNG keys inside the round, the port reads round ``k``
+of a `core.draws.Draws` record.
+
+Batch-aware anchor refresh: the reference gates the full-gradient recompute
+behind one ``lax.cond(jnp.any(c))`` per round.  Here the coins are known
+before the first round, so the host already holds the per-round "any trial
+refreshes" mask (`Draws.refresh`) and skips the recompute on rounds where no
+trial refreshes, without waiting on the device; the per-trial selection
+``where(c, full_grad(w'), gbar)`` is unchanged.
+
+Communication accounting follows Section 4.2: one vector exchange
+server<->client = 1 step; the initial anchor setup = 3M; a refresh re-runs
+it.  ``comm`` keeps the reference's dtypes under x64: int64 for sppm, int32
+for the refresh-bearing rounds (the reference's ``c.astype(int32)``
+increment fixes their counter to int32).
+
+Not ported yet: the sequential and registry-batched substrates, deep_svrp,
+the client-sharded substrate and the incremental step definitions.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.channel import get_channel
+from repro_torch.core.draws import Draws
+from repro_torch.core.types import RunResult
+
+
+class RoundDef(NamedTuple):
+    """One algorithm as an (init, round) pair over the substrate interface."""
+
+    name: str
+    init: Callable  # (ops, x0) -> state
+    round: Callable  # (ops, state, k) -> (state, (dist_sq, comm))
+
+
+class RoundOps:
+    """Substrate primitives of one ``(B,)`` sweep binding.
+
+    The local prox solve is injected by the caller: ``prox(m, z)`` for
+    single-client rounds (sppm/svrp), ``cohort_prox(ms, z)`` for minibatch
+    cohorts.  ``grad``/``full_grad`` overrides replace the problem's oracles
+    (Catalyst's per-trial shifted gradients)."""
+
+    def __init__(
+        self,
+        problem,
+        hp,
+        x_star: torch.Tensor,
+        dtype: torch.dtype,
+        *,
+        num_trials: int,
+        draws: Draws,
+        prox: Callable | None = None,
+        cohort_prox: Callable | None = None,
+        cohort_size: int | None = None,
+        grad: Callable | None = None,
+        full_grad: Callable | None = None,
+        channel=None,
+    ):
+        self.problem = problem
+        self.hp = hp
+        self.x_star = x_star
+        self.dtype = dtype
+        self.device = x_star.device
+        self.B = num_trials
+        self.M = problem.num_clients
+        self.draws = draws
+        self.channel = get_channel(channel)
+        self.prox = prox
+        self.cohort_prox = cohort_prox
+        self.cohort_size = cohort_size
+        self._grad = problem.grad
+        self._full_grad = problem.full_grad
+        self.oracle_overridden = grad is not None or full_grad is not None
+        if grad is not None:
+            self.grad = grad
+        if full_grad is not None:
+            self.full_grad = full_grad
+
+    # ---------------------------------------------------------------- draws
+    def uniform_client(self, k: int) -> torch.Tensor:
+        return self.draws.clients[k]
+
+    def sample_cohort(self, k: int) -> torch.Tensor:
+        """``cohort_size`` clients without replacement (minibatch SVRP)."""
+        return self.draws.clients[k]
+
+    def bernoulli(self, k: int) -> torch.Tensor:
+        return self.draws.coins[k]
+
+    # ------------------------------------------------------------- oracles
+    def grad(self, m, y):
+        return self._grad(m, y)
+
+    def full_grad(self, w):
+        return self._full_grad(w)
+
+    def cohort_grad(self, ms, y):
+        """Per-cohort-client gradients at the shared iterate: (B, b, d)."""
+        if self.oracle_overridden:
+            raise NotImplementedError(
+                "cohort_grad does not support substrate-level oracle overrides"
+            )
+        return self._grad(ms, y[:, None, :].expand(ms.shape + y.shape[-1:]))
+
+    def init_full_grad(self, x0):
+        """Round-0 anchor gradient for a trial-SHARED ``x0``, computed once and
+        tiled to per-trial state."""
+        return self.tile(self._full_grad(x0))
+
+    def refresh_grad(self, k: int, c, w_next, gbar):
+        """Anchor-gradient refresh: the full gradient is paid only on rounds
+        where some trial refreshes (host mask), selected per trial."""
+        if not self.draws.refresh[k]:
+            return gbar
+        return torch.where(c[:, None], self.full_grad(w_next), gbar)
+
+    # ------------------------------------------------------- shape algebra
+    def tile(self, v):
+        """Trial-shared array -> per-trial state (a contiguous copy per trial)."""
+        return v.expand((self.B,) + v.shape).contiguous()
+
+    def vec(self, h):
+        """Per-trial scalar hparam as a multiplier for (B, d) state."""
+        h = torch.as_tensor(h, dtype=self.dtype, device=self.device)
+        return h.broadcast_to((self.B,))[:, None]
+
+    def cvec(self, h):
+        """Like ``vec`` but broadcasting against (B, b, d) cohort arrays."""
+        return self.vec(h)[:, :, None]
+
+    def expand(self, v):
+        """Add the cohort axis: (B, d) -> (B, 1, d)."""
+        return v[:, None, :]
+
+    def where_vec(self, c, a, b):
+        return torch.where(c[:, None], a, b)
+
+    def as_count(self, c):
+        return c.to(torch.int32)
+
+    def comm0(self, n: int, dtype: torch.dtype = torch.int64):
+        return torch.full((self.B,), n, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------- channel
+    def chan_init(self, xB):
+        return self.channel.init_state(xB)
+
+    def chan_down(self, ch, x):
+        return self.channel.down(ch, x)
+
+    def chan_up(self, v):
+        return self.channel.up(v)
+
+    def chan_bcast(self, v):
+        return self.channel.bcast(v)
+
+    def dist_sq(self, x):
+        return ((x - self.x_star) ** 2).sum(-1)
+
+
+def _run_rounds(ops: RoundOps, round_fn: Callable, state, num_steps: int):
+    """``num_steps`` rounds from ``state``: (final state, (B, K) dist_sq, (B, K) comm)."""
+    d2s, comms = [], []
+    for k in range(num_steps):
+        state, (d2, comm) = round_fn(ops, state, k)
+        d2s.append(d2)
+        comms.append(comm)
+    return state, torch.stack(d2s, dim=1), torch.stack(comms, dim=1)
+
+
+def scan_rounds(rdef: RoundDef, ops: RoundOps, x0, num_steps: int) -> RunResult:
+    """Execute ``num_steps`` rounds of one definition on one binding."""
+    final, d2s, comms = _run_rounds(ops, rdef.round, rdef.init(ops, x0), num_steps)
+    return RunResult(dist_sq=d2s, comm=comms, x_final=final[0])
+
+
+# ============================================================ round definitions
+
+
+def _sppm_init(ops: RoundOps, x0):
+    xB = ops.tile(x0)
+    return (xB, ops.comm0(0), ops.chan_init(xB))
+
+
+def _sppm_round(ops: RoundOps, s, k):
+    x, comm, ch = s
+    m = ops.uniform_client(k)
+    ch, x_d = ops.chan_down(ch, x)
+    x_next = ops.chan_up(ops.prox(m, x_d))
+    comm = comm + 2  # server -> client (x_k), client -> server (x_{k+1})
+    return (x_next, comm, ch), (ops.dist_sq(x_next), comm)
+
+
+def _svrp_init(ops: RoundOps, x0):
+    xB = ops.tile(x0)
+    if ops.oracle_overridden:
+        gbar = ops.full_grad(xB)  # the override sees per-trial state
+    else:
+        gbar = ops.init_full_grad(x0)  # x0 is trial-shared: compute once, tile
+    return (xB, xB, gbar, ops.comm0(3 * ops.M, torch.int32), ops.chan_init(xB))
+
+
+def _svrp_round(ops: RoundOps, s, k):
+    x, w, gbar, comm, ch = s
+    m = ops.uniform_client(k)
+
+    ch, x_d = ops.chan_down(ch, x)
+    g_k = gbar - ops.grad(m, w)
+    z = x_d - ops.vec(ops.hp.eta) * g_k
+    x_next = ops.chan_up(ops.prox(m, z))
+
+    c = ops.bernoulli(k)
+    w_next = ops.where_vec(c, ops.chan_bcast(x_next), w)
+    gbar_next = ops.refresh_grad(k, c, w_next, gbar)
+    comm = comm + 2 + 3 * ops.M * ops.as_count(c)
+    return (x_next, w_next, gbar_next, comm, ch), (ops.dist_sq(x_next), comm)
+
+
+def _svrp_minibatch_round(ops: RoundOps, s, k):
+    x, w, gbar, comm, ch = s
+    ms = ops.sample_cohort(k)
+
+    ch, x_d = ops.chan_down(ch, x)
+    g_k = ops.expand(gbar) - ops.cohort_grad(ms, w)
+    z = ops.expand(x_d) - ops.cvec(ops.hp.eta) * g_k
+    ys = ops.chan_up(ops.cohort_prox(ms, z))
+    x_next = ys.mean(dim=-2)
+
+    c = ops.bernoulli(k)
+    w_next = ops.where_vec(c, ops.chan_bcast(x_next), w)
+    gbar_next = ops.refresh_grad(k, c, w_next, gbar)
+    comm = comm + 2 * ops.cohort_size + 3 * ops.M * ops.as_count(c)
+    return (x_next, w_next, gbar_next, comm, ch), (ops.dist_sq(x_next), comm)
+
+
+ROUND_DEFS: dict[str, RoundDef] = {
+    "sppm": RoundDef("sppm", _sppm_init, _sppm_round),
+    "svrp": RoundDef("svrp", _svrp_init, _svrp_round),
+    "svrp_minibatch": RoundDef("svrp_minibatch", _svrp_init, _svrp_minibatch_round),
+}
+
+
+# ============================================================ fused substrate
+#
+# Two per-problem oracles: quadratic-family problems batch their gradient
+# (one batched matvec) and take the Algorithm-7 update through the
+# ELEMENTWISE kernel, one launch per GD step; logistic problems go through
+# the logistic kernel, which runs the whole Algorithm-7 loop in ONE launch.
+
+
+def fused_oracle_kind(problem) -> str:
+    """Which fused Algorithm-7 oracle this problem supports ("quadratic" /
+    "logistic"), raising a clear error otherwise."""
+    if hasattr(problem, "A") and hasattr(problem, "b"):
+        return "quadratic"
+    if hasattr(problem, "Z") and hasattr(problem, "lam"):
+        return "logistic"
+    raise ValueError(
+        f"fused=True has no batched kernel prox path for {type(problem).__name__}: "
+        "supported oracles are the quadratic family (A/b attrs; generic gradient "
+        "through kernels.prox_update_batched) and the logistic family (Z/y/lam "
+        "attrs; kernels.logistic_prox_gd_batched)"
+    )
+
+
+def prox_gd_fused(problem, m, z, eta, L, prox_steps: int):
+    """The batched Algorithm-7 solve of one fused round: per-row sampled
+    client ``m`` (R,), targets ``z`` (R, d), per-row eta/L scalars.  Rows are
+    trials for single-client rounds and trial x cohort pairs for minibatch."""
+    from repro_torch.core.prox import prox_gd_batched
+
+    if fused_oracle_kind(problem) == "logistic":
+        from repro_torch.kernels.logistic_prox import logistic_prox_gd_batched
+
+        A = problem.Z[m] * problem.y[m][:, :, None]
+        beta = 1.0 / (L + 1.0 / eta)
+        return logistic_prox_gd_batched(A, z, beta, 1.0 / eta, problem.lam, prox_steps)
+    grad_fn, _ = problem.local_oracle(m)  # gathers A_m, b_m once per solve
+    return prox_gd_batched(grad_fn, z, eta, L, prox_steps, use_kernel=True)
+
+
+def _rows(a):
+    """(B, b, d) cohort block -> (B*b, d) kernel rows."""
+    B, b, d = a.shape
+    return a.reshape(B * b, d)
+
+
+def _per_trial(h, B: int, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(h, dtype=dtype, device=device).broadcast_to((B,)).contiguous()
+
+
+def _fused_ops(algo: str, problem, hp, x_star, x0, draws: Draws, *,
+               inner_steps: int, cohort_size: int | None = None,
+               channel=None) -> RoundOps:
+    """Bind one algorithm's fused substrate: injected draws + kernel prox."""
+    dtype, dev = x0.dtype, x0.device
+    B = draws.num_trials
+    eta = _per_trial(hp.eta, B, dtype, dev)
+    L = _per_trial(getattr(hp, "smoothness", 0.0), B, dtype, dev)
+    kw: dict[str, Any] = {"cohort_size": cohort_size, "channel": channel}
+
+    if algo in ("sppm", "svrp"):
+        kw["prox"] = lambda m, z: prox_gd_fused(problem, m, z, eta, L, inner_steps)
+    elif algo == "svrp_minibatch":
+        eta_rows = eta.repeat_interleave(cohort_size)
+        L_rows = L.repeat_interleave(cohort_size)
+
+        def cohort_prox(ms, z):
+            y = prox_gd_fused(problem, ms.reshape(-1), _rows(z), eta_rows, L_rows, inner_steps)
+            return y.reshape(z.shape)
+
+        kw["cohort_prox"] = cohort_prox
+    else:
+        raise ValueError(f"no fused substrate for algo {algo!r}")
+
+    return RoundOps(problem, hp, x_star, dtype, num_trials=B, draws=draws, **kw)
+
+
+def batched_scan(
+    algo: str, problem, x0, x_star, draws: Draws, hp, *,
+    num_steps: int, inner_steps: int, **static,
+) -> RunResult:
+    """The fused substrate's sweep driver: one hand-batched loop over (B, d)
+    state for the whole trial batch.  ``inner_steps`` is the algorithm's
+    Algorithm-7 step count."""
+    if algo == "catalyzed_svrp":
+        return _catalyzed_batched_scan(
+            problem, x0, x_star, draws, hp,
+            num_outer=static["num_outer"], num_steps=num_steps,
+            inner_steps=inner_steps, channel=static.get("channel"),
+        )
+    ops = _fused_ops(
+        algo, problem, hp, x_star, x0, draws, inner_steps=inner_steps,
+        cohort_size=static.get("batch_clients"), channel=static.get("channel"),
+    )
+    return scan_rounds(ROUND_DEFS[algo], ops, x0, num_steps)
+
+
+def _catalyzed_batched_scan(
+    problem, x0, x_star, draws: Draws, hp, *,
+    num_outer: int, num_steps: int, inner_steps: int, channel=None,
+) -> RunResult:
+    """Catalyzed SVRP on the fused substrate: the outer Catalyst recurrence
+    hand-batched over (B,) with the inner loop running the SHARED SVRP round
+    definition on per-trial shifted oracles
+
+        h_t,m(x) = f_m(x) + gamma_b/2 ||x - y_b||^2,
+
+    with the prox-GD update through the elementwise kernel
+    (`prox_gd_batched`) on the shifted ``problem.grad``, for quadratic and
+    logistic problems alike — the reference's form, so trajectories agree."""
+    from repro_torch.core.catalyst import catalyst_extrapolate
+    from repro_torch.core.prox import prox_gd_batched
+
+    fused_oracle_kind(problem)
+    B = draws.num_trials
+    dtype, dev = x0.dtype, x0.device
+    mu, gamma, eta, L = (
+        _per_trial(h, B, dtype, dev) for h in (hp.mu, hp.gamma, hp.eta, hp.smoothness)
+    )
+    q = mu / (mu + gamma)
+    M = problem.num_clients
+
+    def stage_ops(y_prev, stage_draws):
+        def grad_sh(m, y):
+            return problem.grad(m, y) + gamma[:, None] * (y - y_prev)
+
+        def full_grad_sh(w):
+            return problem.full_grad(w) + gamma[:, None] * (w - y_prev)
+
+        def prox(m, z):
+            return prox_gd_batched(
+                lambda y: grad_sh(m, y), z, eta, L, inner_steps, use_kernel=True
+            )
+
+        return RoundOps(
+            problem, hp, x_star, dtype, num_trials=B, draws=stage_draws,
+            prox=prox, grad=grad_sh, full_grad=full_grad_sh, channel=channel,
+        )
+
+    x_prev = y_prev = x0.expand(B, x0.shape[-1]).contiguous()
+    alpha_prev = torch.sqrt(q)
+    comm0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+    d2_stages, comm_stages = [], []
+    for t in range(num_outer):
+        ops = stage_ops(y_prev, draws.stage(t))
+        # Channel state re-initializes per stage, like the reference's inner
+        # svrp_scan re-running _svrp_init each stage.
+        state0 = (
+            x_prev, x_prev, ops.full_grad(x_prev),
+            ops.comm0(3 * M, torch.int32), ops.chan_init(x_prev),
+        )
+        final, d2s, comms = _run_rounds(ops, _svrp_round, state0, num_steps)
+        x_t = final[0]
+        alpha_prev, beta_t = catalyst_extrapolate(alpha_prev, q)
+        y_prev = x_t + beta_t[:, None] * (x_t - x_prev)
+        x_prev = x_t
+        comm = comms + comm0[:, None]
+        comm0 = comm[:, -1]
+        d2_stages.append(d2s)
+        comm_stages.append(comm)
+    return RunResult(
+        dist_sq=torch.cat(d2_stages, dim=1), comm=torch.cat(comm_stages, dim=1),
+        x_final=x_prev,
+    )

@@ -1,0 +1,269 @@
+"""What to run: the algorithm registry and the shared `RunSpec`.
+
+Port of `repro.experiments.spec`, restricted to the four algorithms the fused
+substrate runs (sppm, svrp, svrp_minibatch, catalyzed_svrp).  Resolution,
+trial table, static config and every validation error text are the
+reference's, so a sweep that `repro` rejects fails here with the same message.
+`stepsize="theory"` raises until `core/theory.py` is ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Mapping, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.catalyst import CatalyzedSVRPParams
+from repro_torch.core.channel import get_channel
+from repro_torch.core.minibatch import MinibatchParams
+from repro_torch.core.prox import get_prox_solver
+from repro_torch.core.sppm import SPPMParams
+from repro_torch.core.svrp import SVRPParams
+from repro_torch.experiments.grid import expand_grid, with_seeds
+
+_REQUIRED = object()
+
+
+@dataclass(frozen=True)
+class AlgoSpec:
+    """How the engine drives one algorithm.
+
+    `defaults` maps every hparam field of `params_cls` to its default value
+    (`_REQUIRED` = the caller's grid must provide it); `static` maps every
+    static-config key likewise.
+    """
+
+    params_cls: type
+    defaults: Mapping[str, Any]
+    static: Mapping[str, Any]
+    fusable: bool = False  # runs on the fused substrate (rounds.batched_scan)
+    # Which static-config key supplies the fused path's Algorithm-7 inner step
+    # count, and which one the fused loop's ROUND count per trajectory segment
+    # ("inner_steps" for Catalyst's nested stages).
+    fused_inner_steps: str | None = None
+    fused_round_steps: str = "num_steps"
+
+
+_PROX_STATIC = {
+    "num_steps": _REQUIRED,
+    "prox_solver": "exact",
+    "prox_steps": 50,
+    "prox_tol": 1e-10,
+    "channel": None,
+}
+
+ALGOS: dict[str, AlgoSpec] = {
+    "sppm": AlgoSpec(
+        SPPMParams,
+        defaults={"eta": _REQUIRED, "smoothness": 0.0},
+        static=_PROX_STATIC, fusable=True, fused_inner_steps="prox_steps",
+    ),
+    "svrp": AlgoSpec(
+        SVRPParams,
+        defaults={"eta": _REQUIRED, "p": _REQUIRED, "smoothness": 0.0},
+        static=_PROX_STATIC, fusable=True, fused_inner_steps="prox_steps",
+    ),
+    "svrp_minibatch": AlgoSpec(
+        MinibatchParams,
+        defaults={"eta": _REQUIRED, "p": _REQUIRED, "smoothness": 0.0},
+        static={**_PROX_STATIC, "batch_clients": _REQUIRED},
+        fusable=True, fused_inner_steps="prox_steps",
+    ),
+    "catalyzed_svrp": AlgoSpec(
+        CatalyzedSVRPParams,
+        defaults={
+            "mu": _REQUIRED, "gamma": _REQUIRED, "eta": _REQUIRED,
+            "p": _REQUIRED, "smoothness": 0.0,
+        },
+        static={
+            "num_outer": _REQUIRED, "inner_steps": _REQUIRED,
+            "prox_solver": "exact", "prox_steps": 50, "prox_tol": 1e-10,
+            "channel": None,
+        },
+        fusable=True, fused_inner_steps="prox_steps",
+        fused_round_steps="inner_steps",  # per-stage round count (nested loop)
+    ),
+}
+
+
+# ---------------------------------------------------------------- substrates
+_SESSION_SUBSTRATES = ("sequential", "batched", "clients")
+
+
+def check_substrate(substrate: str) -> str:
+    """Validate a session-substrate name (the reference's error text)."""
+    if substrate not in _SESSION_SUBSTRATES:
+        raise ValueError(
+            f"unknown substrate {substrate!r}; supported: "
+            "'sequential', 'batched', 'clients'"
+        )
+    return substrate
+
+
+# ------------------------------------------------------------------- RunSpec
+class ResolvedRun(NamedTuple):
+    """A `RunSpec` bound to a problem: everything the substrates consume."""
+
+    algo: str
+    aspec: AlgoSpec
+    hparams: dict[str, np.ndarray]  # host trial table, each (B,)
+    seeds: np.ndarray  # (B,)
+    cfg: dict[str, Any]  # full static config (defaults merged, validated)
+    x0: torch.Tensor
+    x_star: torch.Tensor
+
+    def device_hparams(self, device):
+        return self.aspec.params_cls(**_device_hparams(self.hparams, device))
+
+
+@dataclass(frozen=True)
+class RunSpec:
+    """One sweep, independent of how it is executed (see the reference's
+    `repro.experiments.spec.RunSpec`).  `static` carries the algorithm's
+    static config (num_steps, prox_solver, ...)."""
+
+    algo: str
+    grid: Mapping[str, Any] | None = None
+    seeds: int | Sequence[int] = 1
+    x0: torch.Tensor | None = None
+    x_star: torch.Tensor | None = None
+    stepsize: str | None = None
+    target_eps: float = 1e-6
+    theory_constants: Any = None
+    substrate: str | None = None
+    static: Mapping[str, Any] = field(default_factory=dict)
+
+    def resolve(self, problem) -> ResolvedRun:
+        """Bind to a problem: trial table, static config, validation and
+        x0/x_star defaults."""
+        aspec = resolve_algo(self.algo)
+        if self.substrate is not None:
+            check_substrate(self.substrate)
+        algo, grid, x0, x_star = self.algo, self.grid, self.x0, self.x_star
+        if x0 is None:
+            x0 = torch.zeros(problem.dim, dtype=_problem_dtype(problem), device=problem.device)
+        if x_star is None:
+            x_star = problem.minimizer()
+        if self.stepsize is not None:
+            if self.stepsize != "theory":
+                raise ValueError(
+                    f"unknown stepsize mode {self.stepsize!r}; supported: 'theory' "
+                    "(or pass explicit values in the grid)"
+                )
+            raise NotImplementedError(
+                "stepsize='theory' needs core/theory.py, which is not ported to "
+                "repro_torch yet; pass explicit values in the grid"
+            )
+        hparams, seed_arr = _build_trials(aspec, algo, grid, self.seeds)
+        cfg = _static_config(aspec, algo, self.static)
+        if "prox_solver" in cfg:
+            get_prox_solver(cfg["prox_solver"], problem)
+        if "channel" in cfg:
+            get_channel(cfg["channel"])
+        if cfg.get("prox_solver") == "gd":
+            if "smoothness" not in aspec.params_cls._fields:
+                raise ValueError(f"{algo} does not support prox_solver='gd'")
+            if "smoothness" not in (grid or {}):
+                raise ValueError(
+                    f"{algo}: prox_solver='gd' needs 'smoothness' in the grid "
+                    "(Algorithm 7's stepsize is 1/(L + 1/eta); L=0 silently diverges)"
+                )
+        return ResolvedRun(algo, aspec, hparams, seed_arr, cfg, x0, x_star)
+
+
+def as_runspec(
+    algo: str | RunSpec,
+    *,
+    grid: Mapping[str, Any] | None = None,
+    seeds: int | Sequence[int] = 1,
+    x0: torch.Tensor | None = None,
+    x_star: torch.Tensor | None = None,
+    stepsize: str | None = None,
+    target_eps: float = 1e-6,
+    theory_constants: Any = None,
+    substrate: str | None = None,
+    static: Mapping[str, Any] | None = None,
+) -> RunSpec:
+    """The legacy-kwargs shim: `run_batch("svrp", problem, grid=...,
+    num_steps=...)` packs its keywords through here into a `RunSpec`; mixing a
+    `RunSpec` with keyword run options is rejected."""
+    if isinstance(algo, RunSpec):
+        clashes = [
+            name
+            for name, val in (
+                ("grid", grid), ("x0", x0), ("x_star", x_star),
+                ("stepsize", stepsize), ("theory_constants", theory_constants),
+                ("substrate", substrate),
+            )
+            if val is not None
+        ]
+        if seeds != 1:
+            clashes.append("seeds")
+        if target_eps != 1e-6:
+            clashes.append("target_eps")
+        if static:
+            clashes.append("static config")
+        if clashes:
+            raise ValueError(
+                f"got both a RunSpec and keyword run options {clashes}; "
+                "put run options on the RunSpec itself"
+            )
+        return algo
+    return RunSpec(
+        algo=algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
+        stepsize=stepsize, target_eps=target_eps,
+        theory_constants=theory_constants, substrate=substrate,
+        static=dict(static or {}),
+    )
+
+
+def resolve_algo(algo: str) -> AlgoSpec:
+    if algo not in ALGOS:
+        raise KeyError(f"unknown algo {algo!r}; available: {sorted(ALGOS)}")
+    return ALGOS[algo]
+
+
+def _build_trials(
+    spec: AlgoSpec, algo: str, grid: Mapping[str, Any] | None, seeds
+) -> tuple[dict[str, np.ndarray], np.ndarray]:
+    fields = list(spec.params_cls._fields)
+    grid = dict(grid or {})
+    unknown = set(grid) - set(fields)
+    if unknown:
+        raise ValueError(f"{algo}: unknown hparams {sorted(unknown)}; fields: {fields}")
+    axes = {}
+    for name in fields:  # field order fixes the cartesian-product nesting
+        if name in grid:
+            axes[name] = grid[name]
+        elif spec.defaults[name] is _REQUIRED:
+            raise ValueError(f"{algo}: grid must provide required hparam {name!r}")
+        else:
+            axes[name] = spec.defaults[name]
+    return with_seeds(expand_grid(**axes), seeds)
+
+
+def _static_config(spec: AlgoSpec, algo: str, overrides: Mapping[str, Any]) -> dict:
+    unknown = set(overrides) - set(spec.static)
+    if unknown:
+        raise ValueError(
+            f"{algo}: unknown static config {sorted(unknown)}; accepts: {sorted(spec.static)}"
+        )
+    cfg = {**spec.static, **overrides}
+    missing = [k for k, v in cfg.items() if v is _REQUIRED]
+    if missing:
+        raise ValueError(f"{algo}: missing required static config {missing}")
+    return cfg
+
+
+def _problem_dtype(problem):
+    """The dtype the problem's own arrays carry (quadratic A / logistic Z)."""
+    for attr in ("A", "Z"):
+        if hasattr(problem, attr):
+            return getattr(problem, attr).dtype
+    return None
+
+
+def _device_hparams(hparams: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """Host grid arrays -> (B,) device tensors (float64 / int64 kept exact)."""
+    return {k: torch.as_tensor(v, device=device) for k, v in hparams.items()}
