@@ -5,13 +5,15 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-Phases, each printed as one JSON line:
+It drives two paths of the port: the paper's fused sweep (K1, K2) and
+dense-transformer serving on Llama-3.2-3B (K4, K5).  Phases, each printed as
+one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
    build of every kernel from `src/repro_torch/kernels/csrc` (one `nvcc` per
    source, all started together) with its ptxas report;
-2. parity  — each kernel against its plain PyTorch version on the card at the
-   main path's shapes, float32 and float64, at the reference's tolerances,
+2. parity  — K1 and K2 against their plain PyTorch versions on the card at the
+   sweep's shapes, float32 and float64, at the reference's tolerances,
    and timed with CUDA events beside its bound;
 3. main path — `run_batch(..., fused=True, prox_solver="gd")` in float64 on
    the paper's Figure-1 quadratic (M = 1000, d = 40, L = 3330, delta = 10):
@@ -23,13 +25,34 @@ Phases, each printed as one JSON line:
    within rtol 1e-9;
 4. profile — the first 20 rounds of each sweep again under torch.profiler:
    host wall time, device busy time and idle share, the top kernels;
-5. the `kernels` line, then the `ok` line.
+5. attention parity — K4 (flash attention) and K5 (decode attention) against
+   their plain versions at the serving path's shapes (K4: Llama prefill,
+   bf16 and float32, causal; and small sliding-window, non-causal and head
+   dim 80 / 64 cases; K5: B = 8, S = 4096, q bf16 against float32 and bf16
+   caches, prefix and ring-buffer masks), at the reference's tolerances (K5
+   also at a limit scaled to its output, K5_BF16_SCALED, which two planted
+   faults must fail), timed with CUDA events beside the bound, the plain
+   version and one `scaled_dot_product_attention` call (the yardstick; the
+   port never calls it);
+6. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
+   0 on the card: `make_prefill_step` on 4 x 2048 tokens and
+   `BatchServer(max_batch=8, cache_len=1024).generate` on 8 ragged prompts
+   (128-512 tokens) with 64 greedy tokens each.  The K4 / K5 counts are
+   zeroed before and read after each run: K4 must launch once a layer per
+   prefill call, K5 once a layer per decode step.  Both are then replayed
+   with the plain attention on the card (the decode teacher-forced on the
+   served tokens) and every step's logits compared (SERVE_REL_TOL), and with
+   a planted attention fault, which must exceed that limit;
+7. serving profile — one prefill call and 16 decode steps under
+   torch.profiler;
+8. the `kernels` line, then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,11 +62,34 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # H100 SXM, outside the tensor cores
+# H100 SXM: float32 / float64 outside the tensor cores, bf16 on them (dense)
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 K1_TOL = {"float32": dict(rtol=1e-6, atol=1e-6), "float64": dict(rtol=1e-12, atol=0.0)}
 K2_TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "float64": dict(rtol=1e-12, atol=1e-13)}
+# The reference's: tests/test_kernels_attention.py:_tol, tests/test_kernels_decode.py.
+K4_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+K5_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# K5 with a bf16 operand is also held to a limit scaled to its output: at the
+# serving shape (3001 valid rows of unit-normal K/V) the output's RMS is ~0.03,
+# the size of the reference's 3e-2 itself.  K5 and its plain version compute
+# in float32 from the same values and differ where the output rounds to bf16:
+# by at most one bf16 ulp at any element, <= 2^-7 of the output's largest
+# magnitude, and by at most 2^-7 (twice the unit roundoff) in relative L2.
+K5_BF16_SCALED = 2.0**-7
+# Planted faults the K5 check must reject: the rows of one of the kernel's
+# 16 half-warp streams (U = 4 rows a step at G <= 4), and one valid row.
+K5_STREAM_ROWS, K5_STREAMS = 4, 16
 CPU_REPLAY_ROUNDS = 20
 CPU_REPLAY_RTOL = 1e-9
+# Serving: kernel run against the plain-attention replay, per step, as
+# ||logits - plain||_2 / ||plain||_2.  Both runs are bf16 and differ only in
+# the attention arithmetic (K4 rounds P to bf16 before P V; K5 sums in
+# another order).  Read on an H100 80GB HBM3 at 700 W: decode median 1.07e-2,
+# max 1.37e-2; prefill 1.91e-2.  The replay also plants one attention fault
+# each, and fails unless each exceeds this limit; on the same card they read
+# 1.22 (prefill, K4 skipping its first 64-key tile) and 9.1e-2 at the least,
+# 1.56e-1 at most (64 decode steps, K5 dropping one half-warp stream's rows).
+SERVE_REL_TOL = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -92,20 +138,36 @@ def kernel_times_us(prof) -> dict[str, tuple[float, int]]:
     return out
 
 
+def _spin(n: int = 16) -> None:
+    """``n`` tiny device kernels (at::cuda::sleep's ``spin_kernel``), synchronised."""
+    import torch
+
+    for _ in range(n):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
 def profiled(fn, reps: int):
-    """Run ``fn`` ``reps`` times under torch.profiler: (host wall ms, kernel times)."""
+    """Run ``fn`` ``reps`` times under torch.profiler: (host wall ms, kernel times).
+
+    The profiler loses a few device events at the edges of a session (10
+    calls of K4 read as 5), so throwaway spin kernels pad both edges, outside
+    the timed window, and are left out of the kernel times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _spin()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, kernel_times_us(prof)
+        _spin()
+    kernels = kernel_times_us(prof)
+    return wall_ms, {k: v for k, v in kernels.items() if "spin_kernel" not in k}
 
 
 def device_ms(fn, reps: int) -> float | None:
@@ -392,6 +454,390 @@ def phase_cpu_replay(runs, cpu_problems) -> None:
               "cpu_s": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------- attention (K4, K5)
+def attention_pairs(Sq: int, Skv: int, causal: bool, window, q_offset: int = 0) -> int:
+    """(query, key) pairs the mask allows: the work K4 does on these inputs."""
+    import numpy as np
+
+    qp = np.arange(Sq)[:, None] + q_offset
+    kp = np.arange(Skv)[None, :]
+    mask = np.ones((Sq, Skv), bool)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    return int(mask.sum())
+
+
+def _err(out, ref) -> float:
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None):
+    """K4 against its plain version on one input, timed beside the bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    dname = str(dtype).split(".")[-1]
+    q = torch.randn(B, Sq, H, Dh, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn(B, Skv, KVH, Dh, generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn(B, Skv, KVH, Dh, generator=gen, device="cuda", dtype=dtype)
+    kw = dict(causal=causal, sliding_window=window)
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **K4_TOL[dname])
+    pairs = attention_pairs(Sq, Skv, causal, window)
+    b_ms, b_by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                          4 * B * H * Dh * pairs, dname)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, heads, S, Dh) views
+    if window is None and (not causal or Sq == Skv):
+        sdpa_kw = dict(is_causal=causal)
+    else:  # absolute-position masks SDPA's is_causal does not express
+        qp = torch.arange(Sq, device="cuda")[:, None]
+        kp = torch.arange(Skv, device="cuda")[None, :]
+        mask = (qp >= kp) if causal else torch.ones(Sq, Skv, dtype=torch.bool, device="cuda")
+        if window is not None:
+            mask &= qp - kp < window
+        sdpa_kw = dict(attn_mask=mask)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
+
+    big = B * Sq * H > 100_000
+    return dict(shape=[B, Sq, Skv, H, KVH, Dh], dtype=dname, causal=causal, window=window,
+                max_abs_err=_err(out, ref), tol=K4_TOL[dname],
+                ms=time_ms(lambda: flash_attention(q, k, v, **kw), 10 if big else 50),
+                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3 if big else 20, 1),
+                library_ms=time_ms(sdpa, 10 if big else 50),
+                device_ms=device_ms(lambda: flash_attention(q, k, v, **kw), 10),
+                bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+
+
+def k5_verdict(out, ref, low: str) -> dict:
+    """K5's errors against its plain version and whether they meet the
+    reference's tolerance and, with a bf16 operand, the scaled limit."""
+    import torch
+    from torch.linalg import vector_norm
+
+    out, ref = out.float(), ref.float()
+    max_abs = (out - ref).abs().max().item()
+    rel_l2 = (vector_norm(out - ref) / vector_norm(ref)).item()
+    reference_tol = bool(torch.allclose(out, ref, **K5_TOL[low]))
+    scaled = low == "float32" or (max_abs <= K5_BF16_SCALED * ref.abs().max().item()
+                                  and rel_l2 <= K5_BF16_SCALED)
+    return dict(max_abs_err=max_abs, rel_l2=rel_l2, reference_tol=reference_tol,
+                scaled_limit=scaled, ok=reference_tol and scaled)
+
+
+def k5_case(gen, B, S, H, KVH, Dh, q_dtype, cache_dtype, mask_kind):
+    """K5 against its plain version, timed beside the bound and SDPA; and
+    two planted faults (masks K5 is handed wrongly) that the check must reject."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    q = torch.randn(B, 1, H, Dh, generator=gen, device="cuda", dtype=q_dtype)
+    k = torch.randn(B, S, KVH, Dh, generator=gen, device="cuda", dtype=cache_dtype)
+    v = torch.randn(B, S, KVH, Dh, generator=gen, device="cuda", dtype=cache_dtype)
+    idx = torch.arange(S, device="cuda")
+    if mask_kind == "prefix":  # a full cache at position 3000
+        valid = idx <= 3000
+    else:  # a ring buffer of S slots at position 5000 under a 2048-token window
+        pos, window = 5000, 2048
+        abs_pos = idx + S * torch.div(pos - idx, S, rounding_mode="floor")
+        valid = (abs_pos >= 0) & (abs_pos <= pos) & (pos - abs_pos < window)
+    out = decode_attention(q, k, v, valid)
+    ref = decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    low = "bfloat16" if torch.bfloat16 in (q_dtype, cache_dtype) else "float32"
+    verdict = k5_verdict(out, ref, low)
+    check(verdict["ok"], f"decode_attention {mask_kind} {q_dtype}/{cache_dtype}: {verdict}")
+    one_row = valid.clone()
+    one_row[int(valid.nonzero().max())] = False
+    faults = {"one_stream_dropped": valid & ((idx // K5_STREAM_ROWS) % K5_STREAMS != 0),
+              "one_row_dropped": one_row}
+    planted = {}
+    for name, wrong in faults.items():
+        planted[name] = k5_verdict(decode_attention(q, k, v, wrong), ref, low)
+        check(not planted[name]["ok"], f"decode_attention: planted fault {name} passed the "
+                                       f"check: {planted[name]}")
+    n_valid = int(valid.sum())
+    b_ms, b_by = bound_ms(2 * q.numel() * q.element_size() + S
+                          + 2 * B * KVH * Dh * n_valid * k.element_size(),
+                          4 * B * H * Dh * n_valid, "float32")
+    # SDPA takes one dtype: q is cast to the cache's outside the timed call.
+    qs = q.to(cache_dtype).transpose(1, 2)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid[None, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    return dict(shape=[B, S, H, KVH, Dh], q_dtype=str(q_dtype).split(".")[-1],
+                cache_dtype=str(cache_dtype).split(".")[-1], mask=mask_kind, valid=n_valid,
+                max_abs_err=verdict["max_abs_err"], rel_l2=verdict["rel_l2"], tol=K5_TOL[low],
+                scaled_limit=None if low == "float32" else K5_BF16_SCALED,
+                planted_faults=planted,
+                ms=time_ms(lambda: decode_attention(q, k, v, valid), 100),
+                plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, valid), 20),
+                library_ms=time_ms(sdpa, 100),
+                device_ms=device_ms(lambda: decode_attention(q, k, v, valid), 20),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_attention_parity() -> dict:
+    """K4 and K5 against their plain versions at the serving path's shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    k4 = {dname: k4_case(gen, 4, 2048, 2048, 24, 8, 128, dt)
+          for dname, dt in (("bfloat16", bf16), ("float32", f32))}
+    small = [k4_case(gen, 2, 1000, 1000, 8, 2, 128, dt, window=256) for dt in (bf16, f32)]
+    small += [k4_case(gen, 2, 300, 700, 8, 4, 64, dt, causal=False) for dt in (bf16, f32)]
+    small += [k4_case(gen, 2, 513, 513, 32, 8, 80, dt) for dt in (bf16, f32)]
+    small += [k4_case(gen, 1, 257, 257, 32, 8, 64, dt, window=64) for dt in (bf16, f32)]
+    k5 = {(str(c).split(".")[-1], m): k5_case(gen, 8, 4096, 24, 8, 128, bf16, c, m)
+          for c in (f32, bf16) for m in ("prefix", "ring")}
+    emit({"phase": "attention_parity", "flash_attention": list(k4.values()),
+          "flash_attention_small": small, "decode_attention": list(k5.values()),
+          "library": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True), "
+                     "timed only as a yardstick"})
+    return {"flash_attention": k4["bfloat16"], "decode_attention": k5[("float32", "prefix")]}
+
+
+# ------------------------------------------------------------------ serving
+@contextlib.contextmanager
+def plain_attention(fault: bool = False):
+    """The model's attention through the plain versions, on the card; with
+    ``fault``, through plain versions with one planted fault each: full-
+    sequence attention skips the first 64-key tile (queries 0-63 get 0), and
+    decode attention drops the rows of one of K5's half-warp streams."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def skip_first_tile(q, k, v, *, causal=True, sliding_window=None, q_offset=0):
+        return flash_attention_plain(q, k[:, 64:], v[:, 64:], causal=causal,
+                                     sliding_window=sliding_window, q_offset=q_offset - 64)
+
+    def drop_stream(q, k_cache, v_cache, valid):
+        idx = torch.arange(valid.shape[0], device=valid.device)
+        return decode_attention_plain(q, k_cache, v_cache,
+                                      valid & ((idx // K5_STREAM_ROWS) % K5_STREAMS != 0))
+
+    saved = ops.attention, ops.decode_attention
+    if fault:
+        ops.attention, ops.decode_attention = skip_first_tile, drop_stream
+    else:
+        ops.attention, ops.decode_attention = flash_attention_plain, decode_attention_plain
+    try:
+        yield
+    finally:
+        ops.attention, ops.decode_attention = saved
+
+
+def rel_err(a, b) -> float:
+    """||a - b||_2 / ||b||_2 in float32."""
+    from torch.linalg import vector_norm
+
+    a, b = a.float(), b.float()
+    return (vector_norm(a - b) / vector_norm(b)).item()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serving_prompts(vocab: int):
+    """8 prompts of 128-512 tokens (numpy seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, n).tolist() for n in rng.integers(128, 513, 8)]
+
+
+def phase_serving():
+    """Prefill and batched greedy generation on Llama-3.2-3B at full size,
+    through K4 and K5, then replayed with the plain attention."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_cache, init_params
+
+    cfg = get_config("llama3.2-3b")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg)  # seed 0 on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))  # param_count() leaves out the norms
+
+    # (a) prefill: 4 x 2048 tokens, last-position logits
+    prefill = make_prefill_step(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 2048)))
+    tokens = tokens.cuda()
+    prefill(params, {"tokens": tokens[:, :128]})  # warm-up (cuBLAS handles, kernel load)
+    calls = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    k4_prefill, k5_prefill = flash_attention.launches, decode_attention.launches
+    prefill_peak = torch.cuda.max_memory_allocated()
+    check(k4_prefill == L * calls and k5_prefill == 0,
+          f"prefill launched K4 {k4_prefill} times (want {L * calls}) and K5 {k5_prefill}")
+    B, S = tokens.shape
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
+    with plain_attention():
+        plain_logits = prefill(params, {"tokens": tokens})
+    with plain_attention(fault=True):
+        prefill_fault_rel = rel_err(prefill(params, {"tokens": tokens}), plain_logits)
+    prefill_rel = rel_err(logits, plain_logits)
+    prefill_agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean().item()
+    emit({"phase": "serving_prefill_check", "rel_err_vs_plain": prefill_rel,
+          "planted_fault_rel_err": prefill_fault_rel, "rel_tol": SERVE_REL_TOL})
+    check(prefill_rel <= SERVE_REL_TOL,
+          f"prefill logits differ from the plain replay by {prefill_rel} > {SERVE_REL_TOL}")
+    check(prefill_fault_rel > SERVE_REL_TOL,
+          f"a planted K4 fault moved the prefill logits by only {prefill_fault_rel}")
+    del plain_logits
+    model = (f"{cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads}"
+             f" heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.param_dtype}")
+    emit({"phase": "serving_prefill", "model": model, "params": n_params,
+          "param_count": cfg.param_count(),
+          "init_s": init_s, "batch": [B, S], "calls": calls, "s_per_call": prefill_s,
+          "tokens_per_s": B * S / prefill_s, "peak_mem_gb": prefill_peak / 1e9,
+          "launches": {"flash_attention": k4_prefill, "decode_attention": k5_prefill},
+          "rel_err_vs_plain": prefill_rel, "argmax_agree": prefill_agree,
+          "rel_tol": SERVE_REL_TOL, "planted_fault_rel_err": prefill_fault_rel,
+          "max_abs_logit": logits.float().abs().max().item()})
+
+    # (b) batched greedy generation
+    serve = ServeConfig(max_batch=8, cache_len=1024)
+    server = BatchServer(cfg, params, serve)
+    prompts = serving_prompts(cfg.vocab_size)
+    new = 64
+    server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
+    plen = max(len(p) for p in prompts)
+    steps = plen + new - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    k4_gen, k5_gen = flash_attention.launches, decode_attention.launches
+    gen_peak = torch.cuda.max_memory_allocated()
+    check(k5_gen == L * steps and k4_gen == 0,
+          f"generate launched K5 {k5_gen} times (want {L} x {steps} steps) and K4 {k4_gen}")
+    check(len(out) == 8 and all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+                                for o in out), "generate returned malformed tokens")
+
+    # (c) teacher-forced replay: the kernels and the plain versions in lockstep
+    step = make_serve_step(cfg)
+    seq = np.zeros((8, plen + new), np.int64)
+    for i, (p, o) in enumerate(zip(prompts, out)):
+        seq[i, plen - len(p):plen] = p
+        seq[i, plen:] = o
+    seq = torch.from_numpy(seq).cuda()
+    cache_k = init_decode_cache(cfg, 8, serve.cache_len, dtype=torch.float32)
+    cache_p = init_decode_cache(cfg, 8, serve.cache_len, dtype=torch.float32)
+    rels, agree, reproduced, fault_rels = [], [], [], []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lk, cache_k = step(params, cache_k, seq[:, t], t)
+        with plain_attention():
+            lp, cache_p = step(params, cache_p, seq[:, t], t)
+        rels.append(rel_err(lk, lp))
+        if t >= plen - 1:  # logits that chose a served token
+            if t == plen - 1:  # the planted K5 fault acts from here, on a copy of the cache
+                cache_f = {name: c.clone() for name, c in cache_p.items()}
+            with plain_attention(fault=True):
+                lf, cache_f = step(params, cache_f, seq[:, t], t)
+            fault_rels.append(rel_err(lf, lp))
+            served = seq[:, t + 1]
+            reproduced.append((lk.argmax(-1) == served).float().mean().item())
+            agree.append((lp.argmax(-1) == served).float().mean().item())
+    replay_s = time.perf_counter() - t0
+    del cache_f
+    worst = int(np.argmax(rels))
+    fault = {"max": max(fault_rels), "median": float(np.median(fault_rels)),
+             "min": min(fault_rels)}
+    emit({"phase": "serving_generate_check", "rel_err_vs_plain_max": max(rels),
+          "rel_err_vs_plain_median": float(np.median(rels)), "planted_fault_rel_err": fault,
+          "rel_tol": SERVE_REL_TOL})
+    check(max(rels) <= SERVE_REL_TOL,
+          f"decode step {worst}: logits differ from the plain replay by {max(rels)} > {SERVE_REL_TOL}")
+    check(fault["max"] > SERVE_REL_TOL,
+          f"a planted K5 fault moved the decode logits by at most {fault['max']}")
+    emit({"phase": "serving_generate", "prompts": [len(p) for p in prompts], "max_batch": 8,
+          "cache_len": serve.cache_len, "cache_dtype": serve.cache_dtype, "new_tokens": new,
+          "decode_steps": steps, "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
+          "decode_tokens_per_s": 8 * steps / gen_s, "generated_tokens_per_s": 8 * new / gen_s,
+          "peak_mem_gb": gen_peak / 1e9,
+          "launches": {"flash_attention": k4_gen, "decode_attention": k5_gen},
+          "rel_err_vs_plain_max": max(rels), "rel_err_vs_plain_median": float(np.median(rels)),
+          "worst_step": worst, "rel_tol": SERVE_REL_TOL, "planted_fault_rel_err": fault,
+          "kernel_replay_reproduces_served_tokens": float(np.mean(reproduced)),
+          "plain_greedy_agrees_with_served": float(np.mean(agree)), "replay_s": replay_s})
+    launches = {"flash_attention": k4_prefill, "decode_attention": k5_gen}
+    return cfg, params, tokens, launches
+
+
+def phase_serving_profile(cfg, params, tokens) -> None:
+    """Where serving time goes: one prefill call, and 16 decode steps of the
+    8-row batch at positions 528-543 of a 1024-slot float32 cache (after a
+    warm-up round of 16 steps from position 512)."""
+    import torch
+
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_cache
+
+    prefill = make_prefill_step(cfg)
+    step = make_serve_step(cfg)
+    cache = init_decode_cache(cfg, 8, 1024, dtype=torch.float32)
+    tok = tokens.reshape(-1)[:8]
+    pos = iter(range(512, 10**6))
+
+    def decode16():
+        for _ in range(16):
+            step(params, cache, tok, next(pos))
+
+    B, S = tokens.shape
+    for label, fn in ((f"prefill {B} x {S}", lambda: prefill(params, {"tokens": tokens})),
+                      ("decode 16 steps x 8 rows", decode16)):
+        wall_ms, kernels = profiled(fn, 1)
+        busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+        emit({"phase": "serving_profile", "run": label, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms,
+              "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+              "kernel_launches": sum(c for _, c in kernels.values()),
+              "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
+                              for name, (t, c) in top]})
+
+
 def main() -> int:
     try:
         import torch
@@ -419,23 +865,36 @@ def main() -> int:
         launches, runs = phase_main_path(qprob, lprob, l_star)
         phase_profile(runs)
         phase_cpu_replay(runs, {"quadratic": fig1_quadratic("cpu"), "logistic": fig2_logistic("cpu")})
+        del qprob, lprob, runs
+        attention = phase_attention_parity()
+        cfg, params, tokens, serve_launches = phase_serving()
+        phase_serving_profile(cfg, params, tokens)
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    sources = {
+    # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
+    # server's default float32 cache).
+    rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
-                                "src/repro/kernels/prox_update.py:91"),
+                                "src/repro/kernels/prox_update.py:91",
+                                launches, parity[("prox_update_batched", "float64")]),
         "logistic_prox_gd_batched": ("src/repro_torch/kernels/csrc/logistic_prox.cu",
-                                     "src/repro/kernels/logistic_prox.py:64"),
+                                     "src/repro/kernels/logistic_prox.py:64",
+                                     launches, parity[("logistic_prox_gd_batched", "float64")]),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:105",
+                            serve_launches, attention["flash_attention"]),
+        "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:62",
+                             serve_launches, attention["decode_attention"]),
     }
     kernels = []
-    for name, (source, replaces) in sources.items():
-        p = parity[(name, "float64")]  # the main path runs in float64
+    for name, (source, replaces, counts, p) in rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+            "launches": counts[name], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-            "library_ms": None,
+            "library_ms": p.get("library_ms"),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

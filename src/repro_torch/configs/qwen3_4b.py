@@ -1,0 +1,19 @@
+"""Qwen3-4B — qk-norm GQA [hf:Qwen/Qwen3-8B family]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b",
+    family="dense",
+    source="hf:Qwen/Qwen3-8B",
+    num_layers=36,
+    d_model=2560,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=9728,
+    vocab_size=151936,
+    head_dim=80,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    param_dtype="bfloat16",
+    compute_dtype="bfloat16",
+)

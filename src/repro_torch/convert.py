@@ -3,8 +3,9 @@
 The port never imports `repro`; what crosses between the two packages is
 plain numpy.  `problem_from_arrays` rebuilds a `repro` problem from its
 leaves (``A``/``b`` for a quadratic, ``Z``/``y``/``lam`` for a logistic
-problem) and `hparams_from_numpy` a per-trial hparam table, so both packages
-compute on the same data.
+problem), `hparams_from_numpy` a per-trial hparam table and
+`dense_params_from_numpy` a dense model's parameter tree, so both packages
+compute on the same data and the same weights.
 """
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.experiments.spec import resolve_algo
+from repro_torch.models import model as M
 from repro_torch.problems import LogisticProblem, QuadraticProblem
 
 
@@ -49,3 +52,28 @@ def hparams_from_numpy(algo: str, values: Mapping[str, np.ndarray], *, device=No
     return params_cls(**{
         k: torch.tensor(np.asarray(values[k]), device=dev) for k in params_cls._fields
     })
+
+
+def dense_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The port's parameters of the dense model ``cfg`` from the reference's
+    params pytree with numpy leaves (``jax.tree.map(np.asarray, params)``):
+    the same nested dicts and stacked (L, ...) leaves, as tensors of
+    ``dtype`` (default ``cfg.param_dtype``) on ``device`` (default CUDA).
+    Leaves go through float32, which holds bfloat16 exactly.  Raises unless
+    the tree has exactly the keys and shapes `init_params` gives ``cfg``."""
+    dev = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+    expected = M.init_params(cfg, torch.Generator(), device="meta")
+
+    def convert(node, want, path):
+        if isinstance(want, dict):
+            if not isinstance(node, dict) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"params{path}: expected keys {sorted(want)}, got {got}")
+            return {k: convert(node[k], want[k], f"{path}[{k!r}]") for k in want}
+        a = np.asarray(node, dtype=np.float32)
+        if a.shape != tuple(want.shape):
+            raise ValueError(f"params{path}: expected shape {tuple(want.shape)}, got {a.shape}")
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return convert(tree, expected, "")

@@ -7,7 +7,13 @@ module                      replaces (TPU kernel)                       route
                             `prox_update_batched`
 `logistic_prox`             kernels/logistic_prox.py:64                 CUDA
                             `logistic_prox_gd_batched`
+`flash_attention`           kernels/flash_attention.py:105              CUDA
+                            `flash_attention`
+`decode_attention`          kernels/decode_attention.py:62              CUDA
+                            `decode_attention`
 ==========================  ==========================================  =====
+
+`ops` names the two attention kernels as the model code calls them.
 
 Sources live in `csrc/`; `_build` compiles them with `nvcc` at first use and
 binds them with `ctypes`.  Each wrapper runs its plain version for CPU

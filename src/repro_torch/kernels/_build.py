@@ -25,12 +25,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("prox_update", "logistic_prox")
+SOURCES = ("prox_update", "logistic_prox", "flash_attention", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-DTYPES = (torch.float32, torch.float64)
+DTYPES = (torch.float32, torch.float64)  # K1 and K2
+ATTENTION_DTYPES = (torch.bfloat16, torch.float32)  # K4 and K5
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -100,22 +101,30 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_cuda_operands(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
-    """Raise unless every operand is a contiguous float32/float64 CUDA tensor
-    of one dtype on one device; returns that dtype."""
+def check_cuda_operands(kernel: str, *, dtypes=DTYPES, **tensors: torch.Tensor) -> torch.dtype:
+    """Raise unless every operand is a contiguous CUDA tensor of one dtype
+    (one of ``dtypes``) on one device; returns that dtype."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected a CUDA tensor")
         if t.device != first.device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, other operands on {first.device}")
-        if t.dtype not in DTYPES:
-            raise TypeError(f"{kernel}: {name} has dtype {t.dtype}; the kernel takes float32 or float64")
+        if t.dtype not in dtypes:
+            takes = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{kernel}: {name} has dtype {t.dtype}; the kernel takes {takes}")
         if t.dtype != first.dtype:
             raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, other operands {first.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
     return first.dtype
+
+
+def check_aligned(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every operand starts on a 16-byte boundary (vector loads)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
 def row_scalars(kernel: str, names: tuple[str, str], values, rows: int, like: torch.Tensor):

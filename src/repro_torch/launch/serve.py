@@ -1,0 +1,104 @@
+"""Batched serving engine: static batching over the dense decode path.
+
+The port of `repro.launch.serve`:
+
+    server = BatchServer(cfg, params, ServeConfig(max_batch=8, cache_len=1024))
+    outputs = server.generate(prompts, max_new_tokens=32)
+
+Requests are grouped into batches of `max_batch`, prompts LEFT-padded with
+`pad_token` to a common length (pad tokens are attended, as in the
+reference), fed through `decode_step` token by token (prefill is decode with
+teacher forcing), then decoded greedily or by temperature sampling.  Every
+token goes through the decode-attention kernel (K5) on the card.
+
+Differences from the reference: the KV cache is written in place
+(``k_cache[:, slot] = k``) instead of by `dynamic_update_slice`; temperature
+sampling draws from a `torch.Generator` instead of a jax key; int8
+weight-only serving (`repro.quant`) is not ported and `quantize=True` raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    cache_len: int = 512
+    quantize: bool = False
+    temperature: float = 0.0  # 0 = greedy
+    pad_token: int = 0
+    cache_dtype: str = "float32"
+
+
+class BatchServer:
+    """Serves ``cfg`` with ``params`` (already on ``device``, default CUDA)."""
+
+    def __init__(self, cfg: ModelConfig, params, serve: ServeConfig | None = None, *,
+                 device=None):
+        self.cfg = cfg
+        self.serve = serve or ServeConfig()
+        if self.serve.quantize:
+            raise NotImplementedError("int8 serving (repro.quant) not ported yet")
+        self.device = resolve_device(device)
+        on = params["embed"]["emb"].device
+        if on != self.device:
+            raise ValueError(f"params are on {on}, the server runs on {self.device}")
+        self.params = params
+
+    def _fresh_cache(self, batch: int):
+        return M.init_decode_cache(self.cfg, batch, self.serve.cache_len,
+                                   dtype=getattr(torch, self.serve.cache_dtype), device=self.device)
+
+    @torch.inference_mode()
+    def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
+                 generator: torch.Generator | None = None) -> list[list[int]]:
+        """Returns the generated continuation (without the prompt) per request.
+        ``generator`` drives temperature sampling (default: seed 0 on the
+        server's device)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        out: list[list[int]] = []
+        B = self.serve.max_batch
+        for ofs in range(0, len(prompts), B):
+            out.extend(self._generate_group(prompts[ofs:ofs + B], max_new_tokens, generator))
+        return out
+
+    def _generate_group(self, group, max_new, generator):
+        n = len(group)
+        plen = max(len(p) for p in group)
+        if plen + max_new > self.serve.cache_len:
+            raise ValueError(f"cache too short: prompt {plen} + {max_new} new tokens > "
+                             f"cache_len {self.serve.cache_len}")
+        # left-pad to a common length
+        toks = np.full((n, plen), self.serve.pad_token, np.int64)
+        for i, p in enumerate(group):
+            toks[i, plen - len(p):] = p
+        toks = torch.from_numpy(toks).to(self.device)
+
+        cache = self._fresh_cache(n)
+        logits = None
+        for t in range(plen):  # prefill (teacher-forced decode)
+            logits, cache = M.decode_step(self.params, self.cfg, toks[:, t], cache, t)
+
+        gen = []
+        tok = self._sample(logits, generator)
+        for t in range(plen, plen + max_new - 1):
+            gen.append(tok)
+            logits, cache = M.decode_step(self.params, self.cfg, tok, cache, t)
+            tok = self._sample(logits, generator)
+        gen.append(tok)
+        return torch.stack(gen, dim=1).cpu().tolist()
+
+    def _sample(self, logits, generator):
+        if self.serve.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float() / self.serve.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]

@@ -1,0 +1,114 @@
+"""Dense GQA decoder-only transformer (llama3 / qwen2 / qwen3 / granite family).
+
+The port of `repro.models.transformer`.  Layer parameters keep the
+reference's *stacked* layout (every leaf of ``params["layers"]`` has a
+leading (L, ...) axis); the reference's `lax.scan` over layers is a Python
+loop over that axis.  Sharding annotations (a no-op on one card) and remat
+(training only) are not carried.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as nn
+
+
+def _attn_cfg(cfg: ModelConfig) -> nn.AttnConfig:
+    return nn.AttnConfig(
+        d_model=cfg.d_model,
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim,
+        qkv_bias=cfg.qkv_bias,
+        qk_norm=cfg.qk_norm,
+        rope_theta=cfg.rope_theta,
+        sliding_window=cfg.sliding_window,
+    )
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_params(layers, i: int):
+    """Layer ``i``'s parameters: views into the stacked (L, ...) leaves."""
+    return tree_map(lambda t: t[i], layers)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _layer_init(gen, cfg: ModelConfig, dtype, device):
+    return {
+        "ln1": nn.rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": nn.attn_init(gen, _attn_cfg(cfg), dtype, device),
+        "ln2": nn.rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": nn.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def dense_init(gen: torch.Generator, cfg: ModelConfig, device):
+    dtype = getattr(torch, cfg.param_dtype)
+    embed = nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
+    layers = _stack([_layer_init(gen, cfg, dtype, device) for _ in range(cfg.num_layers)])
+    return {
+        "embed": embed,
+        "layers": layers,
+        "ln_f": nn.rmsnorm_init(cfg.d_model, dtype, device),
+        "head": nn.linear_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype, device=device),
+    }
+
+
+def _layer_apply(lp, cfg: ModelConfig, x, rope):
+    acfg = _attn_cfg(cfg)
+    x = x + nn.attn_apply(lp["attn"], acfg, nn.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps), rope)
+    return x + nn.mlp_apply(lp["mlp"], nn.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps))
+
+
+def dense_forward(params, cfg: ModelConfig, tokens):
+    """tokens: (B, S) int -> logits (B, S, V)."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = nn.embed_apply(params["embed"], tokens).to(cdt)
+    rope = nn.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.num_layers):
+        x = _layer_apply(layer_params(params["layers"], i), cfg, x, rope)
+    x = nn.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    return nn.unembed_apply(params["head"], x)
+
+
+# ----------------------------------------------------------------- decode
+def dense_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+                     device=None):
+    """KV cache (L, B, S, KVH, Dh) of zeros.  For sliding-window configs the
+    cache is a ring buffer of length min(cache_len, window)."""
+    if cfg.sliding_window is not None:
+        cache_len = min(cache_len, cfg.sliding_window)
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def dense_decode_step(params, cfg: ModelConfig, token, cache, pos: int):
+    """token: (B,) int; pos: absolute position. One-token decode.
+
+    Returns (logits (B, V), cache); the cache is updated in place."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = nn.embed_apply(params["embed"], token[:, None]).to(cdt)  # (B,1,D)
+    acfg = _attn_cfg(cfg)
+    tables = nn.decode_tables(acfg, pos, cache["k"].shape[2], x.device)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = nn.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
+        a, _, _ = nn.attn_decode_apply(lp["attn"], acfg, h, cache["k"][i], cache["v"][i], pos,
+                                       tables)
+        x = x + a
+        x = x + nn.mlp_apply(lp["mlp"], nn.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps))
+    x = nn.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    return nn.unembed_apply(params["head"], x)[:, 0], cache

@@ -7,12 +7,25 @@ machine without JAX; there, run it without the suite's JAX conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are the reference's (tests/test_kernels_prox.py): prox_update f32
-1e-6 / f64 1e-12; logistic f32 rtol 1e-5 atol 1e-6 / f64 rtol 1e-12 atol 1e-13.
+1e-6 / f64 1e-12; logistic f32 rtol 1e-5 atol 1e-6 / f64 rtol 1e-12 atol 1e-13;
+flash attention f32 2e-5 / bf16 2e-2 (tests/test_kernels_attention.py:_tol);
+decode attention f32 2e-5 / bf16 3e-2 (tests/test_kernels_decode.py), and
+with a bf16 operand also max abs <= 2^-7 max|plain| and relative L2 <= 2^-7
+(the most two bf16 roundings of one float32 result can differ), as
+chip_smoke.py holds it: 3e-2 alone is the size of the output at S ~ 1000.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_plain,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
+)
 from repro_torch.kernels.logistic_prox import (  # noqa: E402
     logistic_prox_gd_batched,
     logistic_prox_gd_batched_plain,
@@ -24,6 +37,9 @@ from repro_torch.kernels.prox_update import (  # noqa: E402
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
 K2_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13)}
+K4_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+K5_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+K5_BF16_SCALED = 2.0**-7
 
 
 @pytest.fixture
@@ -32,6 +48,7 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     prox_update_batched.launches = 0
     logistic_prox_gd_batched.launches = 0
+    flash_attention.launches = decode_attention.launches = 0
     return torch.device("cuda")
 
 
@@ -120,3 +137,123 @@ def test_main_path_goes_through_the_kernels(cuda):
         torch.testing.assert_close(gpu.dist_sq.cpu(), cpu.dist_sq, rtol=1e-9, atol=0.0)
     assert prox_update_batched.launches == 20 * 30
     assert logistic_prox_gd_batched.launches == 30
+
+
+FLASH_CASES = [
+    # (B, Sq, Skv, H, KVH, Dh, causal, window, q_offset)
+    (2, 256, 256, 8, 2, 128, True, None, 0),  # GQA, causal, whole tiles
+    (1, 200, 200, 6, 3, 80, True, None, 0),  # ragged, qwen3's head dim
+    (2, 96, 160, 4, 2, 64, False, None, 0),  # non-causal, Sq != Skv
+    (2, 300, 300, 4, 1, 64, True, 100, 0),  # sliding window, ragged
+    (1, 64, 320, 4, 2, 128, True, None, 256),  # a chunk of queries at an offset
+    (1, 40, 40, 2, 2, 64, True, 8, 100),  # window shorter than the offset: rows with no key
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    B, Sq, Skv, H, KVH, Dh, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(2)
+    q = _randn(gen, (B, Sq, H, Dh), dtype, cuda)
+    k, v = (_randn(gen, (B, Skv, KVH, Dh), dtype, cuda) for _ in range(2))
+    kw = dict(causal=causal, sliding_window=window, q_offset=q_offset)
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v, **kw), **K4_TOL[dtype])
+
+
+def _decode_masks(S, device):
+    idx = torch.arange(S, device=device)
+    pos, window = S + S // 3, S // 2
+    abs_pos = idx + S * torch.div(pos - idx, S, rounding_mode="floor")
+    ring = (abs_pos >= 0) & (abs_pos <= pos) & (pos - abs_pos < window)
+    return {"prefix0": idx <= 0, "prefix": idx <= S // 3, "full": idx < S, "ring": ring}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 1000, 24, 8, 128), (3, 257, 32, 8, 80), (2, 130, 12, 2, 64)])
+def test_decode_attention_kernel_matches_plain(cuda, shape, q_dtype, cache_dtype):
+    """Llama's G = 3, qwen3's head dim 80 (G = 4), qwen2's G = 6; q and the
+    cache of either dtype; prefix and ring-buffer masks."""
+    B, S, H, KVH, Dh = shape
+    gen = torch.Generator().manual_seed(3)
+    q = _randn(gen, (B, 1, H, Dh), q_dtype, cuda)
+    k, v = (_randn(gen, (B, S, KVH, Dh), cache_dtype, cuda) for _ in range(2))
+    low = torch.bfloat16 if torch.bfloat16 in (q_dtype, cache_dtype) else torch.float32
+    masks = _decode_masks(S, cuda)
+    for name, valid in masks.items():
+        out = decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == q_dtype
+        want = decode_attention_plain(q, k, v, valid)
+        torch.testing.assert_close(out, want, **K5_TOL[low], msg=name)
+        if low == torch.bfloat16:
+            diff, ref = (out.float() - want.float()), want.float()
+            rel_l2 = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(ref)).item()
+            max_abs, scale = diff.abs().max().item(), ref.abs().max().item()
+            assert max_abs <= K5_BF16_SCALED * scale and rel_l2 <= K5_BF16_SCALED, (
+                f"{name}: max abs {max_abs} (max |plain| {scale}), relative L2 {rel_l2}")
+    assert decode_attention.launches == len(masks)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError, match="other operands"):
+        flash_attention(q, k.float(), k.float())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(), k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16, device=cuda), k, k)
+    qd = torch.zeros((1, 1, 36, 64), dtype=torch.bfloat16, device=cuda)
+    k4 = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="at most 8"):
+        decode_attention(qd, k4, k4, valid)
+    with pytest.raises(ValueError, match="bool"):
+        decode_attention(q[:, :1].contiguous(), k, k, valid.int())
+    flat = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(q[:, :1].contiguous(), flat[1:].view(1, 8, 2, 64), k, valid)
+    assert flash_attention.launches == 0 and decode_attention.launches == 0
+
+
+@pytest.mark.gpu
+def test_serving_path_goes_through_the_kernels(cuda):
+    """A reduced llama (2 layers, head dim 64) in float32: prefill launches
+    K4 once a layer, every decode token K5 once a layer, and the card's
+    greedy tokens and prefill logits equal the CPU's (plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import tree_map
+
+    cfg = dataclasses.replace(REGISTRY["llama3.2-3b"].reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    gpu = make_prefill_step(cfg)(on_card, {"tokens": tokens})
+    assert flash_attention.launches == cfg.num_layers
+    cpu = make_prefill_step(cfg, device="cpu")(params, {"tokens": tokens})
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+    prompts = [[1, 2, 3, 4, 5], [6, 7], [8, 9, 10]]
+    serve = ServeConfig(max_batch=2, cache_len=32)
+    got = BatchServer(cfg, on_card, serve).generate(prompts, max_new_tokens=6)
+    steps = (5 + 5) + (3 + 5)  # per group: prompt length + new tokens - 1
+    assert decode_attention.launches == cfg.num_layers * steps
+    assert got == BatchServer(cfg, params, serve, device="cpu").generate(prompts, max_new_tokens=6)
