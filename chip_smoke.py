@@ -5,9 +5,9 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives two paths of the port: the paper's fused sweep (K1, K2) and
-dense-transformer serving on Llama-3.2-3B (K4, K5).  Phases, each printed as
-one JSON line:
+It drives three paths of the port: the paper's fused sweep (K1, K2),
+dense-transformer serving on Llama-3.2-3B (K4, K5) and DeepSVRP training on
+Qwen2-1.5B (K3, K4, K4b).  Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
    build of every kernel from `src/repro_torch/kernels/csrc` (one `nvcc` per
@@ -45,7 +45,32 @@ one JSON line:
    a planted attention fault, which must exceed that limit;
 7. serving profile — one prefill call and 16 decode steps under
    torch.profiler;
-8. the `kernels` line, then the `ok` line.
+8. train parity — K3 (the DeepSVRP tree step) over the whole bf16
+   Qwen2-1.5B tree in one launch and over small f32 / f64 trees; K4's output
+   and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
+   training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
+   sliding-window, a q_offset (Sq != Skv), a no-key-rows and Dh 80 / 64
+   case; each against its plain version on the card, timed beside its
+   bound and (K4b) SDPA's forward + backward; a planted K4b fault (the
+   first 64-key tile skipped) must fail the check;
+9. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
+   bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
+   from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
+   K = 4, eta 1.0, local_lr 0.1, 3 rounds with the coins [1, 0, 1]; the
+   counts are zeroed before and read after: K3 C K a round, K4 and K4b one
+   a layer in each of the round's C (1 + K) + C refresh forward and
+   backward passes; the loss finite;
+10. train replay — round 1 again from the same state with the plain K3 and
+   the plain attention forward and backward on the card, compared with the
+   kernels' run where both runs share a point: the cohort-mean gradient at
+   x0 and the loss there (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL) and the
+   round's update x' - x0 (TRAIN_UPDATE_REL_TOL); two planted faults (K4b
+   skipping its first key tile, K3 with inv_eta 0) must exceed them;
+11. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
+   float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
+   first value (the reference test's property);
+12. train profile — one plain round under torch.profiler;
+13. the `kernels` line, then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -90,6 +115,30 @@ CPU_REPLAY_RTOL = 1e-9
 # 1.22 (prefill, K4 skipping its first 64-key tile) and 9.1e-2 at the least,
 # 1.56e-1 at most (64 decode steps, K5 dropping one half-warp stream's rows).
 SERVE_REL_TOL = 5e-2
+# Training.  K3: the reference's tolerances (tests/test_kernels_prox.py:146-177).
+K3_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-6, atol=1e-6),
+          "float64": dict(rtol=1e-12, atol=0.0)}
+K4_LSE_ATOL = 1e-5
+# K4b: float32 the reference's gradient tolerance (tests/test_kernels_attention.py:59-78);
+# bf16 max abs <= K4B_BF16_REL max|plain| and relative L2 <= K4B_BF16_REL.
+K4B_F32_TOL = dict(rtol=5e-4, atol=5e-5)
+K4B_BF16_REL = 2e-2
+TRAIN = dict(arch="qwen2-1.5b", cohorts=2, per_cohort_batch=2, seq_len=1024, local_steps=4,
+             eta=1.0, local_lr=0.1, coins=(True, False, True))
+# Round 1 with the kernels against its replay with the plain K3 and plain
+# attention (forward and backward) on the card, at points both runs share:
+# the cohort-mean gradient at x0 (relative L2, float32) with the loss there,
+# and the round's update x' - x0 (relative L2).  Read on an H100 80GB HBM3 at
+# 700 W: two kernel runs agree bit for bit; the plain run reads 2.9e-2 on the
+# gradient (worst leaf 3.6e-2), 2.8e-5 on the loss and 1.17 on the update,
+# which in bf16 at lr 0.1 is made of rounding flips (0.13 in L2 over 1.78e9
+# weights; K3 rounds once from float32, the plain version after every
+# operation, so they flip different weights).  The planted faults read 0.61
+# (K4b skipping its first key tile, on the gradient) and 6.36 (K3 with
+# inv_eta 0, on the update).  Each limit sits between the two.
+TRAIN_GRAD_REL_TOL = 0.1
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_UPDATE_REL_TOL = 2.5
 
 
 class SmokeFailure(Exception):
@@ -838,7 +887,493 @@ def phase_serving_profile(cfg, params, tokens) -> None:
                               for name, (t, c) in top]})
 
 
-def main() -> int:
+# ------------------------------------------------------ training (K3, K4b)
+def _tree(fn, *trees):
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(fn, *trees)
+
+
+def tree_rel_err(a, b) -> tuple[float, float]:
+    """(||a - b|| / ||b|| over the whole tree, the largest such ratio of one
+    leaf), in float64 sums of float32 differences."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    num = den = 0.0
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d2 = torch.sum((x.float() - y.float()).double() ** 2).item()
+        n2 = torch.sum(y.double() ** 2).item()
+        num, den = num + d2, den + n2
+        worst = max(worst, (d2 / n2) ** 0.5 if n2 > 0 else (0.0 if d2 == 0 else float("inf")))
+    return (num / den) ** 0.5, worst
+
+
+def k4b_verdict(got, want, dname: str) -> dict:
+    """K4b's errors against the plain backward on each of dq, dk, dv, and
+    whether all three meet its tolerance."""
+    import torch
+    from torch.linalg import vector_norm
+
+    out, ok = {}, True
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        max_abs, scale = (a - b).abs().max().item(), b.abs().max().item()
+        rel = (vector_norm(a - b) / vector_norm(b)).item() if scale > 0 else None
+        if not bool(torch.isfinite(a).all()):
+            good = False
+        elif dname == "float32":
+            good = bool(torch.allclose(a, b, **K4B_F32_TOL))
+        elif scale == 0.0:  # no row sees a key: the gradient is exactly 0
+            good = max_abs == 0.0
+        else:
+            good = max_abs <= K4B_BF16_REL * scale and rel <= K4B_BF16_REL
+        out[name] = dict(max_abs_err=max_abs, max_abs_plain=scale, rel_l2=rel)
+        ok = ok and good
+    out["ok"] = ok
+    return out
+
+
+def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_offset=0,
+             timed=False):
+    """K4's log-sum-exp and K4b against their plain versions on one input;
+    with ``timed``, K4b timed beside its bound, the plain backward and SDPA's
+    forward + backward, and a planted fault (K4b skipping its first 64-key
+    tile) that the check must reject."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dname = str(dtype).split(".")[-1]
+    q = torch.randn(B, Sq, H, Dh, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn(B, Skv, KVH, Dh, generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn(B, Skv, KVH, Dh, generator=gen, device="cuda", dtype=dtype)
+    do = torch.randn(B, Sq, H, Dh, generator=gen, device="cuda", dtype=dtype)
+    kw = dict(causal=causal, sliding_window=window, q_offset=q_offset)
+    out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+    torch.testing.assert_close(out, want_out, **K4_TOL[dname])  # K4 at the group of 6
+    out_err = _err(out, want_out)
+    del want_out
+    seen = fa._mask(Sq, Skv, causal, window, q_offset, q.device).any(-1)
+    lse_err = (lse - want_lse)[..., seen].abs().max().item() if bool(seen.any()) else 0.0
+    check(bool(torch.isfinite(lse).all()) and lse_err <= K4_LSE_ATOL,
+          f"flash_attention lse {dname} {[B, Sq, Skv, H, KVH, Dh]}: error {lse_err}")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    verdict = k4b_verdict(got, want, dname)
+    shape = [B, Sq, Skv, H, KVH, Dh]
+    check(verdict["ok"], f"flash_attention_bwd {dname} {shape} {kw}: {verdict}")
+    res = dict(shape=shape, dtype=dname, causal=causal, window=window, q_offset=q_offset,
+               fwd_max_abs_err=out_err, lse_max_abs_err=lse_err,
+               rows_without_key=int((~seen).sum()),
+               max_abs_err=max(verdict[n]["max_abs_err"] for n in ("dq", "dk", "dv")),
+               errors=verdict)
+    if not timed:
+        return res
+    fa._BWD_SKIP_KEY_TILES = 1
+    try:
+        planted = k4b_verdict(fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), want, dname)
+    finally:
+        fa._BWD_SKIP_KEY_TILES = 0
+    check(not planted["ok"], f"flash_attention_bwd: a skipped key tile passed the check: {planted}")
+    del got, want
+    pairs = attention_pairs(Sq, Skv, causal, window, q_offset)
+    esz = q.element_size()
+    b_ms, b_by = bound_ms((4 * q.numel() + 4 * k.numel()) * esz + 4 * lse.numel(),
+                          10 * B * H * Dh * pairs, dname)
+    check(causal and window is None and Sq == Skv and q_offset == 0,
+          "the SDPA yardstick is timed at causal, unwindowed shapes only")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def k4b():
+        return fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+    def plain():
+        return fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+
+    big = dtype == torch.float32
+    res.update(planted_fault=planted, bound_ms=b_ms, bound_by=b_by, pairs=pairs,
+               ms=time_ms(k4b, 5 if big else 20), plain_ms=time_ms(plain, 3, 1),
+               library_ms=time_ms(sdpa_fwd_bwd, 20), device_ms=device_ms(k4b, 5),
+               fwd_ms=time_ms(lambda: fa.flash_attention(q, k, v, with_lse=True, **kw),
+                              5 if big else 20))
+    return res
+
+
+def phase_train_parity() -> dict:
+    """K3, K4's log-sum-exp and K4b against their plain versions at the
+    training path's shapes."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.prox_update import prox_update, prox_update_plain
+    from repro_torch.models import init_params
+    from repro_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cfg = get_config(TRAIN["arch"])
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+    bf16 = torch.bfloat16
+
+    def rand_tree(dtype):
+        return _tree(lambda m: torch.randn(m.shape, generator=gen, device="cuda", dtype=dtype),
+                     shapes)
+
+    # K3 over the whole bf16 tree, one launch
+    y, g, z = rand_tree(bf16), rand_tree(bf16), rand_tree(bf16)
+    n = sum(t.numel() for t in tree_leaves(y))
+    prox_update.launches = 0
+    got = ops.prox_update_tree(y, g, z, TRAIN["local_lr"], 1.0 / TRAIN["eta"])
+    torch.cuda.synchronize()
+    check(prox_update.launches == 1, f"K3 took {prox_update.launches} launches for one dtype group")
+    errs = []
+    for a, b, c, o in zip(tree_leaves(y), tree_leaves(g), tree_leaves(z), tree_leaves(got)):
+        want = prox_update_plain(a, b, c, TRAIN["local_lr"], 1.0 / TRAIN["eta"])
+        torch.testing.assert_close(o, want, **K3_TOL["bfloat16"])
+        errs.append((o.float() - want.float()).abs().max().item())
+    del got, want
+
+    def k3():
+        return ops.prox_update_tree(y, g, z, TRAIN["local_lr"], 1.0 / TRAIN["eta"])
+
+    def k3_plain():
+        return _tree(lambda a, b, c: prox_update_plain(a, b, c, TRAIN["local_lr"],
+                                                       1.0 / TRAIN["eta"]), y, g, z)
+
+    b_ms, b_by = bound_ms(4 * n * 2, 5 * n, "float32")  # bf16 loads, float32 arithmetic
+    k3_res = dict(shape=[n], leaves=len(tree_leaves(y)), dtype="bfloat16", max_abs_err=max(errs),
+                  tol=K3_TOL["bfloat16"], ms=time_ms(k3, 10), plain_ms=time_ms(k3_plain, 3, 1),
+                  device_ms=device_ms(k3, 5), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    k3_res["hbm_share"] = b_ms / k3_res["ms"]
+    del y, g, z
+    small = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        leaves = [(3, 37), (129,), (1,), (70001,), (4, 5, 6)]
+        ys, gs, zs = ([torch.randn(s_, generator=gen, device="cuda", dtype=dtype) for s_ in leaves]
+                      for _ in range(3))
+        outs = prox_update(ys, gs, zs, 0.05, 2.0)
+        err = 0.0
+        for o, a, b, c in zip(outs, ys, gs, zs):
+            want = prox_update_plain(a, b, c, 0.05, 2.0)
+            torch.testing.assert_close(o, want, **K3_TOL[dname])
+            err = max(err, (o - want).abs().max().item())
+        small[dname] = dict(leaves=leaves, max_abs_err=err, tol=K3_TOL[dname])
+
+    # K4's log-sum-exp and K4b: the training shape, then the mask and head-dim cases
+    f32 = torch.float32
+    main = {str(dt).split(".")[-1]: k4b_case(gen, 2, 1024, 1024, 12, 2, 128, dt, timed=True)
+            for dt in (bf16, f32)}
+    cases = []
+    for dt in (bf16, f32):
+        cases += [k4b_case(gen, 2, 1000, 1000, 12, 2, 128, dt, window=256),
+                  k4b_case(gen, 1, 256, 1024, 12, 2, 128, dt, q_offset=768),
+                  k4b_case(gen, 1, 100, 100, 12, 2, 64, dt, window=16, q_offset=100),
+                  k4b_case(gen, 2, 513, 513, 12, 2, 80, dt),
+                  k4b_case(gen, 2, 300, 300, 12, 2, 64, dt, causal=False)]
+    emit({"phase": "train_parity", "prox_update": k3_res, "prox_update_small": small,
+          "flash_attention_bwd": list(main.values()), "flash_attention_bwd_cases": cases,
+          "library": "K4b: scaled_dot_product_attention(is_causal, enable_gqa) forward + "
+                     "autograd backward, timed only as a yardstick; K3: none"})
+    return {"prox_update": k3_res, "flash_attention_bwd": main["bfloat16"]}
+
+
+class PlainAttention:
+    """The model's attention with a gradient through the plain versions on
+    the card (forward with its log-sum-exp, the plain backward)."""
+
+    fn = None
+
+    @classmethod
+    def apply(cls, q, k, v, *, causal=True, sliding_window=None, q_offset=0):
+        import torch
+
+        from repro_torch.kernels import flash_attention as fa
+
+        if cls.fn is None:
+            class Fn(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, q, k, v, causal, window, q_offset):
+                    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                        sliding_window=window,
+                                                        q_offset=q_offset, with_lse=True)
+                    ctx.save_for_backward(q, k, v, out, lse)
+                    ctx.mask = dict(causal=causal, sliding_window=window, q_offset=q_offset)
+                    return out
+
+                @staticmethod
+                def backward(ctx, do):
+                    return (*fa.flash_attention_bwd_plain(*ctx.saved_tensors, do, **ctx.mask),
+                            None, None, None)
+
+            cls.fn = Fn
+        return cls.fn.apply(q, k, v, causal, sliding_window, q_offset)
+
+
+@contextlib.contextmanager
+def train_ops(mode: str):
+    """Rebind the training path's ops: "plain" runs the plain K3 and the plain
+    attention forward and backward on the card; "k4b_fault" K4b skipping its
+    first 64-key tile; "k3_fault" K3 with inv_eta 0 (the prox term dropped)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.prox_update import prox_update_plain
+
+    saved = ops.attention, ops.prox_update_tree
+    real_tree = ops.prox_update_tree
+    if mode == "plain":
+        ops.attention = PlainAttention.apply
+        ops.prox_update_tree = lambda y, g, z, lr, ie: _tree(
+            lambda a, b, c: prox_update_plain(a, b, c, lr, ie), y, g, z)
+    elif mode == "k4b_fault":
+        fa._BWD_SKIP_KEY_TILES = 1
+    elif mode == "k3_fault":
+        ops.prox_update_tree = lambda y, g, z, lr, ie: real_tree(y, g, z, lr, 0.0)
+    try:
+        yield
+    finally:
+        ops.attention, ops.prox_update_tree = saved
+        fa._BWD_SKIP_KEY_TILES = 0
+
+
+def _launch_counts():
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.prox_update import prox_update
+
+    return {"prox_update": prox_update.launches, "flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
+
+
+def _zero_launch_counts():
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.prox_update import prox_update
+
+    prox_update.launches = flash_attention.launches = flash_attention_bwd.launches = 0
+
+
+def phase_train():
+    """DeepSVRP training of Qwen2-1.5B at full size on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.deep import DeepSVRPConfig
+    from repro_torch.data import ShardedBatcher, SyntheticLMDataset
+    from repro_torch.launch import make_svrp_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(TRAIN["arch"])
+    C, b, S, K = TRAIN["cohorts"], TRAIN["per_cohort_batch"], TRAIN["seq_len"], TRAIN["local_steps"]
+    t0 = time.perf_counter()
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
+    batch_np = ShardedBatcher(ds, num_cohorts=C, per_cohort_batch=b, seq_len=S).next_batch()
+    data_s = time.perf_counter() - t0
+    del ds
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    svrp = DeepSVRPConfig(eta=TRAIN["eta"], local_lr=TRAIN["local_lr"], local_steps=K,
+                          anchor_prob=0.0625)
+    step, helpers = make_svrp_train_step(cfg, svrp, cohorts=C)
+    t0 = time.perf_counter()
+    state = helpers["init_state"]()  # seed 0 on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    check(cfg.num_layers == 28 and cfg.d_model == 1536 and abs(n_params - 1.777e9) < 1e7,
+          f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, {n_params} parameters")
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    ms, losses = [], []
+    for coin in TRAIN["coins"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, refresh=coin)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    passes = sum(C * (1 + K) + C * int(coin) for coin in TRAIN["coins"])
+    want = {"prox_update": C * K * len(TRAIN["coins"]), "flash_attention": L * passes,
+            "flash_attention_bwd": L * passes}
+    check(launches == want, f"train launches {launches}, want {want} "
+                            f"(K3: C K a round; K4, K4b: {L} a pass, C (1 + K) + C refresh passes)")
+    check(all(np.isfinite(losses)), f"train losses {losses} not finite")
+    tokens = C * b * S
+    steady = float(np.mean(ms[1:]))
+    model = (f"{cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads}"
+             f" heads, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+             f"{cfg.param_dtype}")
+    emit({"phase": "train", "model": model, "params": n_params, "init_s": init_s,
+          "data_s": data_s, "batch": list(batch["tokens"].shape), "cohorts": C,
+          "local_steps": K, "eta": TRAIN["eta"], "local_lr": TRAIN["local_lr"],
+          "coins": list(TRAIN["coins"]), "losses": losses, "ms_per_round": ms,
+          "ms_per_round_after_first": steady, "tokens_per_round": tokens,
+          "trained_tokens_per_s": tokens / steady * 1e3, "passes": passes,
+          "peak_mem_gb": peak / 1e9, "launches": launches, "launches_expected": want})
+    del state
+    return cfg, step, helpers, batch, launches
+
+
+def phase_train_profile(step, helpers, batch) -> None:
+    """Where a training round's time goes: one plain round (no refresh)
+    under torch.profiler, after one unprofiled."""
+    state = helpers["init_state"]()
+
+    def one_round():
+        step(state, batch, refresh=False)
+
+    wall_ms, kernels = profiled(one_round, 1)
+    del state
+    busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "train_profile", "run": "one plain round, C = 2, K = 4", "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
+          "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+          "kernel_launches": sum(c for _, c in kernels.values()),
+          "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
+                          for name, (t, c) in top]})
+
+
+def tree_dist(a, b) -> float:
+    """||a - b||_2 over a whole tree, float64 sums of float32 differences."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(torch.sum((x.float() - y.float()).double() ** 2).item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b))) ** 0.5
+
+
+def phase_train_replay(cfg, step, helpers, batch) -> dict:
+    """Round 1 again from the same state, with the kernels (twice), with the
+    plain K3 and plain attention on the card, and with each planted fault.
+
+    Two quantities are compared with the kernels' run, each at a point both
+    runs share: the cohort-mean gradient at x0 (the round's first pass:
+    K4 and K4b in all 28 layers) with the loss there, and the round's update
+    x' - x0 (K3's four steps a cohort, on gradients through K4 and K4b)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import value_and_grad
+
+    C = TRAIN["cohorts"]
+    b = batch["tokens"].shape[0] // C
+    shards = [{k: v[c * b:(c + 1) * b].long() for k, v in batch.items()} for c in range(C)]
+
+    def loss(params, shard):
+        return M.loss_fn(params, cfg, shard)
+
+    results, kept = {}, {}
+    for mode in ("kernels", "kernels_again", "plain", "k4b_fault", "k3_fault"):
+        state = helpers["init_state"]()
+        x0 = state.params
+        g0, loss0 = None, 0.0
+        with train_ops(mode):
+            for shard in shards:
+                l, g = value_and_grad(loss, x0, shard)
+                loss0 += l.item() / C
+                g0 = _tree(lambda t: t.float() / C, g) if g0 is None else \
+                    _tree(lambda a, t: a.add_(t.float() / C), g0, g)
+                del g
+            new, _ = step(state, batch, refresh=False)  # x' is round 1's; no refresh pass
+            with torch.no_grad():
+                loss1 = sum(loss(new.params, shard).item() for shard in shards) / C
+        torch.cuda.synchronize()
+        entry = {"loss_at_x0": loss0, "loss_at_x1": loss1,
+                 "x_entries_changed": sum(int((a != b_).sum()) for a, b_ in
+                                          zip(_leaves(new.params), _leaves(x0)))}
+        if mode == "kernels":
+            kept = {"grad": g0, "x": new.params}
+            entry["update_norm"] = tree_dist(new.params, x0)
+            entry["grad_norm"] = tree_dist(g0, _tree(torch.zeros_like, g0))
+        else:
+            entry["grad_rel_l2"], entry["grad_worst_leaf_rel_l2"] = tree_rel_err(g0, kept["grad"])
+            entry["update_rel_l2"] = tree_dist(new.params, kept["x"]) / \
+                results["kernels"]["update_norm"]
+            entry["loss_rel_err"] = abs(loss0 - results["kernels"]["loss_at_x0"]) / \
+                abs(results["kernels"]["loss_at_x0"])
+        results[mode] = entry
+        del state, new, x0, g0
+        torch.cuda.empty_cache()
+    del kept
+    emit({"phase": "train_replay", "round": 1, "grad_rel_tol": TRAIN_GRAD_REL_TOL,
+          "update_rel_tol": TRAIN_UPDATE_REL_TOL, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+          "note": "each run against the kernels' run", **results})
+    plain = results["plain"]
+    check(plain["grad_rel_l2"] <= TRAIN_GRAD_REL_TOL and plain["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+          and plain["update_rel_l2"] <= TRAIN_UPDATE_REL_TOL,
+          f"train replay: the plain run differs from the kernels' by {plain}")
+    check(results["k4b_fault"]["grad_rel_l2"] > TRAIN_GRAD_REL_TOL,
+          f"train replay: a K4b skipping its first key tile moved the gradient by only "
+          f"{results['k4b_fault']['grad_rel_l2']}")
+    check(results["k3_fault"]["update_rel_l2"] > TRAIN_UPDATE_REL_TOL,
+          f"train replay: a K3 with inv_eta 0 moved the update by only "
+          f"{results['k3_fault']['update_rel_l2']}")
+    return results
+
+
+def phase_train_reduced() -> dict:
+    """The reduced qwen2 in float32 through K3, K4 and K4b in float32: the
+    reference test's "it trains" property (tests/test_launch.py:71-91)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.deep import DeepSVRPConfig, draw_refresh
+    from repro_torch.launch import make_svrp_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]).reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    C, K, rounds = 4, 3, 10
+    svrp = DeepSVRPConfig(eta=0.5, local_lr=0.2, local_steps=K, anchor_prob=0.5)
+    step, helpers = make_svrp_train_step(cfg, svrp, cohorts=C)
+    state = helpers["init_state"](torch.Generator(device="cuda").manual_seed(0))
+    coins = [draw_refresh(state.rng, svrp.anchor_prob) for _ in range(rounds)]
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (8, 32))).cuda()
+    batch = {"tokens": toks, "labels": toks}
+    _zero_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for coin in coins:
+        state, metrics = step(state, batch, refresh=coin)
+        losses.append(metrics["loss"].item())
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    passes = sum(C * (1 + K) + C * int(c) for c in coins)
+    want = {"prox_update": C * K * rounds, "flash_attention": cfg.num_layers * passes,
+            "flash_attention_bwd": cfg.num_layers * passes}
+    emit({"phase": "train_reduced", "model": f"{cfg.name} reduced: {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, float32",
+          "cohorts": C, "rounds": rounds, "coins": coins, "losses": losses,
+          "ratio_last_first": losses[-1] / losses[0], "wall_s": wall_s, "launches": launches})
+    check(launches == want, f"train_reduced launches {launches}, want {want}")
+    check(losses[-1] < 0.7 * losses[0], f"train_reduced does not train: {losses}")
+    return launches
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--only", choices=("sweep", "serving", "training"), default=None,
+                    help="drive one path only (for development); the default drives all "
+                         "three and prints the kernels line")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -857,23 +1392,40 @@ def main() -> int:
     from repro_torch.device import full_precision_matmul
 
     full_precision_matmul()
+    run = {name: args.only in (None, name) for name in ("sweep", "serving", "training")}
     try:
         phase_device()
-        qprob, lprob = fig1_quadratic("cuda"), fig2_logistic("cuda")
-        l_star = lprob.minimizer()
-        parity = phase_parity(qprob, lprob)
-        launches, runs = phase_main_path(qprob, lprob, l_star)
-        phase_profile(runs)
-        phase_cpu_replay(runs, {"quadratic": fig1_quadratic("cpu"), "logistic": fig2_logistic("cpu")})
-        del qprob, lprob, runs
-        attention = phase_attention_parity()
-        cfg, params, tokens, serve_launches = phase_serving()
-        phase_serving_profile(cfg, params, tokens)
+        if run["sweep"]:
+            qprob, lprob = fig1_quadratic("cuda"), fig2_logistic("cuda")
+            l_star = lprob.minimizer()
+            parity = phase_parity(qprob, lprob)
+            launches, runs = phase_main_path(qprob, lprob, l_star)
+            phase_profile(runs)
+            phase_cpu_replay(runs, {"quadratic": fig1_quadratic("cpu"),
+                                    "logistic": fig2_logistic("cpu")})
+            del qprob, lprob, runs
+        if run["serving"]:
+            attention = phase_attention_parity()
+            cfg, params, tokens, serve_launches = phase_serving()
+            phase_serving_profile(cfg, params, tokens)
+            del cfg, params, tokens
+            torch.cuda.empty_cache()
+        if run["training"]:
+            train_parity = phase_train_parity()
+            torch.cuda.empty_cache()
+            cfg_train, step, helpers, batch, train_launches = phase_train()
+            phase_train_profile(step, helpers, batch)
+            phase_train_reduced()
+            phase_train_replay(cfg_train, step, helpers, batch)
+            del cfg_train, step, helpers, batch
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    if not all(run.values()):
+        print(f"chip_smoke: --only {args.only}: no kernels line and no ok line", file=sys.stderr)
+        return 0
     # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
-    # server's default float32 cache).
+    # server's default float32 cache); training in bf16.
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -881,9 +1433,15 @@ def main() -> int:
         "logistic_prox_gd_batched": ("src/repro_torch/kernels/csrc/logistic_prox.cu",
                                      "src/repro/kernels/logistic_prox.py:64",
                                      launches, parity[("logistic_prox_gd_batched", "float64")]),
+        "prox_update": ("src/repro_torch/kernels/csrc/prox_update.cu",
+                        "src/repro/kernels/prox_update.py:45",
+                        train_launches, train_parity["prox_update"]),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:105",
                             serve_launches, attention["flash_attention"]),
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/ops.py:105",
+                                train_launches, train_parity["flash_attention_bwd"]),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:62",
                              serve_launches, attention["decode_attention"]),

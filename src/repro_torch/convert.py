@@ -4,8 +4,10 @@ The port never imports `repro`; what crosses between the two packages is
 plain numpy.  `problem_from_arrays` rebuilds a `repro` problem from its
 leaves (``A``/``b`` for a quadratic, ``Z``/``y``/``lam`` for a logistic
 problem), `hparams_from_numpy` a per-trial hparam table and
-`dense_params_from_numpy` a dense model's parameter tree, so both packages
-compute on the same data and the same weights.
+`dense_params_from_numpy` a dense model's parameter tree and
+`svrp_state_from_numpy` a DeepSVRP train state, so both packages compute on
+the same data, the same weights and the same state; `state_to_numpy` takes
+a state back out for comparison.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.experiments.spec import resolve_algo
+from repro_torch.launch.steps import SVRPServerState
 from repro_torch.models import model as M
 from repro_torch.problems import LogisticProblem, QuadraticProblem
 
@@ -77,3 +80,31 @@ def dense_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
         return torch.tensor(a, dtype=dtype, device=dev)
 
     return convert(tree, expected, "")
+
+
+def svrp_state_from_numpy(state_tree, cfg: ModelConfig, device=None,
+                          rng: torch.Generator | None = None) -> SVRPServerState:
+    """The port's DeepSVRP train state from the reference's, with numpy
+    leaves (``jax.tree.map(np.asarray, state._asdict())``): x and w in
+    ``cfg.param_dtype``, gbar in float32, the step counter, and ``rng`` for
+    the coins of a native run (default seed 0; the reference's key does not
+    cross)."""
+    params = dense_params_from_numpy(state_tree["params"], cfg, device)
+    anchor = dense_params_from_numpy(state_tree["anchor"], cfg, device)
+    gbar = dense_params_from_numpy(state_tree["anchor_grad"], cfg, device, dtype=torch.float32)
+    return SVRPServerState(params=params, anchor=anchor, anchor_grad=gbar,
+                           step=int(np.asarray(state_tree.get("step", 0))),
+                           rng=rng if rng is not None else torch.Generator().manual_seed(0))
+
+
+def state_to_numpy(state) -> dict:
+    """``params``, ``anchor`` and ``anchor_grad`` of a train or round state
+    as trees of float32 numpy arrays (which hold bfloat16 exactly), and
+    ``step``."""
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        return t.detach().float().cpu().numpy()
+
+    return {"params": tree(state.params), "anchor": tree(state.anchor),
+            "anchor_grad": tree(state.anchor_grad), "step": int(state.step)}

@@ -29,8 +29,13 @@ it.  ``comm`` keeps the reference's dtypes under x64: int64 for sppm, int32
 for the refresh-bearing rounds (the reference's ``c.astype(int32)``
 increment fixes their counter to int32).
 
-Not ported yet: the sequential and registry-batched substrates, deep_svrp,
-the client-sharded substrate and the incremental step definitions.
+`local_prox_gd_tree` is DeepSVRP's local solver over a parameter tree, the
+loop the DeepSVRP round (`core.deep`) and the train step
+(`launch.steps.make_svrp_train_step`) run on every cohort.
+
+Not ported yet: the sequential and registry-batched substrates, the convex
+deep_svrp round definition, the client-sharded substrate and the
+incremental step definitions.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ import torch
 from repro_torch.core.channel import get_channel
 from repro_torch.core.draws import Draws
 from repro_torch.core.types import RunResult
+from repro_torch.kernels import ops as kops
+from repro_torch.utils.tree import tree_zeros_like
 
 
 class RoundDef(NamedTuple):
@@ -422,3 +429,27 @@ def _catalyzed_batched_scan(
         dist_sq=torch.cat(d2_stages, dim=1), comm=torch.cat(comm_stages, dim=1),
         x_final=x_prev,
     )
+
+
+# ------------------------------------------------- pod (pytree) local solver
+def local_prox_gd_tree(grad_fn: Callable, z, y0, local_lr, inv_eta, num_steps: int, *,
+                       update_fn: Callable | None = None, g0=None):
+    """DeepSVRP's K local Algorithm-7 steps over a parameter tree:
+    ``y <- update_fn(y, grad_fn(y), z, lr, 1/eta)``, ``num_steps`` times.
+
+    ``update_fn`` defaults to `kernels.ops.prox_update_tree` (K3, one launch
+    per dtype group), looked up at call time.  Returns ``(y_K, g_{K-1})``:
+    the last local gradient feeds the train step's "reuse_local" refresh;
+    ``g0`` seeds that carry and is what ``num_steps == 0`` returns (zeros
+    like ``y0`` when not given).  Each step drops the previous gradient
+    before computing the next, so one gradient tree is alive at a time."""
+    if update_fn is None:
+        update_fn = kops.prox_update_tree
+    if num_steps == 0:
+        return y0, g0 if g0 is not None else tree_zeros_like(y0)
+    y = y0
+    for _ in range(num_steps):
+        g = None  # the previous step's gradient, freed before the next is taken
+        g = grad_fn(y)
+        y = update_fn(y, g, z, local_lr, inv_eta)
+    return y, g

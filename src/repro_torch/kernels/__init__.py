@@ -3,17 +3,23 @@
 ==========================  ==========================================  =====
 module                      replaces (TPU kernel)                       route
 ==========================  ==========================================  =====
-`prox_update`               kernels/prox_update.py:91                   CUDA
+`prox_update` (K1)          kernels/prox_update.py:91                   CUDA
                             `prox_update_batched`
-`logistic_prox`             kernels/logistic_prox.py:64                 CUDA
+`logistic_prox` (K2)        kernels/logistic_prox.py:64                 CUDA
                             `logistic_prox_gd_batched`
-`flash_attention`           kernels/flash_attention.py:105              CUDA
+`prox_update` (K3)          kernels/prox_update.py:45                   CUDA
+                            `prox_update`
+`flash_attention` (K4)      kernels/flash_attention.py:105              CUDA
                             `flash_attention`
-`decode_attention`          kernels/decode_attention.py:62              CUDA
+`flash_attention` (K4b)     kernels/ops.py:105 `_ca_bwd`, the jnp       CUDA
+                            custom_vjp backward (no TPU kernel)
+`decode_attention` (K5)     kernels/decode_attention.py:62              CUDA
                             `decode_attention`
 ==========================  ==========================================  =====
 
-`ops` names the two attention kernels as the model code calls them.
+`ops` names the kernels as the model and round code calls them: attention
+(K4, or K4 and K4b under autograd), decode attention (K5) and the tree step
+(K3, one launch per dtype group).
 
 Sources live in `csrc/`; `_build` compiles them with `nvcc` at first use and
 binds them with `ctypes`.  Each wrapper runs its plain version for CPU

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("prox_update", "logistic_prox", "flash_attention", "decode_attention")
+SOURCES = ("prox_update", "logistic_prox", "flash_attention", "flash_attention_bwd",
+           "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

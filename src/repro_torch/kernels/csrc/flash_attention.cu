@@ -13,7 +13,10 @@
 // i + q_offset: j < Skv, and j <= i + q_offset when causal, and
 // i + q_offset - j < window when a sliding window is given.  The softmax is
 // taken in float32; the output has q's type; a row with no allowed key is 0
-// (the Pallas kernel's acc / max(l, 1e-30)).
+// (the Pallas kernel's acc / max(l, 1e-30)).  When `lse` is not null it also
+// writes each row's log-sum-exp of the scaled scores, lse[b, h, i] (float32,
+// natural log), which the backward (flash_attention_bwd.cu) recomputes P
+// from; a row with no allowed key gets a large negative finite value there.
 //
 // What bounds it on this card: operations.  At the main path's prefill
 // (bf16, B = 4, S = 2048, H = 24, Dh = 128, causal) the two products are
@@ -53,6 +56,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) or null
   int B, Sq, Skv, H, KVH;
   int q_offset, causal, window;  // window 0: none
   float scale;
@@ -298,6 +302,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   for (int r = 0; r < 2; ++r) {
     const int row = warp * 16 + g + 8 * r;
     if (row >= rows) continue;
+    if (p.lse && t == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + q0 + row] = m[r] * p.scale + logf(fmaxf(l[r], 1e-30f));
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* dst = ob + (q0 + row) * q_stride + 2 * t;
 #pragma unroll
@@ -409,6 +415,8 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   }
 
   if (r < rows) {
+    if (p.lse && c == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + q0 + r] = m + logf(fmaxf(l, 1e-30f));
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* dst = static_cast<float*>(p.o) + (long long)b * p.Sq * q_stride + (long long)h * DH +
                  (q0 + r) * q_stride;
@@ -436,12 +444,14 @@ int launch_dh(int bf16, const Params& p, void* stream) {
 
 // q (B, Sq, H, Dh), k and v (B, Skv, KVH, Dh), out like q; all contiguous, of
 // one type (bf16 when `bf16` is nonzero, else float32), 16-byte aligned.
+// lse: null, or (B, H, Sq) float32 for each row's log-sum-exp.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int bf16, int B, int Sq, int Skv, int H, int KVH, int Dh,
-                                   int q_offset, int causal, int window, float scale,
+                                   void* lse, int bf16, int B, int Sq, int Skv, int H, int KVH,
+                                   int Dh, int q_offset, int causal, int window, float scale,
                                    void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  const Params p{q, k, v, out, B, Sq, Skv, H, KVH, q_offset, causal, window, scale};
+  const Params p{q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KVH,
+                 q_offset, causal, window, scale};
   switch (Dh) {
     case 64: return launch_dh<64>(bf16, p, stream);
     case 80: return launch_dh<80>(bf16, p, stream);

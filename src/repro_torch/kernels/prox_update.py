@@ -1,14 +1,24 @@
-"""Batched Algorithm-7 step  y <- y - lr_r (g + (y - z) inv_eta_r)  per row r.
+"""The Algorithm-7 step  y <- y - lr (g + (y - z) inv_eta)  on the card: K1 and K3.
 
-Port of the TPU kernel `repro.kernels.prox_update.prox_update_batched`
-(src/repro/kernels/prox_update.py:91) as a CUDA C++ kernel for Hopper
-(`csrc/prox_update.cu`, built by `kernels._build`).  Rows are the trials of a
-sweep (or trial x cohort pairs); each row has its own ``(lr, inv_eta)``.
+Both are CUDA C++ kernels for Hopper in `csrc/prox_update.cu`, built by
+`kernels._build`.
 
-`prox_update_batched` launches the kernel for CUDA tensors and counts each
-launch in ``prox_update_batched.launches``; for CPU tensors it runs the plain
-PyTorch version `prox_update_batched_plain` (and counts nothing).  A CUDA
-tensor the kernel does not take raises; nothing falls back.
+* `prox_update_batched` (K1) ports the TPU kernel
+  `repro.kernels.prox_update.prox_update_batched`
+  (src/repro/kernels/prox_update.py:91): the batched step of a sweep, rows
+  are the trials (or trial x cohort pairs) and each row has its own
+  ``(lr, inv_eta)``.
+* `prox_update` (K3) ports `repro.kernels.prox_update.prox_update`
+  (src/repro/kernels/prox_update.py:45): one step, one pair of scalars, over
+  one tensor of any shape or over a whole group of leaves of one dtype in
+  one launch (the DeepSVRP local step, `kernels.ops.prox_update_tree`).
+  ``g`` is rounded to ``y``'s dtype first, and so are ``lr`` and
+  ``inv_eta``, as the reference rounds them (`jnp.asarray(local_lr, dtype)`).
+
+Each wrapper launches its kernel for CUDA tensors and counts each launch in
+its ``.launches`` attribute; for CPU tensors it runs its plain PyTorch
+version (`prox_update_batched_plain`, `prox_update_plain`) and counts
+nothing.  A CUDA tensor the kernel does not take raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -22,9 +32,14 @@ from repro_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _ARGTYPES = {
-    f"prox_update_batched_{s}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-    for s in _build.SUFFIX.values()
+    **{f"prox_update_batched_{s}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+       for s in _build.SUFFIX.values()},
+    **{f"prox_update_tree_{s}": [ctypes.POINTER(_I), ctypes.c_int, ctypes.c_double,
+                                 ctypes.c_double, _P]
+       for s in ("bf16", "f32", "f64")},
 }
+TREE_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
+MAX_LEAVES = 64  # leaves of one launch: the kernel's parameter block (csrc/prox_update.cu)
 
 
 def prox_update_batched_plain(y, g, z, local_lr, inv_eta):
@@ -59,3 +74,55 @@ def prox_update_batched(y, g, z, local_lr, inv_eta):
 
 
 prox_update_batched.launches = 0
+
+
+def prox_update_plain(y, g, z, local_lr, inv_eta):
+    """The plain version (the reference's `ref.prox_update` as
+    `ops.prox_update_tree` calls it): ``g``, ``lr`` and ``inv_eta`` rounded
+    to ``y``'s dtype, every operation in that dtype."""
+    lr = torch.as_tensor(local_lr, dtype=y.dtype, device=y.device)
+    ie = torch.as_tensor(inv_eta, dtype=y.dtype, device=y.device)
+    return y - lr * (g.to(y.dtype) + (y - z) * ie)
+
+
+def prox_update(y, g, z, local_lr, inv_eta):
+    """One Algorithm-7 step over ``y`` (a tensor, or a list of leaves of one
+    dtype) with ``g`` and ``z`` alike: one kernel launch for all of it.
+    Returns a new tensor, or a list, like ``y``."""
+    if isinstance(y, torch.Tensor):
+        return prox_update([y], [g], [z], local_lr, inv_eta)[0]
+    ys, gs, zs = list(y), list(g), list(z)
+    if not (len(ys) == len(gs) == len(zs)):
+        raise ValueError(f"prox_update: {len(ys)} y leaves, {len(gs)} g, {len(zs)} z")
+    if not ys or ys[0].device.type == "cpu":
+        return [prox_update_plain(a, b, c, local_lr, inv_eta) for a, b, c in zip(ys, gs, zs)]
+    name = "prox_update"
+    dtype = ys[0].dtype
+    if dtype not in TREE_DTYPES:
+        raise TypeError(f"{name}: y has dtype {dtype}; the kernel takes bfloat16, float32 "
+                        "or float64")
+    if len(ys) > MAX_LEAVES:
+        raise ValueError(f"{name}: {len(ys)} leaves in one launch; the kernel takes at most "
+                         f"{MAX_LEAVES}")
+    table, outs = [], []
+    for i, (a, b, c) in enumerate(zip(ys, gs, zs)):
+        b = b.to(dtype)  # the reference's g.astype(y.dtype)
+        _build.check_cuda_operands(f"{name} (leaf {i})", dtypes=(dtype,), y=a, g=b, z=c)
+        if b.shape != a.shape or c.shape != a.shape:
+            raise ValueError(f"{name}: leaf {i} has y {tuple(a.shape)}, g {tuple(b.shape)}, "
+                             f"z {tuple(c.shape)}")
+        if a.device != ys[0].device:
+            raise ValueError(f"{name}: leaf {i} is on {a.device}, leaf 0 on {ys[0].device}")
+        out = torch.empty_like(a)
+        outs.append(out)
+        table += [a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), a.numel()]
+    scalars = [torch.as_tensor(v, dtype=dtype).item() for v in (local_lr, inv_eta)]
+    fn = getattr(_build.load("prox_update", _ARGTYPES), f"prox_update_tree_{TREE_DTYPES[dtype]}")
+    status = fn((ctypes.c_longlong * len(table))(*table), len(ys), *scalars,
+                _build.stream_of(ys[0]))
+    _build.check_status(name, status)
+    prox_update.launches += 1
+    return outs
+
+
+prox_update.launches = 0

@@ -1,5 +1,12 @@
-"""Serving on one card: `BatchServer` and the single-device prefill and serve steps."""
+"""One card: DeepSVRP training (`make_svrp_train_step`, the `train` launcher) and
+serving (`BatchServer`, the prefill and serve steps)."""
 from repro_torch.launch.serve import BatchServer, ServeConfig
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.steps import (
+    SVRPServerState,
+    make_prefill_step,
+    make_serve_step,
+    make_svrp_train_step,
+)
 
-__all__ = ["BatchServer", "ServeConfig", "make_prefill_step", "make_serve_step"]
+__all__ = ["BatchServer", "SVRPServerState", "ServeConfig", "make_prefill_step",
+           "make_serve_step", "make_svrp_train_step"]

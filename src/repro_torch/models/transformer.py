@@ -4,7 +4,13 @@ The port of `repro.models.transformer`.  Layer parameters keep the
 reference's *stacked* layout (every leaf of ``params["layers"]`` has a
 leading (L, ...) axis); the reference's `lax.scan` over layers is a Python
 loop over that axis.  Sharding annotations (a no-op on one card) and remat
-(training only) are not carried.
+(training) are not carried: a training forward keeps every layer's
+activations, which fit one card at the sizes this port trains.
+
+Each forward takes the per-layer views with one `torch.unbind` of every
+stacked leaf, not ``t[i]`` per layer: under autograd a select's backward
+allocates a zero tensor the size of the whole stack for each layer, while
+unbind's backward stacks the layers' gradients once.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as nn
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _attn_cfg(cfg: ModelConfig) -> nn.AttnConfig:
@@ -27,16 +34,12 @@ def _attn_cfg(cfg: ModelConfig) -> nn.AttnConfig:
     )
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def layer_params(layers, i: int):
-    """Layer ``i``'s parameters: views into the stacked (L, ...) leaves."""
-    return tree_map(lambda t: t[i], layers)
+def layer_params(layers) -> list:
+    """Every layer's parameters, as views into the stacked (L, ...) leaves:
+    one `torch.unbind` of each leaf."""
+    unbound = tree_map(torch.unbind, layers)  # leaves: tuples of L views
+    n = len(tree_leaves(unbound)[0])
+    return [tree_map(lambda views, i=i: views[i], unbound) for i in range(n)]
 
 
 def _stack(trees):
@@ -77,8 +80,8 @@ def dense_forward(params, cfg: ModelConfig, tokens):
     cdt = getattr(torch, cfg.compute_dtype)
     x = nn.embed_apply(params["embed"], tokens).to(cdt)
     rope = nn.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.num_layers):
-        x = _layer_apply(layer_params(params["layers"], i), cfg, x, rope)
+    for lp in layer_params(params["layers"]):
+        x = _layer_apply(lp, cfg, x, rope)
     x = nn.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
     return nn.unembed_apply(params["head"], x)
 
@@ -103,8 +106,7 @@ def dense_decode_step(params, cfg: ModelConfig, token, cache, pos: int):
     x = nn.embed_apply(params["embed"], token[:, None]).to(cdt)  # (B,1,D)
     acfg = _attn_cfg(cfg)
     tables = nn.decode_tables(acfg, pos, cache["k"].shape[2], x.device)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(layer_params(params["layers"])):
         h = nn.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
         a, _, _ = nn.attn_decode_apply(lp["attn"], acfg, h, cache["k"][i], cache["v"][i], pos,
                                        tables)

@@ -7,14 +7,25 @@ the round (`repro.core.rounds.RoundOps`); `repro_torch` reads them from a
 ``randint`` / ``choice(replace=False)`` / ``bernoulli`` (sppm: ``randint`` on
 the round key itself; Catalyst first splits ``(key, num_outer)``) — so both
 packages run the same trajectories and ``comm`` agrees integer-exactly.
+
+For the DeepSVRP training tests: `deep_coins` replays the refresh coins the
+reference flips from ``fold_in(rng, step)``, `mixed_coin_prob` picks an
+anchor probability whose first rounds hold both kinds of round, and the
+reduced qwen2 configs, a cohort-major batch and tree comparisons are shared.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.configs import REGISTRY as JAX_REGISTRY
+from repro.data import ShardedBatcher as JBatcher
+from repro.data import SyntheticLMDataset as JDataset
+from repro_torch.configs import REGISTRY
 from repro_torch.core.draws import Draws
 
 
@@ -65,3 +76,58 @@ def draws_from_numpy(clients, coins, device="cpu") -> Draws:
         torch.tensor(np.array(clients, dtype=np.int64), device=device),
         None if coins is None else torch.tensor(np.array(coins, dtype=bool), device=device),
     )
+
+
+# ------------------------------------------------------- DeepSVRP training
+ROUND_TOL = {"float32": dict(rtol=1e-4, atol=1e-6), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def qwen2_configs(dtype="float32"):
+    """The reference's and the port's reduced qwen2-1.5b config in ``dtype``."""
+    kw = dict(param_dtype=dtype, compute_dtype=dtype)
+    return (dataclasses.replace(JAX_REGISTRY["qwen2-1.5b"].reduced(), **kw),
+            dataclasses.replace(REGISTRY["qwen2-1.5b"].reduced(), **kw))
+
+
+def np_tree(tree):
+    """A jax tree as float32 numpy (bf16 held exactly)."""
+    return jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.float32)), tree)
+
+
+def lm_batch(vocab, cohorts, b=2, seq=16):
+    """One cohort-major batch from the synthetic federated data (numpy)."""
+    ds = JDataset(vocab_size=vocab, num_clients=cohorts, alpha=0.5, seed=0)
+    return JBatcher(ds, num_cohorts=cohorts, per_cohort_batch=b, seq_len=seq).next_batch()
+
+
+def jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)).long() for k, v in batch.items()}
+
+
+def assert_tree_close(got, want, tol, what):
+    """``got`` a torch tree, ``want`` a numpy tree of the same dict structure."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            assert_tree_close(got[k], want[k], tol, f"{what}.{k}")
+    else:
+        np.testing.assert_allclose(got.detach().float().numpy(), want, **tol, err_msg=what)
+
+
+def deep_coins(key, steps, p):
+    """The reference's refresh coins ``bernoulli(fold_in(key, step), p)``."""
+    return [bool(jax.random.bernoulli(jax.random.fold_in(key, s), p)) for s in range(steps)]
+
+
+def mixed_coin_prob(key, steps=3):
+    """An anchor probability whose first ``steps`` coins under ``key`` hold
+    both a refresh and a plain round."""
+    for p in (0.5, 0.3, 0.7, 0.2, 0.8):
+        coins = deep_coins(key, steps, p)
+        if any(coins) and not all(coins):
+            return p, coins
+    raise AssertionError("no anchor probability mixes the coins")

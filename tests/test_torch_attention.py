@@ -130,8 +130,24 @@ def test_decode_attention_plain_matches_pallas(case, q_dtype, cache_dtype):
         np.testing.assert_allclose(_np(got), _np(oracle), **tol, err_msg=name)
 
 
-def test_ops_names_the_kernels():
-    """`ops` is what the model code calls: the two wrappers themselves, so
-    their launch counts see every call the model makes."""
-    assert ops.attention is flash_attention
+def test_ops_names_the_kernels(monkeypatch):
+    """`ops` is what the model code calls: the wrappers themselves, so their
+    launch counts see every call the model makes.  Full-sequence attention
+    calls K4's wrapper when no input needs a gradient, and its autograd
+    Function (K4 forward, K4b backward) when one does."""
     assert ops.decode_attention is decode_attention
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return flash_attention(*args, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    q, k, v = (torch.randn(1, 5, 2, 16) for _ in range(3))
+    assert ops.attention(q, k, v, sliding_window=3).grad_fn is None
+    assert calls == [dict(causal=True, sliding_window=3, q_offset=0)]
+    q.requires_grad_()
+    assert ops.attention(q, k, v).grad_fn is not None and len(calls) == 1
+    with torch.no_grad():
+        ops.attention(q, k, v)
+    assert len(calls) == 2

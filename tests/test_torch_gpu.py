@@ -13,6 +13,12 @@ decode attention f32 2e-5 / bf16 3e-2 (tests/test_kernels_decode.py), and
 with a bf16 operand also max abs <= 2^-7 max|plain| and relative L2 <= 2^-7
 (the most two bf16 roundings of one float32 result can differ), as
 chip_smoke.py holds it: 3e-2 alone is the size of the output at S ~ 1000.
+The tree step K3: f32 rtol 1e-6, bf16 2e-2, f64 rtol 1e-12
+(tests/test_kernels_prox.py:146-177).  K4's log-sum-exp within 1e-5 of the
+plain one on every row that sees a key.  The attention backward K4b: f32
+atol 5e-5, rtol 5e-4 (the reference's gradient tolerance,
+tests/test_kernels_attention.py:59-78); bf16 max abs <= 2e-2 max|plain| and
+relative L2 <= 2e-2 on each of dq, dk, dv.
 """
 import pytest
 
@@ -22,8 +28,12 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention,
     decode_attention_plain,
 )
+from repro_torch.kernels import flash_attention as fa_module  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_plain,
 )
 from repro_torch.kernels.logistic_prox import (  # noqa: E402
@@ -31,8 +41,10 @@ from repro_torch.kernels.logistic_prox import (  # noqa: E402
     logistic_prox_gd_batched_plain,
 )
 from repro_torch.kernels.prox_update import (  # noqa: E402
+    prox_update,
     prox_update_batched,
     prox_update_batched_plain,
+    prox_update_plain,
 )
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
@@ -40,6 +52,11 @@ K2_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e
 K4_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 K5_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 K5_BF16_SCALED = 2.0**-7
+K3_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+          torch.float64: dict(rtol=1e-12, atol=0.0)}
+K4_LSE_ATOL = 1e-5
+K4B_F32_TOL = dict(rtol=5e-4, atol=5e-5)
+K4B_BF16_REL = 2e-2
 
 
 @pytest.fixture
@@ -49,6 +66,7 @@ def cuda():
     prox_update_batched.launches = 0
     logistic_prox_gd_batched.launches = 0
     flash_attention.launches = decode_attention.launches = 0
+    prox_update.launches = flash_attention_bwd.launches = 0
     return torch.device("cuda")
 
 
@@ -239,7 +257,7 @@ def test_serving_path_goes_through_the_kernels(cuda):
     from repro_torch.configs import REGISTRY
     from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
     from repro_torch.models import init_params
-    from repro_torch.models.transformer import tree_map
+    from repro_torch.utils.tree import tree_map
 
     cfg = dataclasses.replace(REGISTRY["llama3.2-3b"].reduced(), param_dtype="float32",
                               compute_dtype="float32")
@@ -257,3 +275,174 @@ def test_serving_path_goes_through_the_kernels(cuda):
     steps = (5 + 5) + (3 + 5)  # per group: prompt length + new tokens - 1
     assert decode_attention.launches == cfg.num_layers * steps
     assert got == BatchServer(cfg, params, serve, device="cpu").generate(prompts, max_new_tokens=6)
+
+
+# ------------------------------------------------------------ K3 tree step
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+def test_prox_update_tree_kernel_matches_plain(cuda, dtype):
+    """One launch for a group of leaves: ragged sizes, a leaf of one element,
+    a leaf larger than one chunk, and a leaf whose storage is not 16-byte
+    aligned (the scalar path)."""
+    gen = torch.Generator().manual_seed(4)
+    shapes = [(3, 37), (129,), (1,), (70001,), (4, 5, 6)]
+    ys, gs, zs = ([_randn(gen, s_, dtype, cuda) for s_ in shapes] for _ in range(3))
+    flat = _randn(gen, (1 + 333,), dtype, cuda)
+    ys.append(flat[1:])  # offset by one element
+    gs.append(_randn(gen, (333,), dtype, cuda))
+    zs.append(_randn(gen, (333,), dtype, cuda))
+    out = prox_update(ys, gs, zs, 0.1, 2.0)
+    torch.cuda.synchronize()
+    assert prox_update.launches == 1
+    for o, y, g, z in zip(out, ys, gs, zs):
+        assert o.shape == y.shape and o.dtype == dtype
+        torch.testing.assert_close(o, prox_update_plain(y, g, z, 0.1, 2.0), **K3_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_prox_update_tree_mixed_dtypes(cuda):
+    """The reference's mixed tree (tests/test_kernels_prox.py:146-177): f32
+    leaves, a bf16 leaf, f32 grads against bf16 params; one launch per dtype
+    group."""
+    gen = torch.Generator().manual_seed(5)
+    y = {"a": _randn(gen, (3, 37), torch.float32, cuda), "b": _randn(gen, (129,), torch.float32, cuda),
+         "c": _randn(gen, (4, 5), torch.bfloat16, cuda),
+         "d": _randn(gen, (2, 2, 2), torch.float32, cuda)}
+    g = {k: (v.float() * 0.3) for k, v in y.items()}
+    z = {k: v - 0.25 for k, v in y.items()}
+    got = ops.prox_update_tree(y, g, z, 0.1, 2.0)
+    torch.cuda.synchronize()
+    assert prox_update.launches == 2
+    for k in y:
+        assert got[k].dtype == y[k].dtype
+        want = prox_update_plain(y[k], g[k], z[k], 0.1, 2.0)
+        torch.testing.assert_close(got[k], want, **K3_TOL[y[k].dtype])
+
+
+@pytest.mark.gpu
+def test_prox_update_tree_refuses_what_it_does_not_take(cuda):
+    y = torch.zeros(8, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16, float32"):
+        prox_update(y, y, y, 0.1, 2.0)
+    y = torch.zeros((4, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        prox_update(y.t(), y.t(), y.t(), 0.1, 2.0)
+    with pytest.raises(ValueError, match="leaf 0"):
+        prox_update(y, y[:2], y, 0.1, 2.0)
+    with pytest.raises(ValueError, match="at most"):
+        prox_update([y] * 65, [y] * 65, [y] * 65, 0.1, 2.0)
+    assert prox_update.launches == 0
+
+
+# --------------------------------------------- K4's log-sum-exp and K4b
+BWD_CASES = FLASH_CASES + [
+    (2, 256, 256, 12, 2, 128, True, None, 0),  # qwen2's group of 6
+    (1, 130, 130, 6, 1, 80, True, 50, 0),  # Dh 80, window, group 6
+]
+
+
+def _bwd_inputs(case, dtype, device, seed=6):
+    B, Sq, Skv, H, KVH, Dh, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(seed)
+    q = _randn(gen, (B, Sq, H, Dh), dtype, device)
+    k, v = (_randn(gen, (B, Skv, KVH, Dh), dtype, device) for _ in range(2))
+    do = _randn(gen, (B, Sq, H, Dh), dtype, device)
+    return q, k, v, do, dict(causal=causal, sliding_window=window, q_offset=q_offset)
+
+
+def _seen_rows(case, device):
+    """(Sq,) bool: rows that see at least one key."""
+    B, Sq, Skv, H, KVH, Dh, causal, window, q_offset = case
+    return fa_module._mask(Sq, Skv, causal, window, q_offset, device).any(-1)
+
+
+def _check_grads(got, want, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, **K4B_F32_TOL, msg=name)
+        else:
+            diff, ref = a.float() - b.float(), b.float()
+            max_abs, scale = diff.abs().max().item(), ref.abs().max().item()
+            if scale == 0.0:  # every row sees no key: the gradient is exactly 0
+                assert max_abs == 0.0, name
+                continue
+            rel = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(ref)).item()
+            assert max_abs <= K4B_BF16_REL * scale and rel <= K4B_BF16_REL, (
+                f"{name}: max abs {max_abs} (max |plain| {scale}), relative L2 {rel}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_lse_matches_plain(cuda, case, dtype):
+    q, k, v, _, kw = _bwd_inputs(case, dtype, cuda)
+    out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    want_out, want_lse = flash_attention_plain(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1]) and lse.dtype == torch.float32
+    assert bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(out, want_out, **K4_TOL[dtype])
+    seen = _seen_rows(case, cuda)
+    torch.testing.assert_close(lse[..., seen], want_lse[..., seen], rtol=0.0, atol=K4_LSE_ATOL)
+    assert torch.equal(flash_attention(q, k, v, **kw), out)  # serving's call is unchanged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
+    """K4b against the plain backward on the same (q, k, v, out, lse, do);
+    rows that see no key get dq = 0 without NaN."""
+    q, k, v, do, kw = _bwd_inputs(case, dtype, cuda)
+    out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == 1
+    _check_grads(got, flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), dtype)
+    unseen = ~_seen_rows(case, cuda)
+    assert bool((got[0][:, unseen] == 0).all())
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_rejects_a_skipped_tile(cuda, monkeypatch):
+    """The planted fault chip_smoke.py uses: K4b treating the first 64-key
+    tile as masked fails the bf16 check."""
+    case = (2, 256, 256, 12, 2, 128, True, None, 0)
+    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda)
+    out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    monkeypatch.setattr(fa_module, "_BWD_SKIP_KEY_TILES", 1)
+    with pytest.raises(AssertionError):
+        _check_grads(flash_attention_bwd(q, k, v, out, lse, do, **kw), want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_gradient_goes_through_the_kernels(cuda, dtype):
+    """`ops.attention` under autograd on the card: K4 forward and K4b
+    backward once each, gradients as the plain versions give them."""
+    case = (2, 96, 96, 12, 2, 64, True, None, 0)
+    q, k, v, do, kw = _bwd_inputs(case, dtype, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1 and flash_attention_bwd.launches == 1
+    out_p, lse_p = flash_attention_plain(q, k, v, with_lse=True, **kw)
+    _check_grads(got, flash_attention_bwd_plain(q, k, v, out_p, lse_p, do, **kw), dtype)
+
+
+@pytest.mark.gpu
+def test_attention_bwd_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((1, 4, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, k, q, lse.half(), q)
+    with pytest.raises(ValueError, match="shaped like q"):
+        flash_attention_bwd(q, k, k, q[:, :4].contiguous(), lse, q)
+    with pytest.raises(TypeError, match="other operands"):
+        flash_attention_bwd(q, k, k, q, lse, q.float())
+    assert flash_attention_bwd.launches == 0
