@@ -5,9 +5,10 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives three paths of the port: the paper's fused sweep (K1, K2),
-dense-transformer serving on Llama-3.2-3B (K4, K5) and DeepSVRP training on
-Qwen2-1.5B (K3, K4, K4b).  Phases, each printed as one JSON line:
+It drives four paths of the port: the paper's fused sweep (K1, K2),
+dense-transformer serving on Llama-3.2-3B (K4, K5), hybrid serving on
+Zamba2-2.7B (K6, K4, K5) and DeepSVRP training on Qwen2-1.5B (K3, K4, K4b).
+Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
    build of every kernel from `src/repro_torch/kernels/csrc` (one `nvcc` per
@@ -45,7 +46,33 @@ Qwen2-1.5B (K3, K4, K4b).  Phases, each printed as one JSON line:
    a planted attention fault, which must exceed that limit;
 7. serving profile — one prefill call and 16 decode steps under
    torch.profiler;
-8. train parity — K3 (the DeepSVRP tree step) over the whole bf16
+8. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
+   prefill shape (B 4, T 2048, 80 heads, P 64, N 64; x, B and C as column
+   views of one tensor, as the model hands them) in bf16 and float32, timed
+   beside its bound and the plain version; and at T = 1000 (off the chunk),
+   with a given state0, under strong decay (A = -16, dt in [0.5, 4]), at the
+   reduced P 128 / N 16, and against the sequential recurrence at T <= 256:
+   bf16 at the reference's tolerance element by element, float32 at its
+   2e-4 in relative L2 against the plain version and a float64 recurrence
+   (see k6_verdict); a planted fault (the state not carried across chunks)
+   must fail;
+9. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
+   seed 0 on the card with LoRA b, conv_b and D randomised (zeros and ones at
+   init hide a wrong wiring): `make_prefill_step` on 4 x 2048 tokens (K6 45
+   times and K4 9 times a call) and `BatchServer(max_batch=8,
+   cache_len=1024).generate` on the 8 prompts with 64 greedy tokens each (K5
+   9 times a step, K6 never: decode is the one-step recurrence).  The prefill
+   is replayed at every position with the plain scan and attention on the
+   card (SERVE_REL_TOL) and with a planted K6 fault, and again with the
+   same weights in float32 (HYBRID_F32_REL_TOL), where the fault must
+   exceed the limit; the decode is replayed teacher-forced with the plain
+   attention, and with a planted K5 fault;
+10. hybrid profile — one prefill call and 16 decode steps under
+   torch.profiler;
+11. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
+   against teacher-forced decode (K5) at the last of 200 tokens
+   (HYBRID_PATHS_REL_TOL), and the planted K6 fault beyond it;
+12. train parity — K3 (the DeepSVRP tree step) over the whole bf16
    Qwen2-1.5B tree in one launch and over small f32 / f64 trees; K4's output
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
@@ -53,24 +80,24 @@ Qwen2-1.5B (K3, K4, K4b).  Phases, each printed as one JSON line:
    case; each against its plain version on the card, timed beside its
    bound and (K4b) SDPA's forward + backward; a planted K4b fault (the
    first 64-key tile skipped) must fail the check;
-9. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
+13. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
    bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
    from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
    K = 4, eta 1.0, local_lr 0.1, 3 rounds with the coins [1, 0, 1]; the
    counts are zeroed before and read after: K3 C K a round, K4 and K4b one
    a layer in each of the round's C (1 + K) + C refresh forward and
    backward passes; the loss finite;
-10. train replay — round 1 again from the same state with the plain K3 and
+14. train replay — round 1 again from the same state with the plain K3 and
    the plain attention forward and backward on the card, compared with the
    kernels' run where both runs share a point: the cohort-mean gradient at
    x0 and the loss there (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL) and the
    round's update x' - x0 (TRAIN_UPDATE_REL_TOL); two planted faults (K4b
    skipping its first key tile, K3 with inv_eta 0) must exceed them;
-11. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
+15. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
-12. train profile — one plain round under torch.profiler;
-13. the `kernels` line, then the `ok` line.
+16. train profile — one plain round under torch.profiler;
+17. the `kernels` line, then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -139,6 +166,24 @@ TRAIN = dict(arch="qwen2-1.5b", cohorts=2, per_cohort_batch=2, seq_len=1024, loc
 TRAIN_GRAD_REL_TOL = 0.1
 TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_UPDATE_REL_TOL = 2.5
+# Hybrid serving.  K6: the reference's tolerances (tests/test_kernels_scans.py:53-59).
+K6_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+K6_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+K6_CHUNK = 64  # K6's chunk (csrc/ssm_scan.cu kQ): the planted fault drops the state there
+HYBRID = dict(arch="zamba2-2.7b", prefill=(4, 2048), max_batch=8, cache_len=1024, new_tokens=64)
+# The reduced zamba2 in float32 on the card, prefill (K6, K4) against
+# teacher-forced decode (the one-step recurrence, K5) at the last of 200
+# tokens, relative L2 of the logits: the float32 model tolerance of the CPU
+# tests (tests/test_torch_hybrid.py), where the two paths read ~1e-6.
+HYBRID_PATHS_REL_TOL = 1e-4
+# Zamba2-2.7B's prefill (every position's logits), kernels against the plain
+# scan and attention, relative L2.  bf16 is held to SERVE_REL_TOL.  There the
+# model's own rounding moves the logits by a few percent (the CPU tests read
+# 1.6-3.1% between bf16 and float32 on the reduced model), as much as the
+# planted K6 fault does (a dropped carry changes the few positions that open
+# a chunk), so the fault is held in float32 with the same weights, where
+# two right runs differ by rounding alone.
+HYBRID_F32_REL_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -226,6 +271,29 @@ def device_ms(fn, reps: int) -> float | None:
     if not kernels:
         return None
     return sum(t for t, _ in kernels.values()) / reps / 1e3
+
+
+# module of each kernel wrapper under repro_torch.kernels
+WRAPPERS = {"prox_update": "prox_update", "flash_attention": "flash_attention",
+            "flash_attention_bwd": "flash_attention", "decode_attention": "decode_attention",
+            "ssm_scan": "ssm_scan"}
+TRAIN_KERNELS = ("prox_update", "flash_attention", "flash_attention_bwd")
+HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
+
+
+def _wrapper(name):
+    import importlib
+
+    return getattr(importlib.import_module(f"repro_torch.kernels.{WRAPPERS[name]}"), name)
+
+
+def launch_counts(names) -> dict:
+    return {name: _wrapper(name).launches for name in names}
+
+
+def zero_launch_counts(names) -> None:
+    for name in names:
+        _wrapper(name).launches = 0
 
 
 # --------------------------------------------------------------- problems
@@ -716,6 +784,65 @@ def serving_prompts(vocab: int):
     return [rng.integers(1, vocab, n).tolist() for n in rng.integers(128, 513, 8)]
 
 
+REPLAY_CHECK_KEYS = ("rel_err_vs_plain_max", "rel_err_vs_plain_median", "planted_fault_rel_err")
+
+
+def decode_replay(cfg, params, prompts, out, cache_len: int) -> dict:
+    """A served batch replayed teacher-forced on the card: every step with the
+    kernels and with the plain attention in lockstep, each step's logits
+    compared, and from the last prompt token on, on a copy of the plain run's
+    cache, with a planted K5 fault (one half-warp stream's rows dropped)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import make_serve_step
+    from repro_torch.models import init_decode_cache
+
+    step = make_serve_step(cfg)
+    n, new = len(prompts), len(out[0])
+    plen = max(len(p) for p in prompts)
+    seq = np.zeros((n, plen + new), np.int64)
+    for i, (p, o) in enumerate(zip(prompts, out)):
+        seq[i, plen - len(p):plen] = p
+        seq[i, plen:] = o
+    seq = torch.from_numpy(seq).cuda()
+    cache_k = init_decode_cache(cfg, n, cache_len, dtype=torch.float32)
+    cache_p = init_decode_cache(cfg, n, cache_len, dtype=torch.float32)
+    rels, agree, reproduced, fault_rels = [], [], [], []
+    t0 = time.perf_counter()
+    for t in range(plen + new - 1):
+        lk, cache_k = step(params, cache_k, seq[:, t], t)
+        with plain_attention():
+            lp, cache_p = step(params, cache_p, seq[:, t], t)
+        rels.append(rel_err(lk, lp))
+        if t >= plen - 1:  # logits that chose a served token
+            if t == plen - 1:  # the planted K5 fault acts from here, on a copy of the cache
+                cache_f = _tree(lambda c: c.clone(), cache_p)
+            with plain_attention(fault=True):
+                lf, cache_f = step(params, cache_f, seq[:, t], t)
+            fault_rels.append(rel_err(lf, lp))
+            served = seq[:, t + 1]
+            reproduced.append((lk.argmax(-1) == served).float().mean().item())
+            agree.append((lp.argmax(-1) == served).float().mean().item())
+    return {"rel_err_vs_plain_max": max(rels), "rel_err_vs_plain_median": float(np.median(rels)),
+            "worst_step": int(np.argmax(rels)),
+            "planted_fault_rel_err": {"max": max(fault_rels),
+                                      "median": float(np.median(fault_rels)),
+                                      "min": min(fault_rels)},
+            "kernel_replay_reproduces_served_tokens": float(np.mean(reproduced)),
+            "plain_greedy_agrees_with_served": float(np.mean(agree)),
+            "replay_s": time.perf_counter() - t0}
+
+
+def check_decode_replay(replay: dict, model: str) -> None:
+    check(replay["rel_err_vs_plain_max"] <= SERVE_REL_TOL,
+          f"{model}decode step {replay['worst_step']}: logits differ from the plain replay by "
+          f"{replay['rel_err_vs_plain_max']} > {SERVE_REL_TOL}")
+    check(replay["planted_fault_rel_err"]["max"] > SERVE_REL_TOL,
+          f"a planted K5 fault moved the {model}decode logits by at most "
+          f"{replay['planted_fault_rel_err']['max']}")
+
+
 def phase_serving():
     """Prefill and batched greedy generation on Llama-3.2-3B at full size,
     through K4 and K5, then replayed with the plain attention."""
@@ -725,8 +852,8 @@ def phase_serving():
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step, make_serve_step
-    from repro_torch.models import init_decode_cache, init_params
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
 
     cfg = get_config("llama3.2-3b")
     L = cfg.num_layers
@@ -804,52 +931,17 @@ def phase_serving():
                                 for o in out), "generate returned malformed tokens")
 
     # (c) teacher-forced replay: the kernels and the plain versions in lockstep
-    step = make_serve_step(cfg)
-    seq = np.zeros((8, plen + new), np.int64)
-    for i, (p, o) in enumerate(zip(prompts, out)):
-        seq[i, plen - len(p):plen] = p
-        seq[i, plen:] = o
-    seq = torch.from_numpy(seq).cuda()
-    cache_k = init_decode_cache(cfg, 8, serve.cache_len, dtype=torch.float32)
-    cache_p = init_decode_cache(cfg, 8, serve.cache_len, dtype=torch.float32)
-    rels, agree, reproduced, fault_rels = [], [], [], []
-    t0 = time.perf_counter()
-    for t in range(steps):
-        lk, cache_k = step(params, cache_k, seq[:, t], t)
-        with plain_attention():
-            lp, cache_p = step(params, cache_p, seq[:, t], t)
-        rels.append(rel_err(lk, lp))
-        if t >= plen - 1:  # logits that chose a served token
-            if t == plen - 1:  # the planted K5 fault acts from here, on a copy of the cache
-                cache_f = {name: c.clone() for name, c in cache_p.items()}
-            with plain_attention(fault=True):
-                lf, cache_f = step(params, cache_f, seq[:, t], t)
-            fault_rels.append(rel_err(lf, lp))
-            served = seq[:, t + 1]
-            reproduced.append((lk.argmax(-1) == served).float().mean().item())
-            agree.append((lp.argmax(-1) == served).float().mean().item())
-    replay_s = time.perf_counter() - t0
-    del cache_f
-    worst = int(np.argmax(rels))
-    fault = {"max": max(fault_rels), "median": float(np.median(fault_rels)),
-             "min": min(fault_rels)}
-    emit({"phase": "serving_generate_check", "rel_err_vs_plain_max": max(rels),
-          "rel_err_vs_plain_median": float(np.median(rels)), "planted_fault_rel_err": fault,
+    replay = decode_replay(cfg, params, prompts, out, serve.cache_len)
+    emit({"phase": "serving_generate_check", **{k: replay[k] for k in REPLAY_CHECK_KEYS},
           "rel_tol": SERVE_REL_TOL})
-    check(max(rels) <= SERVE_REL_TOL,
-          f"decode step {worst}: logits differ from the plain replay by {max(rels)} > {SERVE_REL_TOL}")
-    check(fault["max"] > SERVE_REL_TOL,
-          f"a planted K5 fault moved the decode logits by at most {fault['max']}")
+    check_decode_replay(replay, "")
     emit({"phase": "serving_generate", "prompts": [len(p) for p in prompts], "max_batch": 8,
           "cache_len": serve.cache_len, "cache_dtype": serve.cache_dtype, "new_tokens": new,
           "decode_steps": steps, "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
           "decode_tokens_per_s": 8 * steps / gen_s, "generated_tokens_per_s": 8 * new / gen_s,
           "peak_mem_gb": gen_peak / 1e9,
           "launches": {"flash_attention": k4_gen, "decode_attention": k5_gen},
-          "rel_err_vs_plain_max": max(rels), "rel_err_vs_plain_median": float(np.median(rels)),
-          "worst_step": worst, "rel_tol": SERVE_REL_TOL, "planted_fault_rel_err": fault,
-          "kernel_replay_reproduces_served_tokens": float(np.mean(reproduced)),
-          "plain_greedy_agrees_with_served": float(np.mean(agree)), "replay_s": replay_s})
+          "rel_tol": SERVE_REL_TOL, **replay})
     launches = {"flash_attention": k4_prefill, "decode_attention": k5_gen}
     return cfg, params, tokens, launches
 
@@ -879,12 +971,383 @@ def phase_serving_profile(cfg, params, tokens) -> None:
         wall_ms, kernels = profiled(fn, 1)
         busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-        emit({"phase": "serving_profile", "run": label, "wall_ms": wall_ms,
+        emit({"phase": "serving_profile", "model": cfg.name, "run": label, "wall_ms": wall_ms,
               "device_busy_ms": busy_ms,
               "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
               "kernel_launches": sum(c for _, c in kernels.values()),
               "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
                               for name, (t, c) in top]})
+
+
+
+# --------------------------------------------------------- hybrid (K6)
+def ssm_inputs(gen, shape, dtype, *, strong=False, with_state=False):
+    """K6's operands as the model hands them: x, B and C column views of one
+    (B, T, H P + 2 N) tensor; dt after softplus (float32); A = -linspace(1,
+    16, H) as at init (with ``strong``: A = -16 and dt in [0.5, 4]); D
+    normal; an optional normal state0."""
+    import torch
+    import torch.nn.functional as F
+
+    Bb, T, H, P, N = shape
+    xbc = torch.randn(Bb, T, H * P + 2 * N, generator=gen, device="cuda").to(dtype)
+    x = xbc[..., :H * P].view(Bb, T, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    if strong:
+        dt = torch.rand(Bb, T, H, generator=gen, device="cuda") * 3.5 + 0.5
+        A = torch.full((H,), -16.0, device="cuda")
+    else:
+        dt = F.softplus(torch.randn(Bb, T, H, generator=gen, device="cuda") - 1.0)
+        A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    D = torch.randn(H, generator=gen, device="cuda")
+    s0 = torch.randn(Bb, H, P, N, generator=gen, device="cuda") if with_state else None
+    return x, dt, A, Bm, Cm, D, s0
+
+
+def ssm_scan_no_carry(x, dt, A, B_mat, C_mat, D, state0=None):
+    """The planted K6 fault: K6 run chunk by chunk with the state not carried
+    from one chunk to the next (the inter-chunk term dropped)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    ys, h = [], None
+    for t0 in range(0, x.shape[1], K6_CHUNK):
+        c = slice(t0, t0 + K6_CHUNK)
+        y, h = ssm_scan(x[:, c], dt[:, c], A, B_mat[:, c], C_mat[:, c], D,
+                        state0 if t0 == 0 else None)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def recurrence_f64(x, dt, A, B_mat, C_mat, D, state0=None):
+    """The reference's oracle `ref.ssm_scan`, the one-step recurrence, in
+    float64: the yardstick of K6's float32 accuracy."""
+    import torch
+
+    f64 = torch.float64
+    x, dt, A, B_mat, C_mat, D = (t.to(f64) for t in (x, dt, A, B_mat, C_mat, D))
+    Bb, T, H, P = x.shape
+    h = (torch.zeros(Bb, H, P, B_mat.shape[-1], dtype=f64, device=x.device)
+         if state0 is None else state0.to(f64))
+    y = torch.empty(Bb, T, H, P, dtype=f64, device=x.device)
+    for t in range(T):
+        h = torch.exp(A * dt[:, t])[..., None, None] * h \
+            + (dt[:, t, :, None] * x[:, t])[..., None] * B_mat[:, t][:, None, None, :]
+        y[:, t] = torch.einsum("bhpn,bn->bhp", h, C_mat[:, t]) + D[None, :, None] * x[:, t]
+    return y, h
+
+
+def k6_verdict(y, h, want_y, want_h, dname: str, truth=None) -> dict:
+    """K6's errors against a plain result and whether they meet its
+    tolerances.  bf16: the reference's, element by element.  float32: the
+    reference's 2e-4 in relative L2, against the plain result and against
+    the float64 recurrence ``truth`` where given; element by element it is
+    reported.  At N 64 and A down to -16 the chunked form's exponent
+    cum[t] - cum[s] loses ~|cum| 2^-24 to cancellation, and two right
+    float32 results (K6 chunks at 64 steps, the plain version at 128) differ
+    by up to ~2e-3 at single elements of magnitude ~10, each ~1e-3 from the
+    float64 recurrence at its worst element."""
+    import torch
+
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    tol = K6_TOL[dname]
+    yf, wf = y.float(), want_y.float()
+    over = (yf - wf).abs() > tol["atol"] + tol["rtol"] * wf.abs()
+    res = dict(max_abs_err=_err(y, want_y), rel_l2=rel_err(y, want_y),
+               state_max_abs_err=_err(h, want_h), elements_over_tol=int(over.sum()),
+               finite=finite)
+    ok = finite and bool(torch.allclose(h, want_h, **K6_STATE_TOL))
+    if dname == "bfloat16":
+        res["ok"] = ok and res["elements_over_tol"] == 0
+        return res
+    ok = ok and res["rel_l2"] <= tol["rtol"]
+    if truth is not None:
+        res["rel_l2_vs_f64"] = rel_err(y.double(), truth[0])
+        res["max_abs_err_vs_f64"] = (y.double() - truth[0]).abs().max().item()
+        res["plain_max_abs_err_vs_f64"] = (want_y.double() - truth[0]).abs().max().item()
+        ok = ok and res["rel_l2_vs_f64"] <= tol["rtol"]
+    res["ok"] = ok
+    return res
+
+
+def k6_case(gen, shape, dtype, *, strong=False, with_state=False, against_ref=False,
+            timed=False):
+    """K6 against its plain version (and with ``against_ref`` the sequential
+    recurrence) on one input; with ``timed``, K6 timed beside its bound and
+    the plain version, and the planted fault, which must fail the check."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref
+
+    dname = str(dtype).split(".")[-1]
+    args = ssm_inputs(gen, shape, dtype, strong=strong, with_state=with_state)
+    y, h = ssm_scan(*args)
+    want_y, want_h = ssm_scan_plain(*args)
+    torch.cuda.synchronize()
+    truth = recurrence_f64(*args) if dname == "float32" else None
+    res = dict(shape=list(shape), dtype=dname, strong_decay=strong, state0=with_state,
+               **k6_verdict(y, h, want_y, want_h, dname, truth))
+    check(res["ok"], f"ssm_scan {shape} {dname} strong={strong} state0={with_state}: {res}")
+    if against_ref:
+        ref_y, ref_h = ssm_scan_ref(*args)
+        res["vs_ref"] = k6_verdict(y, h, ref_y, ref_h, dname)
+        check(res["vs_ref"]["ok"], f"ssm_scan {shape} {dname} against the recurrence: {res}")
+    if not timed:
+        return res
+    res["planted_fault"] = k6_verdict(*ssm_scan_no_carry(*args), want_y, want_h, dname, truth)
+    check(not res["planted_fault"]["ok"],
+          f"ssm_scan: a state not carried across chunks passed the check: {res['planted_fault']}")
+    Bb, T, H, P, N = shape
+    esz = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * Bb * T * H * P * esz + Bb * T * H * 4 + 2 * Bb * T * N * esz + 2 * H * 4 \
+        + Bb * H * P * N * 4 * (2 if with_state else 1)
+    # operations of the reference's 128-step chunk form: C B^T, (L o C B^T)(dt x),
+    # C h^T and the state update, per chunk and (b, h)
+    Q = 128
+    flops = -(-T // Q) * Bb * H * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * P * N)
+    b_ms, b_by = bound_ms(nbytes, flops, dname)
+    res.update(bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+               ms=time_ms(lambda: ssm_scan(*args), 10),
+               plain_ms=time_ms(lambda: ssm_scan_plain(*args), 3, 1),
+               device_ms=device_ms(lambda: ssm_scan(*args), 5), library_ms=None)
+    return res
+
+
+def phase_ssm_parity() -> dict:
+    """K6 against its plain version on the card: Zamba2's prefill shape in
+    bf16 and float32 (timed), T off the chunk, a given state0, strong decay,
+    the reduced P 128 / N 16, and against the sequential recurrence at
+    T <= 256; the planted fault must fail."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    zamba = (4, 2048, 80, 64, 64)
+    main = {str(dt).split(".")[-1]: k6_case(gen, zamba, dt, timed=True) for dt in (bf16, f32)}
+    cases = []
+    for dt in (bf16, f32):
+        cases += [k6_case(gen, (2, 1000, 80, 64, 64), dt),
+                  k6_case(gen, (2, 512, 80, 64, 64), dt, with_state=True),
+                  k6_case(gen, (2, 512, 80, 64, 64), dt, strong=True, with_state=True),
+                  k6_case(gen, (2, 1000, 4, 128, 16), dt, with_state=True),
+                  k6_case(gen, (2, 256, 8, 64, 64), dt, with_state=True, against_ref=True),
+                  k6_case(gen, (1, 200, 4, 128, 16), dt, strong=True, against_ref=True)]
+    emit({"phase": "ssm_parity", "ssm_scan": list(main.values()), "ssm_scan_cases": cases,
+          "library": None, "library_note": "no single PyTorch call computes the scan"})
+    return main["bfloat16"]
+
+
+@contextlib.contextmanager
+def scan_ops(mode: str):
+    """Rebind the model's scan: "plain" runs the plain version on the card,
+    "fault" K6 with the state not carried across chunks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
+
+    saved = ops.ssm_scan
+    ops.ssm_scan = ssm_scan_plain if mode == "plain" else ssm_scan_no_carry
+    try:
+        yield
+    finally:
+        ops.ssm_scan = saved
+
+
+def randomize_hybrid(params, cfg, seed: int) -> None:
+    """Fill LoRA b, conv_b and D (zeros and ones at init, where a wrong LoRA
+    or conv-bias wiring would add exactly zero) with seeded values, in place:
+    b normal * rank**-0.5, conv_b normal * 0.1, D normal."""
+    import torch
+
+    gen = torch.Generator(device=params["embed"]["emb"].device).manual_seed(seed)
+
+    def fill(t, scale):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * scale)
+
+    for site in params["loras"].values():
+        fill(site["b"], cfg.hybrid_lora_rank**-0.5)
+    fill(params["mamba_layers"]["conv_b"], 0.1)
+    fill(params["mamba_layers"]["D"], 1.0)
+
+
+def phase_hybrid_serving():
+    """Prefill and batched greedy generation on Zamba2-2.7B at full size,
+    through K6, K4 and K5, then replayed with the plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    cfg = get_config(HYBRID["arch"])
+    G, per_group = cfg.num_layers // cfg.attn_every, cfg.attn_every - 1
+    n_mamba = G * per_group
+    t0 = time.perf_counter()
+    params = init_params(cfg)  # seed 0 on the card
+    randomize_hybrid(params, cfg, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check((n_mamba, G) == (45, 9), f"{cfg.name}: {n_mamba} Mamba-2 layers, {G} attention sites")
+
+    # (a) prefill: 4 x 2048 tokens, last-position logits
+    prefill = make_prefill_step(cfg)
+    B, S = HYBRID["prefill"]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S)))
+    tokens = tokens.cuda()
+    prefill(params, {"tokens": tokens[:, :128]})  # warm-up (cuBLAS handles, kernel load)
+    calls = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(HYBRID_KERNELS)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(HYBRID_KERNELS)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    want = {"ssm_scan": n_mamba * calls, "flash_attention": G * calls, "decode_attention": 0}
+    check(prefill_counts == want, f"prefill launches {prefill_counts}, want {want}")
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
+
+    # (b) the prefill replayed: every position's logits with the kernels, with
+    # the plain scan and plain attention, and with the planted K6 fault; in
+    # bf16 (the served model) and with the same weights in float32, where the
+    # fault is held (HYBRID_F32_REL_TOL)
+    def replay(p, c):
+        def all_logits():
+            return M.forward(p, c, {"tokens": tokens})[0]
+
+        with torch.inference_mode():
+            kern = all_logits()
+            with plain_attention(), scan_ops("plain"):
+                plain = all_logits()
+            with scan_ops("fault"):
+                fault = all_logits()
+        starts = torch.arange(0, S, K6_CHUNK, device="cuda")
+        return {"rel_err_vs_plain": rel_err(kern, plain),
+                "last_position_rel_err_vs_plain": rel_err(kern[:, -1], plain[:, -1]),
+                "chunk_starts_rel_err_vs_plain": rel_err(kern[:, starts], plain[:, starts]),
+                "argmax_agree": (kern.argmax(-1) == plain.argmax(-1)).float().mean().item(),
+                "planted_fault_rel_err": rel_err(fault, plain),
+                "planted_fault_rel_err_last_position": rel_err(fault[:, -1], plain[:, -1]),
+                "planted_fault_rel_err_chunk_starts": rel_err(fault[:, starts],
+                                                              plain[:, starts])}
+
+    t0 = time.perf_counter()
+    check_bf16 = replay(params, cfg)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params32 = _tree(lambda t: t.float(), params)
+    check_f32 = replay(params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    emit({"phase": "hybrid_prefill_check", "bfloat16": check_bf16, "float32": check_f32,
+          "rel_tol_bf16": SERVE_REL_TOL, "rel_tol_f32": HYBRID_F32_REL_TOL,
+          "replay_s": time.perf_counter() - t0})
+    check(check_bf16["rel_err_vs_plain"] <= SERVE_REL_TOL,
+          f"hybrid prefill logits differ from the plain replay by {check_bf16}")
+    check(check_f32["rel_err_vs_plain"] <= HYBRID_F32_REL_TOL,
+          f"float32 hybrid prefill logits differ from the plain replay by {check_f32}")
+    check(check_f32["planted_fault_rel_err"] > HYBRID_F32_REL_TOL,
+          f"a planted K6 fault moved the float32 prefill logits by only {check_f32}")
+    model = (f"{cfg.name}: {cfg.num_layers} slots ({n_mamba} Mamba-2, {G} shared-attention "
+             f"sites), d_model {cfg.d_model}, SSM {cfg.ssm_num_heads} heads P "
+             f"{cfg.d_model * cfg.ssm_expand // cfg.ssm_num_heads} N {cfg.ssm_state_dim}, "
+             f"attention {cfg.num_heads}/{cfg.num_kv_heads} heads Dh {cfg.head_dim}, LoRA rank "
+             f"{cfg.hybrid_lora_rank}, vocab {cfg.vocab_size}, {cfg.param_dtype}")
+    emit({"phase": "hybrid_prefill", "model": model, "params": n_params,
+          "param_count": cfg.param_count(), "init_s": init_s, "batch": [B, S], "calls": calls,
+          "s_per_call": prefill_s, "tokens_per_s": B * S / prefill_s,
+          "peak_mem_gb": prefill_peak / 1e9, "launches": prefill_counts,
+          "rel_err_vs_plain": check_bf16["rel_err_vs_plain"], "rel_tol": SERVE_REL_TOL,
+          "max_abs_logit": logits.float().abs().max().item()})
+
+    # (c) batched greedy generation (prefill by teacher-forced decode)
+    serve = ServeConfig(max_batch=HYBRID["max_batch"], cache_len=HYBRID["cache_len"])
+    server = BatchServer(cfg, params, serve)
+    prompts = serving_prompts(cfg.vocab_size)
+    new = HYBRID["new_tokens"]
+    server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
+    plen = max(len(p) for p in prompts)
+    steps = plen + new - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(HYBRID_KERNELS)
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(HYBRID_KERNELS)
+    gen_peak = torch.cuda.max_memory_allocated()
+    want = {"ssm_scan": 0, "flash_attention": 0, "decode_attention": G * steps}
+    check(gen_counts == want, f"generate launches {gen_counts}, want {want} ({steps} steps)")
+    check(len(out) == len(prompts) and all(len(o) == new and all(0 <= t < cfg.vocab_size
+                                                                 for t in o) for o in out),
+          "generate returned malformed tokens")
+
+    # (d) teacher-forced replay: the kernels and the plain versions in lockstep
+    replay = decode_replay(cfg, params, prompts, out, serve.cache_len)
+    emit({"phase": "hybrid_generate_check", **{k: replay[k] for k in REPLAY_CHECK_KEYS},
+          "rel_tol": SERVE_REL_TOL})
+    check_decode_replay(replay, "hybrid ")
+    emit({"phase": "hybrid_generate", "prompts": [len(p) for p in prompts],
+          "max_batch": serve.max_batch, "cache_len": serve.cache_len,
+          "cache_dtype": serve.cache_dtype, "new_tokens": new, "decode_steps": steps,
+          "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
+          "decode_tokens_per_s": len(prompts) * steps / gen_s,
+          "generated_tokens_per_s": len(prompts) * new / gen_s, "peak_mem_gb": gen_peak / 1e9,
+          "launches": gen_counts, "rel_tol": SERVE_REL_TOL, **replay})
+    launches = {"ssm_scan": prefill_counts["ssm_scan"]}
+    return cfg, params, tokens, launches
+
+
+def phase_hybrid_paths() -> dict:
+    """The reduced zamba2 in float32 on the card: the prefill step (K6 and K4)
+    against teacher-forced decode (the one-step recurrence and K5) at the last
+    of 200 tokens; the planted K6 fault must exceed the limit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_cache, init_params
+
+    cfg = dataclasses.replace(get_config(HYBRID["arch"]).reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    randomize_hybrid(params, cfg, seed=2)
+    T = 200
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (4, T)))
+    tokens = tokens.cuda()
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    zero_launch_counts(HYBRID_KERNELS)
+    pre = prefill(params, {"tokens": tokens})
+    pre_counts = launch_counts(HYBRID_KERNELS)
+    cache = init_decode_cache(cfg, 4, T, dtype=torch.float32)
+    for t in range(T):
+        dec, cache = step(params, cache, tokens[:, t], t)
+    with scan_ops("fault"):
+        faulted = prefill(params, {"tokens": tokens})
+    res = {"phase": "hybrid_paths", "model": f"{cfg.name} reduced, float32", "tokens": [4, T],
+           "rel_err": rel_err(pre, dec), "planted_fault_rel_err": rel_err(faulted, dec),
+           "rel_tol": HYBRID_PATHS_REL_TOL, "prefill_launches": pre_counts}
+    emit(res)
+    check(pre_counts["ssm_scan"] == 1 and pre_counts["flash_attention"] == 1,
+          f"reduced prefill launches {pre_counts}")
+    check(res["rel_err"] <= HYBRID_PATHS_REL_TOL,
+          f"prefill and teacher-forced decode differ by {res['rel_err']}")
+    check(res["planted_fault_rel_err"] > HYBRID_PATHS_REL_TOL,
+          f"a planted K6 fault moved the reduced prefill by only {res['planted_fault_rel_err']}")
+    return res
 
 
 # ------------------------------------------------------ training (K3, K4b)
@@ -1147,21 +1610,6 @@ def train_ops(mode: str):
         fa._BWD_SKIP_KEY_TILES = 0
 
 
-def _launch_counts():
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.prox_update import prox_update
-
-    return {"prox_update": prox_update.launches, "flash_attention": flash_attention.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}
-
-
-def _zero_launch_counts():
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.prox_update import prox_update
-
-    prox_update.launches = flash_attention.launches = flash_attention_bwd.launches = 0
-
-
 def phase_train():
     """DeepSVRP training of Qwen2-1.5B at full size on the card."""
     import numpy as np
@@ -1193,7 +1641,7 @@ def phase_train():
           f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, {n_params} parameters")
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts()
+    zero_launch_counts(TRAIN_KERNELS)
     ms, losses = [], []
     for coin in TRAIN["coins"]:
         torch.cuda.synchronize()
@@ -1202,7 +1650,7 @@ def phase_train():
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = _launch_counts()
+    launches = launch_counts(TRAIN_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     passes = sum(C * (1 + K) + C * int(coin) for coin in TRAIN["coins"])
     want = {"prox_update": C * K * len(TRAIN["coins"]), "flash_attention": L * passes,
@@ -1346,14 +1794,14 @@ def phase_train_reduced() -> dict:
     coins = [draw_refresh(state.rng, svrp.anchor_prob) for _ in range(rounds)]
     toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (8, 32))).cuda()
     batch = {"tokens": toks, "labels": toks}
-    _zero_launch_counts()
+    zero_launch_counts(TRAIN_KERNELS)
     losses = []
     t0 = time.perf_counter()
     for coin in coins:
         state, metrics = step(state, batch, refresh=coin)
         losses.append(metrics["loss"].item())
     wall_s = time.perf_counter() - t0
-    launches = _launch_counts()
+    launches = launch_counts(TRAIN_KERNELS)
     passes = sum(C * (1 + K) + C * int(c) for c in coins)
     want = {"prox_update": C * K * rounds, "flash_attention": cfg.num_layers * passes,
             "flash_attention_bwd": cfg.num_layers * passes}
@@ -1370,9 +1818,9 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=("sweep", "serving", "training"), default=None,
+    ap.add_argument("--only", choices=("sweep", "serving", "hybrid", "training"), default=None,
                     help="drive one path only (for development); the default drives all "
-                         "three and prints the kernels line")
+                         "four and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1392,7 +1840,7 @@ def main(argv=None) -> int:
     from repro_torch.device import full_precision_matmul
 
     full_precision_matmul()
-    run = {name: args.only in (None, name) for name in ("sweep", "serving", "training")}
+    run = {name: args.only in (None, name) for name in ("sweep", "serving", "hybrid", "training")}
     try:
         phase_device()
         if run["sweep"]:
@@ -1410,6 +1858,14 @@ def main(argv=None) -> int:
             phase_serving_profile(cfg, params, tokens)
             del cfg, params, tokens
             torch.cuda.empty_cache()
+        if run["hybrid"]:
+            ssm = phase_ssm_parity()
+            torch.cuda.empty_cache()
+            cfg, params, tokens, hybrid_launches = phase_hybrid_serving()
+            phase_serving_profile(cfg, params, tokens)
+            del cfg, params, tokens
+            torch.cuda.empty_cache()
+            phase_hybrid_paths()
         if run["training"]:
             train_parity = phase_train_parity()
             torch.cuda.empty_cache()
@@ -1425,7 +1881,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: --only {args.only}: no kernels line and no ok line", file=sys.stderr)
         return 0
     # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
-    # server's default float32 cache); training in bf16.
+    # server's default float32 cache); hybrid serving (K6) and training in bf16.
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -1445,6 +1901,8 @@ def main(argv=None) -> int:
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:62",
                              serve_launches, attention["decode_attention"]),
+        "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:68", hybrid_launches, ssm),
     }
     kernels = []
     for name, (source, replaces, counts, p) in rows.items():

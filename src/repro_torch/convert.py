@@ -3,11 +3,11 @@
 The port never imports `repro`; what crosses between the two packages is
 plain numpy.  `problem_from_arrays` rebuilds a `repro` problem from its
 leaves (``A``/``b`` for a quadratic, ``Z``/``y``/``lam`` for a logistic
-problem), `hparams_from_numpy` a per-trial hparam table and
-`dense_params_from_numpy` a dense model's parameter tree and
-`svrp_state_from_numpy` a DeepSVRP train state, so both packages compute on
-the same data, the same weights and the same state; `state_to_numpy` takes
-a state back out for comparison.
+problem), `hparams_from_numpy` a per-trial hparam table,
+`dense_params_from_numpy` and `hybrid_params_from_numpy` a dense or hybrid
+model's parameter tree and `svrp_state_from_numpy` a DeepSVRP train state,
+so both packages compute on the same data, the same weights and the same
+state; `state_to_numpy` takes a state back out for comparison.
 """
 from __future__ import annotations
 
@@ -57,15 +57,13 @@ def hparams_from_numpy(algo: str, values: Mapping[str, np.ndarray], *, device=No
     })
 
 
-def dense_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
-    """The port's parameters of the dense model ``cfg`` from the reference's
-    params pytree with numpy leaves (``jax.tree.map(np.asarray, params)``):
-    the same nested dicts and stacked (L, ...) leaves, as tensors of
-    ``dtype`` (default ``cfg.param_dtype``) on ``device`` (default CUDA).
-    Leaves go through float32, which holds bfloat16 exactly.  Raises unless
-    the tree has exactly the keys and shapes `init_params` gives ``cfg``."""
+def _params_from_numpy(tree, cfg: ModelConfig, family: str, device, dtype):
+    """``tree`` checked against the keys and shapes `init_params` gives
+    ``cfg``, as tensors on ``device``: every leaf in ``dtype``, or, with
+    ``dtype`` None, in the dtype `init_params` gives that leaf."""
+    if cfg.family != family:
+        raise ValueError(f"{cfg.name} is of the {cfg.family} family, not {family}")
     dev = resolve_device(device)
-    dtype = dtype or getattr(torch, cfg.param_dtype)
     expected = M.init_params(cfg, torch.Generator(), device="meta")
 
     def convert(node, want, path):
@@ -77,9 +75,31 @@ def dense_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
         a = np.asarray(node, dtype=np.float32)
         if a.shape != tuple(want.shape):
             raise ValueError(f"params{path}: expected shape {tuple(want.shape)}, got {a.shape}")
-        return torch.tensor(a, dtype=dtype, device=dev)
+        return torch.tensor(a, dtype=dtype or want.dtype, device=dev)
 
     return convert(tree, expected, "")
+
+
+def dense_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The port's parameters of the dense model ``cfg`` from the reference's
+    params pytree with numpy leaves (``jax.tree.map(np.asarray, params)``):
+    the same nested dicts and stacked (L, ...) leaves, as tensors of
+    ``dtype`` (default ``cfg.param_dtype``) on ``device`` (default CUDA).
+    Leaves go through float32, which holds bfloat16 exactly.  Raises unless
+    the tree has exactly the keys and shapes `init_params` gives ``cfg``."""
+    return _params_from_numpy(tree, cfg, "dense", device,
+                              dtype or getattr(torch, cfg.param_dtype))
+
+
+def hybrid_params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """The port's parameters of the hybrid model ``cfg`` (zamba2) from the
+    reference's params pytree with numpy leaves: the same nested dicts,
+    Mamba-2 leaves stacked (G, per_group, ...) and LoRA leaves (G, ...), on
+    ``device`` (default CUDA).  Each leaf keeps the reference's dtype:
+    ``cfg.param_dtype``, except the float32 ``A_log``, ``D`` and
+    ``dt_bias`` of every Mamba-2 layer.  Raises unless the tree has exactly
+    the keys and shapes `init_params` gives ``cfg``."""
+    return _params_from_numpy(tree, cfg, "hybrid", device, None)
 
 
 def svrp_state_from_numpy(state_tree, cfg: ModelConfig, device=None,

@@ -11,6 +11,8 @@ plain PyTorch version, inside each wrapper.
            (K4 forward with its log-sum-exp, K4b backward)
     decode_attention(q, k_cache, v_cache, valid)
         -> kernels.decode_attention.decode_attention  (K5)
+    ssm_scan(x, dt, A, B_mat, C_mat, D, state0=None)
+        -> kernels.ssm_scan.ssm_scan  (K6)
     prox_update(y, g, z, local_lr, inv_eta)
         -> kernels.prox_update.prox_update  (K3), one tensor
     prox_update_tree(y_tree, g_tree, z_tree, local_lr, inv_eta)
@@ -27,9 +29,10 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.prox_update import prox_update
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
-__all__ = ["attention", "decode_attention", "prox_update", "prox_update_tree"]
+__all__ = ["attention", "decode_attention", "prox_update", "prox_update_tree", "ssm_scan"]
 
 
 def attention(q, k, v, *, causal=True, sliding_window=None, q_offset=0):

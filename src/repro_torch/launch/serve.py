@@ -1,4 +1,4 @@
-"""Batched serving engine: static batching over the dense decode path.
+"""Batched serving engine: static batching over the dense and hybrid decode paths.
 
 The port of `repro.launch.serve`:
 
@@ -9,7 +9,9 @@ Requests are grouped into batches of `max_batch`, prompts LEFT-padded with
 `pad_token` to a common length (pad tokens are attended, as in the
 reference), fed through `decode_step` token by token (prefill is decode with
 teacher forcing), then decoded greedily or by temperature sampling.  Every
-token goes through the decode-attention kernel (K5) on the card.
+token goes through the decode-attention kernel (K5) on the card; in the
+hybrid family also through every Mamba-2 layer's one-step recurrence (plain
+PyTorch, as in the reference), not through the scan kernel K6.
 
 Differences from the reference: the KV cache is written in place
 (``k_cache[:, slot] = k``) instead of by `dynamic_update_slice`; temperature

@@ -70,6 +70,9 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     attention through K4 and K4b (``ops.attention``): C (1 + K) forward and
     backward passes a round, plus C on an "exact" refresh round.
     """
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is not "
+                                  f"ported yet")
     dev = resolve_device(device)
     if cohorts < 1:
         raise ValueError(f"cohorts must be >= 1, got {cohorts}")
@@ -138,8 +141,9 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
 
 
 def make_prefill_step(cfg: ModelConfig, *, device=None):
-    """Full-sequence forward (flash attention, K4, in every layer); the step
-    returns the last position's logits (B, V)."""
+    """Full-sequence forward (flash attention, K4, at every attention layer
+    or site; in the hybrid family the Mamba-2 scan, K6, in every Mamba-2
+    layer); the step returns the last position's logits (B, V)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
@@ -151,7 +155,7 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
 
 
 def make_serve_step(cfg: ModelConfig, *, device=None):
-    """One-token decode (decode attention, K5, in every layer):
+    """One-token decode (decode attention, K5, at every attention layer or site):
     (params, cache, token (B,), pos) -> (logits (B, V), cache updated in place)."""
     dev = resolve_device(device)
 

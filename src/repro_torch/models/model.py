@@ -1,4 +1,5 @@
-"""Uniform model API — the port of `repro.models.model` for the dense family.
+"""Uniform model API — the port of `repro.models.model` for the dense and
+hybrid families.
 
     params = init_params(cfg, generator, device=)  # weights from a torch.Generator
     logits, aux = forward(params, cfg, batch)        # batch: {tokens (B,S), labels (B,S)}
@@ -15,29 +16,38 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid, transformer
 from repro_torch.models import layers as nn
-from repro_torch.models import transformer
+
+# family -> (init, forward, cache_init, decode_step)
+_FAMILIES = {
+    "dense": (transformer.dense_init, transformer.dense_forward,
+              transformer.dense_cache_init, transformer.dense_decode_step),
+    "hybrid": (hybrid.hybrid_init, hybrid.hybrid_forward,
+               hybrid.hybrid_cache_init, hybrid.hybrid_decode_step),
+}
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _family(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet")
+    return _FAMILIES[cfg.family]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *, device=None):
     """Random weights as the reference draws them (normal * d_in**-0.5,
-    norms 1, biases 0), from ``generator`` (default: seed 0 on ``device``),
-    on ``device`` (default CUDA)."""
-    _dense_only(cfg)
+    norms 1, biases 0; the hybrid family's SSM and LoRA leaves as
+    `models.ssm` and `models.hybrid` say), from ``generator`` (default: seed
+    0 on ``device``), on ``device`` (default CUDA)."""
+    init = _family(cfg)[0]
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
-    return transformer.dense_init(gen, cfg, dev)
+    return init(gen, cfg, dev)
 
 
 def forward(params, cfg: ModelConfig, batch):
     """Returns (logits, aux); aux is the MoE load-balance loss, 0 here."""
-    _dense_only(cfg)
-    logits = transformer.dense_forward(params, cfg, batch["tokens"])
+    logits = _family(cfg)[1](params, cfg, batch["tokens"])
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -48,12 +58,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def init_decode_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
                       dtype=torch.bfloat16, device=None):
-    _dense_only(cfg)
-    return transformer.dense_cache_init(cfg, batch_size, cache_len, dtype, resolve_device(device))
+    return _family(cfg)[2](cfg, batch_size, cache_len, dtype, resolve_device(device))
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int):
     """token: (B,) int; pos: absolute position. Returns (logits (B, V), cache),
     the cache updated in place."""
-    _dense_only(cfg)
-    return transformer.dense_decode_step(params, cfg, token, cache, int(pos))
+    return _family(cfg)[3](params, cfg, token, cache, int(pos))

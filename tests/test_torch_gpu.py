@@ -18,7 +18,9 @@ The tree step K3: f32 rtol 1e-6, bf16 2e-2, f64 rtol 1e-12
 plain one on every row that sees a key.  The attention backward K4b: f32
 atol 5e-5, rtol 5e-4 (the reference's gradient tolerance,
 tests/test_kernels_attention.py:59-78); bf16 max abs <= 2e-2 max|plain| and
-relative L2 <= 2e-2 on each of dq, dk, dv.
+relative L2 <= 2e-2 on each of dq, dk, dv.  The Mamba-2 scan K6: y f32
+rtol = atol = 2e-4, bf16 5e-2, the final state 1e-3
+(tests/test_kernels_scans.py:53-59).
 """
 import pytest
 
@@ -46,6 +48,7 @@ from repro_torch.kernels.prox_update import (  # noqa: E402
     prox_update_batched_plain,
     prox_update_plain,
 )
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref  # noqa: E402
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
 K2_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13)}
@@ -57,6 +60,8 @@ K3_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.bfloat16: dict(rtol=2
 K4_LSE_ATOL = 1e-5
 K4B_F32_TOL = dict(rtol=5e-4, atol=5e-5)
 K4B_BF16_REL = 2e-2
+K6_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+K6_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 @pytest.fixture
@@ -67,6 +72,7 @@ def cuda():
     logistic_prox_gd_batched.launches = 0
     flash_attention.launches = decode_attention.launches = 0
     prox_update.launches = flash_attention_bwd.launches = 0
+    ssm_scan.launches = 0
     return torch.device("cuda")
 
 
@@ -446,3 +452,116 @@ def test_attention_bwd_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="other operands"):
         flash_attention_bwd(q, k, k, q, lse, q.float())
     assert flash_attention_bwd.launches == 0
+
+
+# ------------------------------------------------------------- K6 ssm_scan
+def _ssm_inputs(shape, dtype, device, *, strong=False, with_state=False, seed=0):
+    """x, B and C as column slices of one (B, T, C) tensor, as the model hands
+    them; dt after softplus; A negative (A = -16 and dt in [0.5, 4] with
+    ``strong``, as tests/test_torch_ssm_scan.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    Bb, T, H, P, N = shape
+    xbc = _randn(gen, (Bb, T, H * P + 2 * N), dtype, device)
+    x = xbc[..., :H * P].view(Bb, T, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    if strong:
+        dt = torch.rand((Bb, T, H), generator=gen).mul(3.5).add(0.5).to(device)
+        A = torch.full((H,), -16.0, device=device)
+    else:
+        dt = torch.nn.functional.softplus(_randn(gen, (Bb, T, H), torch.float32, device) - 1.0)
+        A = -torch.linspace(1.0, 16.0, H, device=device)
+    D = _randn(gen, (H,), torch.float32, device)
+    s0 = _randn(gen, (Bb, H, P, N), torch.float32, device) if with_state else None
+    return x, dt, A, Bm, Cm, D, s0
+
+
+SSM_CASES = [  # (B, T, H, P, N), strong decay, state0
+    ((2, 300, 4, 64, 64), False, False),
+    ((1, 1000, 3, 64, 64), False, True),
+    ((2, 64, 2, 64, 64), True, True),
+    ((1, 129, 3, 128, 16), False, True),
+    ((2, 1, 2, 128, 16), False, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SSM_CASES, ids=lambda c: "x".join(map(str, c[0])) +
+                         ("_strong" if c[1] else "") + ("_state0" if c[2] else ""))
+def test_ssm_scan_kernel_matches_plain(cuda, case, dtype):
+    """T off the 64-step chunk, a given state0, strong decay (no NaN), the
+    reduced config's P 128 / N 16; x, B and C read through their strides."""
+    shape, strong, with_state = case
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs(shape, dtype, cuda, strong=strong,
+                                          with_state=with_state)
+    y, h = ssm_scan(x, dt, A, Bm, Cm, D, s0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == 1
+    assert y.shape == x.shape and y.dtype == dtype and h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    y_p, h_p = ssm_scan_plain(x, dt, A, Bm, Cm, D, s0)
+    torch.testing.assert_close(y, y_p, **K6_TOL[dtype])
+    torch.testing.assert_close(h, h_p, **K6_STATE_TOL)
+    if shape[1] <= 300:
+        y_r, h_r = ssm_scan_ref(x, dt, A, Bm, Cm, D, s0)
+        torch.testing.assert_close(y, y_r, **K6_TOL[dtype])
+        torch.testing.assert_close(h, h_r, **K6_STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_refuses_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm, D, _ = _ssm_inputs((1, 70, 2, 64, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="not built"):
+        ssm_scan(x[..., :32], dt, A, Bm, Cm, D)
+    with pytest.raises(TypeError, match="x's dtype"):
+        ssm_scan(x, dt, A, Bm.float(), Cm, D)
+    with pytest.raises(TypeError, match="float32"):
+        ssm_scan(x, dt.bfloat16(), A, Bm, Cm, D)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ssm_scan(x.double(), dt, A, Bm.double(), Cm.double(), D)
+    with pytest.raises(ValueError, match="state0"):
+        ssm_scan(x, dt, A, Bm, Cm, D, torch.zeros((1, 2, 64, 63), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan(x, dt, A, Bm, Cm, D, torch.zeros((1, 2, 64, 64), device=cuda).transpose(2, 3))
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssm_scan(x, dt, A.cpu(), Bm, Cm, D)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssm_scan(x.float().requires_grad_(), dt, A, Bm.float(), Cm.float(), D)
+    assert ssm_scan.launches == 0
+
+
+@pytest.mark.gpu
+def test_hybrid_serving_path_goes_through_the_kernels(cuda):
+    """The reduced zamba2 with two groups (6 slots, 4 Mamba-2 layers, 2
+    attention sites) in float32, LoRA b, conv_b and D randomised: prefill
+    launches K6 once a Mamba-2 layer and K4 once a site, decode K5 once a site
+    and K6 never; the card's prefill logits equal the CPU's (plain versions)
+    within 1e-4, and so do its greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(REGISTRY["zamba2-2.7b"].reduced(), num_layers=6, attn_every=3,
+                              param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device="cpu")
+    for site in params["loras"].values():
+        site["b"].normal_(generator=gen).mul_(cfg.hybrid_lora_rank**-0.5)
+    params["mamba_layers"]["conv_b"].normal_(generator=gen).mul_(0.1)
+    params["mamba_layers"]["D"].normal_(generator=gen)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    gpu = make_prefill_step(cfg)(on_card, {"tokens": tokens})
+    assert ssm_scan.launches == 4 and flash_attention.launches == 2
+    cpu = make_prefill_step(cfg, device="cpu")(params, {"tokens": tokens})
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+    prompts = [[1, 2, 3, 4, 5], [6, 7], [8, 9, 10]]
+    serve = ServeConfig(max_batch=2, cache_len=32)
+    got = BatchServer(cfg, on_card, serve).generate(prompts, max_new_tokens=6)
+    steps = (5 + 5) + (3 + 5)  # per group: prompt length + new tokens - 1
+    assert decode_attention.launches == 2 * steps and ssm_scan.launches == 4
+    assert got == BatchServer(cfg, params, serve, device="cpu").generate(prompts, max_new_tokens=6)
