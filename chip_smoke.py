@@ -5,9 +5,10 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives four paths of the port: the paper's fused sweep (K1, K2),
+It drives five paths of the port: the paper's fused sweep (K1, K2),
 dense-transformer serving on Llama-3.2-3B (K4, K5), hybrid serving on
-Zamba2-2.7B (K6, K4, K5) and DeepSVRP training on Qwen2-1.5B (K3, K4, K4b).
+Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7) and DeepSVRP
+training on Qwen2-1.5B (K3, K4, K4b).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -71,8 +72,39 @@ Phases, each printed as one JSON line:
    torch.profiler;
 11. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
    against teacher-forced decode (K5) at the last of 200 tokens
-   (HYBRID_PATHS_REL_TOL), and the planted K6 fault beyond it;
-12. train parity — K3 (the DeepSVRP tree step) over the whole bf16
+   (RECURRENT_PATHS_REL_TOL), and the planted K6 fault beyond it.  Phases
+   9-11 and 13-15 run the same functions (phase_recurrent_serving,
+   phase_serving_profile, phase_recurrent_paths) on each family's record
+   (HYBRID_FAMILY, RWKV_FAMILY);
+12. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
+   rwkv6-1.6b's prefill shape (B 4, T 2048, 32 heads, K = V = 64) and decode
+   shape (B 8, T 1, the state written over state0 as decode runs it) in
+   bf16 and float32, timed beside the bound and the plain version; and at
+   T = 1000 (off the 32-step tile), at T = 300 written over state0, under
+   strong decay (w in [0.03, 0.07]) and at the reference's small
+   shapes (K 8, 16, 32): bf16 at the reference's tolerance element by
+   element, float32 at its 1e-4 in relative L2 against the plain version
+   and a float64 recurrence (see k7_verdict).  Three planted faults must
+   fail: the state not carried across tiles, the bonus u dropped, state0
+   ignored;
+13. rwkv serving — rwkv6-1.6b at full width and depth in bf16
+   (1,583,941,632 parameters), weights from seed 0 on the card with w0,
+   w_b and u randomised (at init the decay is nearly one constant):
+   `make_prefill_step` on 4 x 2048 tokens (K7 24 times a call) and
+   `BatchServer(max_batch=8).generate` on the 8 prompts with 64 greedy
+   tokens each (K7 24 times a decode step, T = 1 from the carried state,
+   which it overwrites).
+   The prefill is replayed at every position with the plain scan on the
+   card (SERVE_REL_TOL) and with the planted no-carry fault, and again with
+   the same weights in float32 (RWKV_F32_REL_TOL); the fault must exceed
+   both limits; the decode is replayed teacher-forced with the plain scan,
+   and with K7 ignoring state0, which must exceed SERVE_REL_TOL;
+14. rwkv profile — one prefill call and 16 decode steps under
+   torch.profiler;
+15. rwkv paths — the reduced rwkv6 in float32: the prefill step against
+   teacher-forced decode at the last of 200 tokens (RECURRENT_PATHS_REL_TOL),
+   and the planted no-carry fault beyond it;
+16. train parity — K3 (the DeepSVRP tree step) over the whole bf16
    Qwen2-1.5B tree in one launch and over small f32 / f64 trees; K4's output
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
@@ -80,24 +112,24 @@ Phases, each printed as one JSON line:
    case; each against its plain version on the card, timed beside its
    bound and (K4b) SDPA's forward + backward; a planted K4b fault (the
    first 64-key tile skipped) must fail the check;
-13. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
+17. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
    bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
    from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
    K = 4, eta 1.0, local_lr 0.1, 3 rounds with the coins [1, 0, 1]; the
    counts are zeroed before and read after: K3 C K a round, K4 and K4b one
    a layer in each of the round's C (1 + K) + C refresh forward and
    backward passes; the loss finite;
-14. train replay — round 1 again from the same state with the plain K3 and
+18. train replay — round 1 again from the same state with the plain K3 and
    the plain attention forward and backward on the card, compared with the
    kernels' run where both runs share a point: the cohort-mean gradient at
    x0 and the loss there (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL) and the
    round's update x' - x0 (TRAIN_UPDATE_REL_TOL); two planted faults (K4b
    skipping its first key tile, K3 with inv_eta 0) must exceed them;
-15. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
+19. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
-16. train profile — one plain round under torch.profiler;
-17. the `kernels` line, then the `ok` line.
+20. train profile — one plain round under torch.profiler;
+21. the `kernels` line, then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -110,6 +142,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -171,11 +204,13 @@ K6_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=5e-2, ato
 K6_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 K6_CHUNK = 64  # K6's chunk (csrc/ssm_scan.cu kQ): the planted fault drops the state there
 HYBRID = dict(arch="zamba2-2.7b", prefill=(4, 2048), max_batch=8, cache_len=1024, new_tokens=64)
-# The reduced zamba2 in float32 on the card, prefill (K6, K4) against
-# teacher-forced decode (the one-step recurrence, K5) at the last of 200
-# tokens, relative L2 of the logits: the float32 model tolerance of the CPU
-# tests (tests/test_torch_hybrid.py), where the two paths read ~1e-6.
-HYBRID_PATHS_REL_TOL = 1e-4
+# The reduced zamba2 and rwkv6 in float32 on the card, prefill (the scan over
+# the sequence; zamba2 also K4) against teacher-forced decode (zamba2: the
+# one-step recurrence and K5; rwkv6: K7 one step at a time from the carried
+# state) at the last of 200 tokens, relative L2 of the logits: the float32
+# model tolerance of the CPU tests (tests/test_torch_hybrid.py,
+# tests/test_torch_rwkv.py), where the two paths read ~1e-6.
+RECURRENT_PATHS_REL_TOL = 1e-4
 # Zamba2-2.7B's prefill (every position's logits), kernels against the plain
 # scan and attention, relative L2.  bf16 is held to SERVE_REL_TOL.  There the
 # model's own rounding moves the logits by a few percent (the CPU tests read
@@ -184,6 +219,21 @@ HYBRID_PATHS_REL_TOL = 1e-4
 # a chunk), so the fault is held in float32 with the same weights, where
 # two right runs differ by rounding alone.
 HYBRID_F32_REL_TOL = 1e-3
+# RWKV-6 serving.  K7: the reference's tolerances (tests/test_kernels_scans.py:27-35):
+# bf16 element by element; float32 in relative L2 against the plain version
+# and a float64 recurrence (see k7_verdict).
+K7_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+K7_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+K7_TILE = 32  # K7's tile (csrc/rwkv6_scan.cu kTile): the planted fault drops the state there
+RWKV = dict(arch="rwkv6-1.6b", prefill=(4, 2048), max_batch=8, cache_len=1024, new_tokens=64)
+# rwkv6-1.6b's prefill (every position's logits), kernels against the plain
+# scan, relative L2.  bf16 is held to SERVE_REL_TOL, where the model's own
+# rounding moves the logits by a few percent; float32 with the same weights,
+# where two right runs differ by float32 rounding alone, to this limit.  Read
+# on an H100 80GB HBM3 at 700 W: bf16 3.97e-2, float32 1.00e-5; the planted
+# fault (the state not carried across K7's 32-step tiles) 1.31 in both, so
+# it is held in both.
+RWKV_F32_REL_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -276,9 +326,12 @@ def device_ms(fn, reps: int) -> float | None:
 # module of each kernel wrapper under repro_torch.kernels
 WRAPPERS = {"prox_update": "prox_update", "flash_attention": "flash_attention",
             "flash_attention_bwd": "flash_attention", "decode_attention": "decode_attention",
-            "ssm_scan": "ssm_scan"}
+            "ssm_scan": "ssm_scan", "rwkv6_scan": "rwkv6_scan"}
+SERVE_KERNELS = ("flash_attention", "decode_attention")
 TRAIN_KERNELS = ("prox_update", "flash_attention", "flash_attention_bwd")
 HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
+RWKV_KERNELS = ("rwkv6_scan",)
+PATHS = ("sweep", "serving", "hybrid", "ssm", "training")
 
 
 def _wrapper(name):
@@ -729,6 +782,21 @@ def phase_attention_parity() -> dict:
 
 # ------------------------------------------------------------------ serving
 @contextlib.contextmanager
+def rebind_ops(**fns):
+    """Rebind kernel entry points of `repro_torch.kernels.ops` (the model and
+    round code look them up there at call time) for the block's duration."""
+    from repro_torch.kernels import ops
+
+    saved = {name: getattr(ops, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
 def plain_attention(fault: bool = False):
     """The model's attention through the plain versions, on the card; with
     ``fault``, through plain versions with one planted fault each: full-
@@ -736,7 +804,6 @@ def plain_attention(fault: bool = False):
     decode attention drops the rows of one of K5's half-warp streams."""
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
@@ -749,15 +816,9 @@ def plain_attention(fault: bool = False):
         return decode_attention_plain(q, k_cache, v_cache,
                                       valid & ((idx // K5_STREAM_ROWS) % K5_STREAMS != 0))
 
-    saved = ops.attention, ops.decode_attention
     if fault:
-        ops.attention, ops.decode_attention = skip_first_tile, drop_stream
-    else:
-        ops.attention, ops.decode_attention = flash_attention_plain, decode_attention_plain
-    try:
-        yield
-    finally:
-        ops.attention, ops.decode_attention = saved
+        return rebind_ops(attention=skip_first_tile, decode_attention=drop_stream)
+    return rebind_ops(attention=flash_attention_plain, decode_attention=decode_attention_plain)
 
 
 def rel_err(a, b) -> float:
@@ -787,11 +848,13 @@ def serving_prompts(vocab: int):
 REPLAY_CHECK_KEYS = ("rel_err_vs_plain_max", "rel_err_vs_plain_median", "planted_fault_rel_err")
 
 
-def decode_replay(cfg, params, prompts, out, cache_len: int) -> dict:
+def decode_replay(cfg, params, prompts, out, cache_len: int, plain=plain_attention,
+                  fault=lambda: plain_attention(fault=True)) -> dict:
     """A served batch replayed teacher-forced on the card: every step with the
-    kernels and with the plain attention in lockstep, each step's logits
-    compared, and from the last prompt token on, on a copy of the plain run's
-    cache, with a planted K5 fault (one half-warp stream's rows dropped)."""
+    kernels and with the plain versions (``plain()``, default the plain
+    attention) in lockstep, each step's logits compared, and from the last
+    prompt token on, on a copy of the plain run's cache, under ``fault()``
+    (default a planted K5 fault: one half-warp stream's rows dropped)."""
     import numpy as np
     import torch
 
@@ -812,13 +875,13 @@ def decode_replay(cfg, params, prompts, out, cache_len: int) -> dict:
     t0 = time.perf_counter()
     for t in range(plen + new - 1):
         lk, cache_k = step(params, cache_k, seq[:, t], t)
-        with plain_attention():
+        with plain():
             lp, cache_p = step(params, cache_p, seq[:, t], t)
         rels.append(rel_err(lk, lp))
         if t >= plen - 1:  # logits that chose a served token
-            if t == plen - 1:  # the planted K5 fault acts from here, on a copy of the cache
+            if t == plen - 1:  # the planted fault acts from here, on a copy of the cache
                 cache_f = _tree(lambda c: c.clone(), cache_p)
-            with plain_attention(fault=True):
+            with fault():
                 lf, cache_f = step(params, cache_f, seq[:, t], t)
             fault_rels.append(rel_err(lf, lp))
             served = seq[:, t + 1]
@@ -834,12 +897,12 @@ def decode_replay(cfg, params, prompts, out, cache_len: int) -> dict:
             "replay_s": time.perf_counter() - t0}
 
 
-def check_decode_replay(replay: dict, model: str) -> None:
+def check_decode_replay(replay: dict, model: str, kernel: str = "K5") -> None:
     check(replay["rel_err_vs_plain_max"] <= SERVE_REL_TOL,
           f"{model}decode step {replay['worst_step']}: logits differ from the plain replay by "
           f"{replay['rel_err_vs_plain_max']} > {SERVE_REL_TOL}")
     check(replay["planted_fault_rel_err"]["max"] > SERVE_REL_TOL,
-          f"a planted K5 fault moved the {model}decode logits by at most "
+          f"a planted {kernel} fault moved the {model}decode logits by at most "
           f"{replay['planted_fault_rel_err']['max']}")
 
 
@@ -850,8 +913,6 @@ def phase_serving():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
     from repro_torch.models import init_params
 
@@ -871,13 +932,13 @@ def phase_serving():
     calls = 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = decode_attention.launches = 0
+    zero_launch_counts(SERVE_KERNELS)
     t0 = time.perf_counter()
     for _ in range(calls):
         logits = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t0) / calls
-    k4_prefill, k5_prefill = flash_attention.launches, decode_attention.launches
+    k4_prefill, k5_prefill = launch_counts(SERVE_KERNELS).values()
     prefill_peak = torch.cuda.max_memory_allocated()
     check(k4_prefill == L * calls and k5_prefill == 0,
           f"prefill launched K4 {k4_prefill} times (want {L * calls}) and K5 {k5_prefill}")
@@ -918,12 +979,12 @@ def phase_serving():
     steps = plen + new - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = decode_attention.launches = 0
+    zero_launch_counts(SERVE_KERNELS)
     t0 = time.perf_counter()
     out = server.generate(prompts, max_new_tokens=new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    k4_gen, k5_gen = flash_attention.launches, decode_attention.launches
+    k4_gen, k5_gen = launch_counts(SERVE_KERNELS).values()
     gen_peak = torch.cuda.max_memory_allocated()
     check(k5_gen == L * steps and k4_gen == 0,
           f"generate launched K5 {k5_gen} times (want {L} x {steps} steps) and K4 {k4_gen}")
@@ -1138,19 +1199,20 @@ def phase_ssm_parity() -> dict:
     return main["bfloat16"]
 
 
-@contextlib.contextmanager
 def scan_ops(mode: str):
     """Rebind the model's scan: "plain" runs the plain version on the card,
     "fault" K6 with the state not carried across chunks."""
-    from repro_torch.kernels import ops
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
 
-    saved = ops.ssm_scan
-    ops.ssm_scan = ssm_scan_plain if mode == "plain" else ssm_scan_no_carry
-    try:
+    return rebind_ops(ssm_scan=ssm_scan_plain if mode == "plain" else ssm_scan_no_carry)
+
+
+@contextlib.contextmanager
+def hybrid_plain():
+    """The hybrid model's scan and attention through their plain versions
+    (decode runs no scan: there the attention alone)."""
+    with plain_attention(), scan_ops("plain"):
         yield
-    finally:
-        ops.ssm_scan = saved
 
 
 def randomize_hybrid(params, cfg, seed: int) -> None:
@@ -1170,9 +1232,57 @@ def randomize_hybrid(params, cfg, seed: int) -> None:
     fill(params["mamba_layers"]["D"], 1.0)
 
 
-def phase_hybrid_serving():
-    """Prefill and batched greedy generation on Zamba2-2.7B at full size,
-    through K6, K4 and K5, then replayed with the plain versions."""
+def hybrid_counts(cfg) -> tuple[dict, dict]:
+    """Launches a prefill call (K6 a Mamba-2 layer, K4 an attention site) and
+    a decode step (K5 an attention site; K6 never: decode is the one-step
+    recurrence)."""
+    G = cfg.num_layers // cfg.attn_every
+    n_mamba = G * (cfg.attn_every - 1)
+    return ({"ssm_scan": n_mamba, "flash_attention": G, "decode_attention": 0},
+            {"ssm_scan": 0, "flash_attention": 0, "decode_attention": G})
+
+
+def hybrid_model(cfg, params) -> str:
+    per_call, _ = hybrid_counts(cfg)
+    n_mamba, G = per_call["ssm_scan"], per_call["flash_attention"]
+    check((n_mamba, G) == (45, 9), f"{cfg.name}: {n_mamba} Mamba-2 layers, {G} attention sites")
+    return (f"{cfg.name}: {cfg.num_layers} slots ({n_mamba} Mamba-2, {G} shared-attention "
+            f"sites), d_model {cfg.d_model}, SSM {cfg.ssm_num_heads} heads P "
+            f"{cfg.d_model * cfg.ssm_expand // cfg.ssm_num_heads} N {cfg.ssm_state_dim}, "
+            f"attention {cfg.num_heads}/{cfg.num_kv_heads} heads Dh {cfg.head_dim}, LoRA rank "
+            f"{cfg.hybrid_lora_rank}, vocab {cfg.vocab_size}, {cfg.param_dtype}")
+
+
+class Family(NamedTuple):
+    """What the recurrent serving phases need of a model family."""
+    label: str  # phase names: <label>_prefill, <label>_generate, ...
+    spec: dict  # HYBRID or RWKV: the model and the serving run
+    scan: str  # the family's scan kernel (the kernels line takes its launches)
+    kernels: tuple  # the wrappers whose launches are counted and checked
+    counts: Callable  # cfg -> (launches a prefill call, launches a decode step)
+    describe: Callable  # (cfg, params) -> the model line; checks the model's size
+    randomize: Callable  # (params, cfg, seed): seeded values where init hides faults
+    plain: Callable  # () -> context: the plain versions, for both replays
+    fault: Callable  # () -> context: the scan with the state not carried across tiles
+    tile: int  # the scan's chunk or tile: the planted fault acts at its starts
+    f32_tol: float  # the float32 prefill replay's limit
+    hold_bf16_fault: bool  # whether bf16 rounding leaves the planted fault in view
+    decode_fault: Callable  # () -> context: the decode replay's planted fault
+    decode_fault_kernel: str
+
+
+HYBRID_FAMILY = Family(
+    label="hybrid", spec=HYBRID, scan="ssm_scan", kernels=HYBRID_KERNELS, counts=hybrid_counts,
+    describe=hybrid_model, randomize=randomize_hybrid, plain=hybrid_plain,
+    fault=lambda: scan_ops("fault"), tile=K6_CHUNK, f32_tol=HYBRID_F32_REL_TOL,
+    hold_bf16_fault=False, decode_fault=lambda: plain_attention(fault=True),
+    decode_fault_kernel="K5")
+
+
+def phase_recurrent_serving(fam: Family):
+    """Prefill and batched greedy generation of a recurrent family (Zamba2-2.7B
+    or rwkv6-1.6b) at full size through its kernels, then replayed with the
+    plain versions."""
     import dataclasses
 
     import numpy as np
@@ -1183,62 +1293,60 @@ def phase_hybrid_serving():
     from repro_torch.models import init_params
     from repro_torch.models import model as M
 
-    cfg = get_config(HYBRID["arch"])
-    G, per_group = cfg.num_layers // cfg.attn_every, cfg.attn_every - 1
-    n_mamba = G * per_group
+    cfg = get_config(fam.spec["arch"])
+    per_call, per_step = fam.counts(cfg)
     t0 = time.perf_counter()
     params = init_params(cfg)  # seed 0 on the card
-    randomize_hybrid(params, cfg, seed=1)
+    fam.randomize(params, cfg, seed=1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    check((n_mamba, G) == (45, 9), f"{cfg.name}: {n_mamba} Mamba-2 layers, {G} attention sites")
+    model = fam.describe(cfg, params)
 
     # (a) prefill: 4 x 2048 tokens, last-position logits
     prefill = make_prefill_step(cfg)
-    B, S = HYBRID["prefill"]
+    B, S = fam.spec["prefill"]
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S)))
     tokens = tokens.cuda()
     prefill(params, {"tokens": tokens[:, :128]})  # warm-up (cuBLAS handles, kernel load)
     calls = 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts(HYBRID_KERNELS)
+    zero_launch_counts(fam.kernels)
     t0 = time.perf_counter()
     for _ in range(calls):
         logits = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t0) / calls
-    prefill_counts = launch_counts(HYBRID_KERNELS)
+    prefill_counts = launch_counts(fam.kernels)
     prefill_peak = torch.cuda.max_memory_allocated()
-    want = {"ssm_scan": n_mamba * calls, "flash_attention": G * calls, "decode_attention": 0}
+    want = {k: n * calls for k, n in per_call.items()}
     check(prefill_counts == want, f"prefill launches {prefill_counts}, want {want}")
     check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
 
     # (b) the prefill replayed: every position's logits with the kernels, with
-    # the plain scan and plain attention, and with the planted K6 fault; in
-    # bf16 (the served model) and with the same weights in float32, where the
-    # fault is held (HYBRID_F32_REL_TOL)
+    # the plain versions and with the planted scan fault; in bf16 (the served
+    # model) and with the same weights in float32, where two right runs
+    # differ by float32 rounding alone
     def replay(p, c):
         def all_logits():
             return M.forward(p, c, {"tokens": tokens})[0]
 
         with torch.inference_mode():
             kern = all_logits()
-            with plain_attention(), scan_ops("plain"):
+            with fam.plain():
                 plain = all_logits()
-            with scan_ops("fault"):
+            with fam.fault():
                 fault = all_logits()
-        starts = torch.arange(0, S, K6_CHUNK, device="cuda")
+        starts = torch.arange(fam.tile, S, fam.tile, device="cuda")
         return {"rel_err_vs_plain": rel_err(kern, plain),
                 "last_position_rel_err_vs_plain": rel_err(kern[:, -1], plain[:, -1]),
-                "chunk_starts_rel_err_vs_plain": rel_err(kern[:, starts], plain[:, starts]),
+                "tile_starts_rel_err_vs_plain": rel_err(kern[:, starts], plain[:, starts]),
                 "argmax_agree": (kern.argmax(-1) == plain.argmax(-1)).float().mean().item(),
                 "planted_fault_rel_err": rel_err(fault, plain),
                 "planted_fault_rel_err_last_position": rel_err(fault[:, -1], plain[:, -1]),
-                "planted_fault_rel_err_chunk_starts": rel_err(fault[:, starts],
-                                                              plain[:, starts])}
+                "planted_fault_rel_err_tile_starts": rel_err(fault[:, starts], plain[:, starts])}
 
     t0 = time.perf_counter()
     check_bf16 = replay(params, cfg)
@@ -1248,21 +1356,19 @@ def phase_hybrid_serving():
     check_f32 = replay(params32, cfg32)
     del params32
     torch.cuda.empty_cache()
-    emit({"phase": "hybrid_prefill_check", "bfloat16": check_bf16, "float32": check_f32,
-          "rel_tol_bf16": SERVE_REL_TOL, "rel_tol_f32": HYBRID_F32_REL_TOL,
+    emit({"phase": f"{fam.label}_prefill_check", "bfloat16": check_bf16, "float32": check_f32,
+          "rel_tol_bf16": SERVE_REL_TOL, "rel_tol_f32": fam.f32_tol,
           "replay_s": time.perf_counter() - t0})
     check(check_bf16["rel_err_vs_plain"] <= SERVE_REL_TOL,
-          f"hybrid prefill logits differ from the plain replay by {check_bf16}")
-    check(check_f32["rel_err_vs_plain"] <= HYBRID_F32_REL_TOL,
-          f"float32 hybrid prefill logits differ from the plain replay by {check_f32}")
-    check(check_f32["planted_fault_rel_err"] > HYBRID_F32_REL_TOL,
-          f"a planted K6 fault moved the float32 prefill logits by only {check_f32}")
-    model = (f"{cfg.name}: {cfg.num_layers} slots ({n_mamba} Mamba-2, {G} shared-attention "
-             f"sites), d_model {cfg.d_model}, SSM {cfg.ssm_num_heads} heads P "
-             f"{cfg.d_model * cfg.ssm_expand // cfg.ssm_num_heads} N {cfg.ssm_state_dim}, "
-             f"attention {cfg.num_heads}/{cfg.num_kv_heads} heads Dh {cfg.head_dim}, LoRA rank "
-             f"{cfg.hybrid_lora_rank}, vocab {cfg.vocab_size}, {cfg.param_dtype}")
-    emit({"phase": "hybrid_prefill", "model": model, "params": n_params,
+          f"{fam.label} prefill logits differ from the plain replay by {check_bf16}")
+    check(check_f32["rel_err_vs_plain"] <= fam.f32_tol,
+          f"float32 {fam.label} prefill logits differ from the plain replay by {check_f32}")
+    check(not fam.hold_bf16_fault or check_bf16["planted_fault_rel_err"] > SERVE_REL_TOL,
+          f"a planted {fam.scan} fault moved the {fam.label} prefill logits by only {check_bf16}")
+    check(check_f32["planted_fault_rel_err"] > fam.f32_tol,
+          f"a planted {fam.scan} fault moved the float32 {fam.label} prefill logits by only "
+          f"{check_f32}")
+    emit({"phase": f"{fam.label}_prefill", "model": model, "params": n_params,
           "param_count": cfg.param_count(), "init_s": init_s, "batch": [B, S], "calls": calls,
           "s_per_call": prefill_s, "tokens_per_s": B * S / prefill_s,
           "peak_mem_gb": prefill_peak / 1e9, "launches": prefill_counts,
@@ -1270,48 +1376,49 @@ def phase_hybrid_serving():
           "max_abs_logit": logits.float().abs().max().item()})
 
     # (c) batched greedy generation (prefill by teacher-forced decode)
-    serve = ServeConfig(max_batch=HYBRID["max_batch"], cache_len=HYBRID["cache_len"])
+    serve = ServeConfig(max_batch=fam.spec["max_batch"], cache_len=fam.spec["cache_len"])
     server = BatchServer(cfg, params, serve)
     prompts = serving_prompts(cfg.vocab_size)
-    new = HYBRID["new_tokens"]
+    new = fam.spec["new_tokens"]
     server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
     plen = max(len(p) for p in prompts)
     steps = plen + new - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts(HYBRID_KERNELS)
+    zero_launch_counts(fam.kernels)
     t0 = time.perf_counter()
     out = server.generate(prompts, max_new_tokens=new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    gen_counts = launch_counts(HYBRID_KERNELS)
+    gen_counts = launch_counts(fam.kernels)
     gen_peak = torch.cuda.max_memory_allocated()
-    want = {"ssm_scan": 0, "flash_attention": 0, "decode_attention": G * steps}
+    want = {k: n * steps for k, n in per_step.items()}
     check(gen_counts == want, f"generate launches {gen_counts}, want {want} ({steps} steps)")
     check(len(out) == len(prompts) and all(len(o) == new and all(0 <= t < cfg.vocab_size
                                                                  for t in o) for o in out),
           "generate returned malformed tokens")
 
     # (d) teacher-forced replay: the kernels and the plain versions in lockstep
-    replay = decode_replay(cfg, params, prompts, out, serve.cache_len)
-    emit({"phase": "hybrid_generate_check", **{k: replay[k] for k in REPLAY_CHECK_KEYS},
+    replay = decode_replay(cfg, params, prompts, out, serve.cache_len, plain=fam.plain,
+                           fault=fam.decode_fault)
+    emit({"phase": f"{fam.label}_generate_check", **{k: replay[k] for k in REPLAY_CHECK_KEYS},
           "rel_tol": SERVE_REL_TOL})
-    check_decode_replay(replay, "hybrid ")
-    emit({"phase": "hybrid_generate", "prompts": [len(p) for p in prompts],
+    check_decode_replay(replay, f"{fam.label} ", kernel=fam.decode_fault_kernel)
+    emit({"phase": f"{fam.label}_generate", "prompts": [len(p) for p in prompts],
           "max_batch": serve.max_batch, "cache_len": serve.cache_len,
           "cache_dtype": serve.cache_dtype, "new_tokens": new, "decode_steps": steps,
           "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
           "decode_tokens_per_s": len(prompts) * steps / gen_s,
           "generated_tokens_per_s": len(prompts) * new / gen_s, "peak_mem_gb": gen_peak / 1e9,
           "launches": gen_counts, "rel_tol": SERVE_REL_TOL, **replay})
-    launches = {"ssm_scan": prefill_counts["ssm_scan"]}
+    launches = {fam.scan: prefill_counts[fam.scan] + gen_counts[fam.scan]}
     return cfg, params, tokens, launches
 
 
-def phase_hybrid_paths() -> dict:
-    """The reduced zamba2 in float32 on the card: the prefill step (K6 and K4)
-    against teacher-forced decode (the one-step recurrence and K5) at the last
-    of 200 tokens; the planted K6 fault must exceed the limit."""
+def phase_recurrent_paths(fam: Family) -> dict:
+    """The family's reduced model in float32 on the card: the prefill step
+    against teacher-forced decode at the last of 200 tokens, with exact
+    launch counts on both; the planted scan fault must exceed the limit."""
     import dataclasses
 
     import numpy as np
@@ -1321,33 +1428,256 @@ def phase_hybrid_paths() -> dict:
     from repro_torch.launch import make_prefill_step, make_serve_step
     from repro_torch.models import init_decode_cache, init_params
 
-    cfg = dataclasses.replace(get_config(HYBRID["arch"]).reduced(), param_dtype="float32",
+    cfg = dataclasses.replace(get_config(fam.spec["arch"]).reduced(), param_dtype="float32",
                               compute_dtype="float32")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    randomize_hybrid(params, cfg, seed=2)
+    fam.randomize(params, cfg, seed=2)
     T = 200
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (4, T)))
     tokens = tokens.cuda()
     prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
-    zero_launch_counts(HYBRID_KERNELS)
+    zero_launch_counts(fam.kernels)
     pre = prefill(params, {"tokens": tokens})
-    pre_counts = launch_counts(HYBRID_KERNELS)
+    pre_counts = launch_counts(fam.kernels)
     cache = init_decode_cache(cfg, 4, T, dtype=torch.float32)
+    zero_launch_counts(fam.kernels)
     for t in range(T):
         dec, cache = step(params, cache, tokens[:, t], t)
-    with scan_ops("fault"):
+    dec_counts = launch_counts(fam.kernels)
+    with fam.fault():
         faulted = prefill(params, {"tokens": tokens})
-    res = {"phase": "hybrid_paths", "model": f"{cfg.name} reduced, float32", "tokens": [4, T],
-           "rel_err": rel_err(pre, dec), "planted_fault_rel_err": rel_err(faulted, dec),
-           "rel_tol": HYBRID_PATHS_REL_TOL, "prefill_launches": pre_counts}
+    res = {"phase": f"{fam.label}_paths", "model": f"{cfg.name} reduced, float32",
+           "tokens": [4, T], "rel_err": rel_err(pre, dec),
+           "planted_fault_rel_err": rel_err(faulted, dec), "rel_tol": RECURRENT_PATHS_REL_TOL,
+           "launches": {"prefill": pre_counts, "decode": dec_counts}}
     emit(res)
-    check(pre_counts["ssm_scan"] == 1 and pre_counts["flash_attention"] == 1,
-          f"reduced prefill launches {pre_counts}")
-    check(res["rel_err"] <= HYBRID_PATHS_REL_TOL,
-          f"prefill and teacher-forced decode differ by {res['rel_err']}")
-    check(res["planted_fault_rel_err"] > HYBRID_PATHS_REL_TOL,
-          f"a planted K6 fault moved the reduced prefill by only {res['planted_fault_rel_err']}")
+    per_call, per_step = fam.counts(cfg)
+    want = {"prefill": per_call, "decode": {k: n * T for k, n in per_step.items()}}
+    check(res["launches"] == want, f"reduced {fam.label} launches {res['launches']}, want {want}")
+    check(res["rel_err"] <= RECURRENT_PATHS_REL_TOL,
+          f"{fam.label} prefill and teacher-forced decode differ by {res['rel_err']}")
+    check(res["planted_fault_rel_err"] > RECURRENT_PATHS_REL_TOL,
+          f"a planted {fam.scan} fault moved the reduced {fam.label} prefill by only "
+          f"{res['planted_fault_rel_err']}")
     return res
+
+
+# ------------------------------------------------------------ rwkv6 (K7)
+def rwkv_inputs(gen, shape, dtype, *, decay="sigmoid", with_state=False):
+    """K7's operands: r, k, v normal; w = sigmoid(normal) (the reference's
+    test draw) or, with ``decay="strong"``, uniform in [0.03, 0.07]; u
+    normal; an optional normal state0."""
+    import torch
+
+    Bb, T, H, K = shape
+    r, k, v = (torch.randn(Bb, T, H, K, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    if decay == "strong":
+        w = torch.rand(Bb, T, H, K, generator=gen, device="cuda") * 0.04 + 0.03
+    else:
+        w = torch.sigmoid(torch.randn(Bb, T, H, K, generator=gen, device="cuda"))
+    u = torch.randn(H, K, generator=gen, device="cuda")
+    s0 = torch.randn(Bb, H, K, K, generator=gen, device="cuda") if with_state else None
+    return r, k, v, w.to(dtype), u, s0
+
+
+def rwkv6_scan_no_carry(r, k, v, w, u, state0=None, *, out_state=None):
+    """A planted K7 fault: K7 run tile by tile with the state not carried
+    from one 32-step tile to the next."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    T, ys, S = r.shape[1], [], None
+    for t0 in range(0, T, K7_TILE):
+        c = slice(t0, t0 + K7_TILE)
+        y, S = rwkv6_scan(r[:, c], k[:, c], v[:, c], w[:, c], u, state0 if t0 == 0 else None,
+                          out_state=out_state if t0 + K7_TILE >= T else None)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S
+
+
+def rwkv6_scan_no_bonus(r, k, v, w, u, state0=None, *, out_state=None):
+    """A planted K7 fault: the bonus u dropped."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    return rwkv6_scan(r, k, v, w, u.new_zeros(u.shape), state0, out_state=out_state)
+
+
+def rwkv6_scan_no_state0(r, k, v, w, u, state0=None, *, out_state=None):
+    """A planted K7 fault: state0 ignored (every call starts from zeros)."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    return rwkv6_scan(r, k, v, w, u, out_state=out_state)
+
+
+def k7_verdict(y, S, want_y, want_S, dname: str, truth=None) -> dict:
+    """K7's errors against a plain result and whether they meet its
+    tolerances.  bf16: the reference's, element by element.  float32: the
+    reference's 1e-4 in relative L2, against the plain result and against
+    the float64 recurrence ``truth`` where given; element by element it is
+    reported: where the state sums many steps (w near 1) |y| reaches ~100
+    and two right float32 results differ by ~1e-4 at elements near zero.
+    The state: 1e-3 element by element."""
+    import torch
+
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
+    tol = K7_TOL[dname]
+    yf, wf = y.float(), want_y.float()
+    over = (yf - wf).abs() > tol["atol"] + tol["rtol"] * wf.abs()
+    res = dict(max_abs_err=_err(y, want_y), rel_l2=rel_err(y, want_y),
+               state_max_abs_err=_err(S, want_S), elements_over_tol=int(over.sum()),
+               finite=finite)
+    ok = finite and bool(torch.allclose(S, want_S.float(), **K7_STATE_TOL))
+    if dname == "bfloat16":
+        res["ok"] = ok and res["elements_over_tol"] == 0
+        return res
+    ok = ok and res["rel_l2"] <= tol["rtol"]
+    if truth is not None:
+        res["rel_l2_vs_f64"] = rel_err(y.double(), truth)
+        res["max_abs_err_vs_f64"] = (y.double() - truth).abs().max().item()
+        res["plain_max_abs_err_vs_f64"] = (want_y.double() - truth).abs().max().item()
+        ok = ok and res["rel_l2_vs_f64"] <= tol["rtol"]
+    res["ok"] = ok
+    return res
+
+
+K7_FAULTS = {"no_carry": rwkv6_scan_no_carry, "no_bonus": rwkv6_scan_no_bonus,
+             "no_state0": rwkv6_scan_no_state0}
+
+
+def k7_case(gen, shape, dtype, *, decay="sigmoid", with_state=False, alias=False, faults=(),
+            timed=False):
+    """K7 against its plain version on one input (float32 also against a
+    float64 recurrence); with ``alias``, K7 writes the final state over
+    (a copy of) state0, as decode runs it; each named planted fault must
+    fail the same check; with ``timed``, K7 timed beside its bound and the
+    plain version."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+
+    dname = str(dtype).split(".")[-1]
+    args = rwkv_inputs(gen, shape, dtype, decay=decay, with_state=with_state)
+
+    def kernel(state):  # the final state into ``state`` (state0's copy) with alias
+        if alias:
+            return rwkv6_scan(*args[:5], state, out_state=state)
+        return rwkv6_scan(*args)
+
+    state = args[5].clone() if alias else None
+    y, S = kernel(state)
+    want_y, want_S = rwkv6_scan_plain(*args)
+    torch.cuda.synchronize()
+    truth = None
+    if dname == "float32":
+        truth = rwkv6_scan_plain(*args, acc_dtype=torch.float64)[0].double()
+    res = dict(shape=list(shape), dtype=dname, decay=decay, state0=with_state,
+               state0_as_output=alias, **k7_verdict(y, S, want_y, want_S, dname, truth))
+    check(res["ok"], f"rwkv6_scan {shape} {dname} decay={decay} state0={with_state} "
+                     f"alias={alias}: {res}")
+    res["planted_faults"] = {}
+    for name in faults:
+        fault = k7_verdict(*K7_FAULTS[name](*args), want_y, want_S, dname, truth)
+        res["planted_faults"][name] = fault
+        check(not fault["ok"], f"rwkv6_scan: the planted fault {name} passed the check: {fault}")
+    if not timed:
+        return res
+    Bb, T, H, K = shape
+    esz = torch.empty((), dtype=dtype).element_size()
+    # r, k, v, w read and y written once; u read; state0 read (if given) and the state written
+    nbytes = 5 * Bb * T * H * K * esz + H * K * 4 + Bb * H * K * K * 4 * (2 if with_state else 1)
+    # What the function needs a step and (b, h): the read S^T r (2 K V), the
+    # decayed write diag(w) S + k v^T (3 K V), and the bonus, which factors
+    # out as v (sum_k r_k u_k k_k): 3 K for the scalar, 2 V to add it in
+    flops = Bb * T * H * (5 * K * K + 3 * K + 2 * K)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")  # the arithmetic is float32 in both dtypes
+    big = Bb * T > 1000
+    res.update(bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+               ms=time_ms(lambda: kernel(state), 10 if big else 200),
+               plain_ms=time_ms(lambda: rwkv6_scan_plain(*args), 3 if big else 50, 1),
+               device_ms=device_ms(lambda: kernel(state), 5 if big else 50), library_ms=None)
+    return res
+
+
+def phase_rwkv_parity() -> dict:
+    """K7 against its plain version on the card: rwkv6-1.6b's prefill shape
+    (bf16 and float32) and decode shape (B 8, T 1, the state written over
+    state0 as decode does), timed; T off the tile, strong decay, the
+    reference's small shapes; three planted faults must fail."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    prefill, decode = (4, 2048, 32, 64), (8, 1, 32, 64)
+    main = {str(dt).split(".")[-1]: k7_case(gen, prefill, dt, faults=("no_carry", "no_bonus"),
+                                            timed=True) for dt in (bf16, f32)}
+    steps = {str(dt).split(".")[-1]: k7_case(gen, decode, dt, with_state=True, alias=True,
+                                             faults=("no_state0", "no_bonus"), timed=True)
+             for dt in (bf16, f32)}
+    cases = []
+    for dt in (bf16, f32):
+        cases += [k7_case(gen, (2, 1000, 32, 64), dt, with_state=True, faults=("no_carry",)),
+                  k7_case(gen, (2, 300, 32, 64), dt, with_state=True, alias=True),
+                  k7_case(gen, (2, 300, 32, 64), dt, decay="strong", with_state=True),
+                  k7_case(gen, (1, 33, 2, 8), dt, with_state=True),
+                  k7_case(gen, (2, 100, 3, 16), dt),
+                  k7_case(gen, (1, 64, 4, 32), dt, with_state=True)]
+    emit({"phase": "rwkv_parity", "rwkv6_scan": list(main.values()),
+          "rwkv6_scan_decode": list(steps.values()), "rwkv6_scan_cases": cases,
+          "library": None, "library_note": "no single PyTorch call computes the WKV recurrence"})
+    return main["bfloat16"]
+
+
+def rwkv_scan_ops(mode: str):
+    """Rebind the model's WKV scan: "plain" runs the plain version on the
+    card, "no_carry" and "no_state0" K7 with that planted fault."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+
+    return rebind_ops(rwkv6_scan={"plain": rwkv6_scan_plain, **K7_FAULTS}[mode])
+
+
+def randomize_rwkv(params, cfg, seed: int) -> None:
+    """Fill w0, w_b and u in place with seeded values: at init w0 = -4 for
+    every channel and w_b is scaled by 0.01, so the decay is nearly one
+    constant, and u = 0.1 N(0, 1) makes a dropped bonus small.  w0 uniform
+    in [-6, 1] (decays from 0.9975 down to 0.066), w_b normal * 64**-0.5, u
+    N(0, 1)."""
+    import torch
+
+    tm = params["layers"]["tm"]
+    gen = torch.Generator(device=tm["w0"].device).manual_seed(seed)
+
+    def fill(t, draw):
+        t.copy_(draw(t.shape, generator=gen, device=t.device))
+
+    fill(tm["w0"], lambda *a, **kw: torch.rand(*a, **kw) * 7.0 - 6.0)
+    fill(tm["w_b"]["w"], lambda *a, **kw: torch.randn(*a, **kw) * 64**-0.5)
+    fill(tm["u"], torch.randn)
+
+
+def rwkv_counts(cfg) -> tuple[dict, dict]:
+    """K7 once a layer a prefill call, and once a layer a decode step (T = 1
+    from the carried state)."""
+    return {"rwkv6_scan": cfg.num_layers}, {"rwkv6_scan": cfg.num_layers}
+
+
+def rwkv_model(cfg, params) -> str:
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == 1_583_941_632, f"{cfg.name}: {n_params} parameters")
+    H, K = cfg.num_heads, cfg.d_model // cfg.num_heads
+    return (f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {H} heads of "
+            f"K = V = {K}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}")
+
+
+# The decode replay's planted fault: K7 ignoring state0, from the last
+# prompt token on.  The no-carry fault is held in bf16 too (see
+# RWKV_F32_REL_TOL).
+RWKV_FAMILY = Family(
+    label="rwkv", spec=RWKV, scan="rwkv6_scan", kernels=RWKV_KERNELS, counts=rwkv_counts,
+    describe=rwkv_model, randomize=randomize_rwkv, plain=lambda: rwkv_scan_ops("plain"),
+    fault=lambda: rwkv_scan_ops("no_carry"), tile=K7_TILE, f32_tol=RWKV_F32_REL_TOL,
+    hold_bf16_fault=True, decode_fault=lambda: rwkv_scan_ops("no_state0"),
+    decode_fault_kernel="K7")
 
 
 # ------------------------------------------------------ training (K3, K4b)
@@ -1818,9 +2148,9 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=("sweep", "serving", "hybrid", "training"), default=None,
+    ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "four and prints the kernels line")
+                         "five and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1840,7 +2170,7 @@ def main(argv=None) -> int:
     from repro_torch.device import full_precision_matmul
 
     full_precision_matmul()
-    run = {name: args.only in (None, name) for name in ("sweep", "serving", "hybrid", "training")}
+    run = {name: args.only in (None, name) for name in PATHS}
     try:
         phase_device()
         if run["sweep"]:
@@ -1861,11 +2191,19 @@ def main(argv=None) -> int:
         if run["hybrid"]:
             ssm = phase_ssm_parity()
             torch.cuda.empty_cache()
-            cfg, params, tokens, hybrid_launches = phase_hybrid_serving()
+            cfg, params, tokens, hybrid_launches = phase_recurrent_serving(HYBRID_FAMILY)
             phase_serving_profile(cfg, params, tokens)
             del cfg, params, tokens
             torch.cuda.empty_cache()
-            phase_hybrid_paths()
+            phase_recurrent_paths(HYBRID_FAMILY)
+        if run["ssm"]:
+            rwkv = phase_rwkv_parity()
+            torch.cuda.empty_cache()
+            cfg, params, tokens, rwkv_launches = phase_recurrent_serving(RWKV_FAMILY)
+            phase_serving_profile(cfg, params, tokens)
+            del cfg, params, tokens
+            torch.cuda.empty_cache()
+            phase_recurrent_paths(RWKV_FAMILY)
         if run["training"]:
             train_parity = phase_train_parity()
             torch.cuda.empty_cache()
@@ -1881,7 +2219,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: --only {args.only}: no kernels line and no ok line", file=sys.stderr)
         return 0
     # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
-    # server's default float32 cache); hybrid serving (K6) and training in bf16.
+    # server's default float32 cache); hybrid serving (K6), rwkv serving (K7;
+    # launches: prefill and generate) and training in bf16.
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -1903,6 +2242,8 @@ def main(argv=None) -> int:
                              serve_launches, attention["decode_attention"]),
         "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:68", hybrid_launches, ssm),
+        "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan.py:58", rwkv_launches, rwkv),
     }
     kernels = []
     for name, (source, replaces, counts, p) in rows.items():

@@ -1,18 +1,25 @@
 """Architecture registry of the port: `get_config("<arch-id>")`.
 
-The dense family and the hybrid family (zamba2) are ported; every other
-architecture of the zoo is known by name and raises `NotImplementedError`
-until its slice lands.
+The dense family, the hybrid family (zamba2) and the ssm family (rwkv6) are
+ported; every other architecture of the zoo is known by name and raises
+`NotImplementedError` until its slice lands.
 """
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_2b, llama3_2_3b, qwen2_1_5b, qwen3_4b, zamba2_2_7b
+from repro_torch.configs import (
+    granite_3_2b,
+    llama3_2_3b,
+    qwen2_1_5b,
+    qwen3_4b,
+    rwkv6_1_6b,
+    zamba2_2_7b,
+)
 from repro_torch.configs.base import ModelConfig
 
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
     for c in [qwen2_1_5b.CONFIG, granite_3_2b.CONFIG, llama3_2_3b.CONFIG, qwen3_4b.CONFIG,
-              zamba2_2_7b.CONFIG]
+              zamba2_2_7b.CONFIG, rwkv6_1_6b.CONFIG]
 }
 
 # The zoo's other architectures (name -> family), still served by `repro` alone.
@@ -20,7 +27,6 @@ NOT_PORTED: dict[str, str] = {
     "internvl2-76b": "vlm",
     "qwen3-moe-235b-a22b": "moe",
     "seamless-m4t-large-v2": "audio",
-    "rwkv6-1.6b": "ssm",
     "deepseek-moe-16b": "moe",
 }
 

@@ -4,8 +4,9 @@ The port never imports `repro`; what crosses between the two packages is
 plain numpy.  `problem_from_arrays` rebuilds a `repro` problem from its
 leaves (``A``/``b`` for a quadratic, ``Z``/``y``/``lam`` for a logistic
 problem), `hparams_from_numpy` a per-trial hparam table,
-`dense_params_from_numpy` and `hybrid_params_from_numpy` a dense or hybrid
-model's parameter tree and `svrp_state_from_numpy` a DeepSVRP train state,
+`dense_params_from_numpy`, `hybrid_params_from_numpy` and
+`ssm_params_from_numpy` a dense, hybrid (zamba2) or ssm (rwkv6) model's
+parameter tree and `svrp_state_from_numpy` a DeepSVRP train state,
 so both packages compute on the same data, the same weights and the same
 state; `state_to_numpy` takes a state back out for comparison.
 """
@@ -100,6 +101,16 @@ def hybrid_params_from_numpy(tree, cfg: ModelConfig, device=None):
     ``dt_bias`` of every Mamba-2 layer.  Raises unless the tree has exactly
     the keys and shapes `init_params` gives ``cfg``."""
     return _params_from_numpy(tree, cfg, "hybrid", device, None)
+
+
+def ssm_params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """The port's parameters of the ssm model ``cfg`` (rwkv6) from the
+    reference's params pytree with numpy leaves: the same nested dicts with
+    every layer leaf stacked (L, ...), on ``device`` (default CUDA).  Each
+    leaf keeps the reference's dtype: ``cfg.param_dtype``, except the
+    float32 ``w0`` and ``u`` of every time-mix block.  Raises unless the
+    tree has exactly the keys and shapes `init_params` gives ``cfg``."""
+    return _params_from_numpy(tree, cfg, "ssm", device, None)
 
 
 def svrp_state_from_numpy(state_tree, cfg: ModelConfig, device=None,

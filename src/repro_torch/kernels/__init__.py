@@ -16,11 +16,13 @@ module                      replaces (TPU kernel)                       route
 `decode_attention` (K5)     kernels/decode_attention.py:62              CUDA
                             `decode_attention`
 `ssm_scan` (K6)             kernels/ssm_scan.py:68 `ssm_scan`           CUDA
+`rwkv6_scan` (K7)           kernels/rwkv6_scan.py:58 `rwkv6_scan`       CUDA
 ==========================  ==========================================  =====
 
 `ops` names the kernels as the model and round code calls them: attention
 (K4, or K4 and K4b under autograd), decode attention (K5), the Mamba-2 scan
-(K6) and the tree step (K3, one launch per dtype group).
+(K6), the RWKV-6 WKV scan (K7) and the tree step (K3, one launch per dtype
+group).
 
 Sources live in `csrc/`; `_build` compiles them with `nvcc` at first use and
 binds them with `ctypes`.  Each wrapper runs its plain version for CPU

@@ -26,13 +26,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("prox_update", "logistic_prox", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "ssm_scan")
+           "decode_attention", "ssm_scan", "rwkv6_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 DTYPES = (torch.float32, torch.float64)  # K1 and K2
-ATTENTION_DTYPES = (torch.bfloat16, torch.float32)  # K4, K5 and K6
+ATTENTION_DTYPES = (torch.bfloat16, torch.float32)  # K4, K5, K6 and K7
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _libs: dict[str, ctypes.CDLL] = {}

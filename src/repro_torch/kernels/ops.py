@@ -13,6 +13,8 @@ plain PyTorch version, inside each wrapper.
         -> kernels.decode_attention.decode_attention  (K5)
     ssm_scan(x, dt, A, B_mat, C_mat, D, state0=None)
         -> kernels.ssm_scan.ssm_scan  (K6)
+    rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None)
+        -> kernels.rwkv6_scan.rwkv6_scan  (K7)
     prox_update(y, g, z, local_lr, inv_eta)
         -> kernels.prox_update.prox_update  (K3), one tensor
     prox_update_tree(y_tree, g_tree, z_tree, local_lr, inv_eta)
@@ -29,10 +31,12 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.prox_update import prox_update
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
-__all__ = ["attention", "decode_attention", "prox_update", "prox_update_tree", "ssm_scan"]
+__all__ = ["attention", "decode_attention", "prox_update", "prox_update_tree", "rwkv6_scan",
+           "ssm_scan"]
 
 
 def attention(q, k, v, *, causal=True, sliding_window=None, q_offset=0):

@@ -1,4 +1,4 @@
-"""Batched serving engine: static batching over the dense and hybrid decode paths.
+"""Batched serving engine: static batching over the dense, hybrid and ssm decode paths.
 
 The port of `repro.launch.serve`:
 
@@ -8,12 +8,16 @@ The port of `repro.launch.serve`:
 Requests are grouped into batches of `max_batch`, prompts LEFT-padded with
 `pad_token` to a common length (pad tokens are attended, as in the
 reference), fed through `decode_step` token by token (prefill is decode with
-teacher forcing), then decoded greedily or by temperature sampling.  Every
-token goes through the decode-attention kernel (K5) on the card; in the
-hybrid family also through every Mamba-2 layer's one-step recurrence (plain
-PyTorch, as in the reference), not through the scan kernel K6.
+teacher forcing), then decoded greedily or by temperature sampling.  On the
+card every token goes through the decode-attention kernel (K5) in the dense
+family; in the hybrid family through K5 at each attention site and every
+Mamba-2 layer's one-step recurrence (plain PyTorch, as in the reference),
+not through the scan kernel K6; in the ssm family (rwkv6) through the WKV
+scan kernel K7 with T = 1 in every time-mix layer, from the carried state
+(the family's cache is that state and ignores ``cache_len`` and
+``cache_dtype``).
 
-Differences from the reference: the KV cache is written in place
+Differences from the reference: the KV cache (and the ssm state) is written in place
 (``k_cache[:, slot] = k``) instead of by `dynamic_update_slice`; temperature
 sampling draws from a `torch.Generator` instead of a jax key; int8
 weight-only serving (`repro.quant`) is not ported and `quantize=True` raises.

@@ -141,9 +141,11 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
 
 
 def make_prefill_step(cfg: ModelConfig, *, device=None):
-    """Full-sequence forward (flash attention, K4, at every attention layer
-    or site; in the hybrid family the Mamba-2 scan, K6, in every Mamba-2
-    layer); the step returns the last position's logits (B, V)."""
+    """Full-sequence forward: flash attention (K4) at every attention layer
+    or site of the dense and hybrid families, the Mamba-2 scan (K6) in every
+    Mamba-2 layer of the hybrid family, the WKV scan (K7) in every time-mix
+    layer of the ssm family; the step returns the last position's logits
+    (B, V)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
@@ -155,7 +157,9 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
 
 
 def make_serve_step(cfg: ModelConfig, *, device=None):
-    """One-token decode (decode attention, K5, at every attention layer or site):
+    """One-token decode: decode attention (K5) at every attention layer or
+    site of the dense and hybrid families, the WKV scan (K7) with T = 1 in
+    every time-mix layer of the ssm family:
     (params, cache, token (B,), pos) -> (logits (B, V), cache updated in place)."""
     dev = resolve_device(device)
 

@@ -1,11 +1,15 @@
-"""Uniform model API — the port of `repro.models.model` for the dense and
-hybrid families.
+"""Uniform model API — the port of `repro.models.model` for the dense,
+hybrid (zamba2) and ssm (rwkv6) families.
 
     params = init_params(cfg, generator, device=)  # weights from a torch.Generator
     logits, aux = forward(params, cfg, batch)        # batch: {tokens (B,S), labels (B,S)}
     loss = loss_fn(params, cfg, batch)               # scalar, float32
     cache = init_decode_cache(cfg, batch_size, cache_len, device=)
     logits, cache = decode_step(params, cfg, token, cache, pos)
+
+The ssm family's decode cache is its recurrent state (token shifts and WKV
+states, float32, constant in the sequence length): it ignores ``cache_len``
+and ``dtype``, as the reference's does.
 
 Every other family of the zoo raises `NotImplementedError` until its slice
 of the port lands.
@@ -16,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, rwkv, transformer
 from repro_torch.models import layers as nn
 
 # family -> (init, forward, cache_init, decode_step)
@@ -25,6 +29,7 @@ _FAMILIES = {
               transformer.dense_cache_init, transformer.dense_decode_step),
     "hybrid": (hybrid.hybrid_init, hybrid.hybrid_forward,
                hybrid.hybrid_cache_init, hybrid.hybrid_decode_step),
+    "ssm": (rwkv.rwkv_init, rwkv.rwkv_forward, rwkv.rwkv_cache_init, rwkv.rwkv_decode_step),
 }
 
 
@@ -36,9 +41,10 @@ def _family(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *, device=None):
     """Random weights as the reference draws them (normal * d_in**-0.5,
-    norms 1, biases 0; the hybrid family's SSM and LoRA leaves as
-    `models.ssm` and `models.hybrid` say), from ``generator`` (default: seed
-    0 on ``device``), on ``device`` (default CUDA)."""
+    norms 1, biases 0; the hybrid family's SSM and LoRA leaves and the ssm
+    family's time-mix leaves as `models.ssm`, `models.hybrid` and
+    `models.rwkv` say), from ``generator`` (default: seed 0 on ``device``),
+    on ``device`` (default CUDA)."""
     init = _family(cfg)[0]
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)

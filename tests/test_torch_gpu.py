@@ -20,7 +20,12 @@ atol 5e-5, rtol 5e-4 (the reference's gradient tolerance,
 tests/test_kernels_attention.py:59-78); bf16 max abs <= 2e-2 max|plain| and
 relative L2 <= 2e-2 on each of dq, dk, dv.  The Mamba-2 scan K6: y f32
 rtol = atol = 2e-4, bf16 5e-2, the final state 1e-3
-(tests/test_kernels_scans.py:53-59).
+(tests/test_kernels_scans.py:53-59).  The RWKV-6 scan K7: y f32 rtol = atol =
+1e-4, bf16 5e-2, the final state 1e-3 (tests/test_kernels_scans.py:27-35);
+bf16 element by element, float32 in relative L2 against the plain version
+and against a float64 recurrence, as chip_smoke.py holds it: under weak
+decay (w near 0.999, 300 steps) |y| reaches ~100, and two right float32
+results differ by ~1.5e-4 at elements near zero, more than 1e-4 + 1e-4 |y|.
 """
 import pytest
 
@@ -48,6 +53,7 @@ from repro_torch.kernels.prox_update import (  # noqa: E402
     prox_update_batched_plain,
     prox_update_plain,
 )
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref  # noqa: E402
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
@@ -62,6 +68,8 @@ K4B_F32_TOL = dict(rtol=5e-4, atol=5e-5)
 K4B_BF16_REL = 2e-2
 K6_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 K6_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+K7_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+K7_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 @pytest.fixture
@@ -72,7 +80,7 @@ def cuda():
     logistic_prox_gd_batched.launches = 0
     flash_attention.launches = decode_attention.launches = 0
     prox_update.launches = flash_attention_bwd.launches = 0
-    ssm_scan.launches = 0
+    ssm_scan.launches = rwkv6_scan.launches = 0
     return torch.device("cuda")
 
 
@@ -564,4 +572,157 @@ def test_hybrid_serving_path_goes_through_the_kernels(cuda):
     got = BatchServer(cfg, on_card, serve).generate(prompts, max_new_tokens=6)
     steps = (5 + 5) + (3 + 5)  # per group: prompt length + new tokens - 1
     assert decode_attention.launches == 2 * steps and ssm_scan.launches == 4
+    assert got == BatchServer(cfg, params, serve, device="cpu").generate(prompts, max_new_tokens=6)
+
+
+# ----------------------------------------------------------- K7 rwkv6_scan
+RWKV_DECAYS = {"sigmoid": None, "strong": (0.03, 0.07), "weak": (0.998, 0.9999)}
+
+
+def _rwkv_inputs(shape, dtype, device, *, decay="sigmoid", with_state=False, packed=False,
+                 seed=0):
+    """r, k, v, w (w = sigmoid(normal), or uniform in a strong- or weak-decay
+    band, as tests/test_torch_rwkv6_scan.py), u, an optional state0; with
+    ``packed`` r, k, v, w are column views of one (B, T, 4 H K) tensor, so
+    the kernel reads them through strides that are not the contiguous ones."""
+    gen = torch.Generator().manual_seed(seed)
+    Bb, T, H, K = shape
+    rkv = _randn(gen, (Bb, T, 3 * H * K), torch.float32, "cpu")
+    band = RWKV_DECAYS[decay]
+    w = (torch.sigmoid(_randn(gen, (Bb, T, H * K), torch.float32, "cpu")) if band is None
+         else torch.rand((Bb, T, H * K), generator=gen) * (band[1] - band[0]) + band[0])
+    packed_t = torch.cat([rkv, w], dim=-1).to(device, dtype)
+    r, k, v, w = (packed_t[..., i * H * K:(i + 1) * H * K].reshape(Bb, T, H, K)
+                  for i in range(4))
+    if not packed:
+        r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    u = _randn(gen, (H, K), torch.float32, device)
+    s0 = _randn(gen, (Bb, H, K, K), torch.float32, device) if with_state else None
+    return r, k, v, w, u, s0
+
+
+RWKV_CASES = [  # (B, T, H, K), decay, state0, packed
+    ((4, 2048, 32, 64), "sigmoid", False, False),  # rwkv6-1.6b's prefill
+    ((8, 1, 32, 64), "sigmoid", True, False),  # its decode step
+    ((2, 1000, 4, 64), "sigmoid", True, True),
+    ((2, 300, 4, 64), "strong", True, False),
+    ((2, 300, 4, 64), "weak", True, False),
+    ((1, 33, 2, 8), "sigmoid", True, False),  # the reference's shapes
+    ((2, 100, 3, 16), "sigmoid", False, True),
+    ((1, 64, 4, 32), "sigmoid", True, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", RWKV_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"_{c[1]}" +
+                         ("_state0" if c[2] else "") + ("_packed" if c[3] else ""))
+def test_rwkv6_scan_kernel_matches_plain(cuda, case, dtype):
+    """T off the 32-step tile, T = 1 with a state0 (decode), strong and weak
+    decay, K 8 to 64, operands read through their strides."""
+    shape, decay, with_state, packed = case
+    r, k, v, w, u, s0 = _rwkv_inputs(shape, dtype, cuda, decay=decay, with_state=with_state,
+                                     packed=packed)
+    assert packed != r.is_contiguous()
+    y, S = rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == 1
+    assert y.shape == v.shape and y.dtype == dtype and S.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
+    y_p, S_p = rwkv6_scan_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(S, S_p, **K7_STATE_TOL)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y, y_p, **K7_TOL[dtype])
+        return
+    y_64, _ = rwkv6_scan_plain(r, k, v, w, u, s0, acc_dtype=torch.float64)
+    for want in (y_p, y_64):
+        rel = (torch.linalg.vector_norm(y - want) / torch.linalg.vector_norm(want)).item()
+        assert rel <= K7_TOL[dtype]["rtol"], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 100])
+def test_rwkv6_scan_state0_as_output_matches_plain(cuda, T, dtype):
+    """K7 writing the final state over state0 (as decode runs it, at the
+    decode shape and over 100 steps): the same y and state as the plain
+    version from an untouched copy of state0."""
+    r, k, v, w, u, s0 = _rwkv_inputs((8, T, 32, 64), dtype, cuda, with_state=True, seed=4)
+    want_y, want_S = rwkv6_scan_plain(r, k, v, w, u, s0)
+    state = s0.clone()
+    y, S = rwkv6_scan(r, k, v, w, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == 1 and S.data_ptr() == state.data_ptr()
+    torch.testing.assert_close(state, want_S, **K7_STATE_TOL)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y, want_y, **K7_TOL[dtype])
+    else:
+        rel = (torch.linalg.vector_norm(y - want_y) / torch.linalg.vector_norm(want_y)).item()
+        assert rel <= K7_TOL[dtype]["rtol"], rel
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u, _ = _rwkv_inputs((1, 40, 2, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="not built"):
+        rwkv6_scan(r[..., :48], k[..., :48], v[..., :48], w[..., :48], u[:, :48])
+    with pytest.raises(TypeError, match="r's dtype"):
+        rwkv6_scan(r, k, v, w.float(), u)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        rwkv6_scan(r.double(), k.double(), v.double(), w.double(), u)
+    with pytest.raises(TypeError, match="float32"):
+        rwkv6_scan(r, k, v, w, u.bfloat16())
+    with pytest.raises(ValueError, match="state0"):
+        rwkv6_scan(r, k, v, w, u, torch.zeros((1, 2, 64, 63), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan(r, k, v, w, u, torch.zeros((1, 2, 64, 64), device=cuda).transpose(2, 3))
+    with pytest.raises(ValueError, match="is on cpu"):
+        rwkv6_scan(r, k, v, w, u.cpu())
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rwkv6_scan(r.float().requires_grad_(), k.float(), v.float(), w.float(), u)
+    with pytest.raises(ValueError, match="out_state"):
+        rwkv6_scan(r, k, v, w, u, out_state=torch.zeros((1, 2, 64, 63), device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        rwkv6_scan(r, k, v, w, u, out_state=torch.zeros((1, 2, 64, 64), device=cuda).double())
+    two = torch.zeros((2, 1, 2, 64, 64), device=cuda).view(-1)
+    with pytest.raises(ValueError, match="overlaps state0"):
+        rwkv6_scan(r, k, v, w, u, two[:8192].view(1, 2, 64, 64),
+                   out_state=two[4096:12288].view(1, 2, 64, 64))
+    assert rwkv6_scan.launches == 0
+
+
+@pytest.mark.gpu
+def test_rwkv_serving_path_goes_through_the_kernels(cuda):
+    """The reduced rwkv6 (2 layers, 4 heads of K 64) in float32, w0, w_b and
+    u randomised: prefill launches K7 once a layer, decode once a layer a
+    step; the card's prefill logits equal the CPU's (the plain scan) within
+    1e-4, and so do its greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(REGISTRY["rwkv6-1.6b"].reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device="cpu")
+    tm = params["layers"]["tm"]
+    tm["w0"].uniform_(-6.0, 1.0, generator=gen)
+    tm["w_b"]["w"].normal_(generator=gen).mul_(64**-0.5)
+    tm["u"].normal_(generator=gen)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    gpu = make_prefill_step(cfg)(on_card, {"tokens": tokens})
+    assert rwkv6_scan.launches == cfg.num_layers
+    cpu = make_prefill_step(cfg, device="cpu")(params, {"tokens": tokens})
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+    prompts = [[1, 2, 3, 4, 5], [6, 7], [8, 9, 10]]
+    serve = ServeConfig(max_batch=2, cache_len=32)
+    rwkv6_scan.launches = 0
+    got = BatchServer(cfg, on_card, serve).generate(prompts, max_new_tokens=6)
+    steps = (5 + 5) + (3 + 5)  # per group: prompt length + new tokens - 1
+    assert rwkv6_scan.launches == cfg.num_layers * steps
     assert got == BatchServer(cfg, params, serve, device="cpu").generate(prompts, max_new_tokens=6)
