@@ -14,14 +14,21 @@ Phases, each printed as one JSON line:
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
    build of every kernel from `src/repro_torch/kernels/csrc` (one `nvcc` per
    source, all started together) with its ptxas report;
-2. parity  — K1 and K2 against their plain PyTorch versions on the card at the
-   sweep's shapes, float32 and float64, at the reference's tolerances,
-   and timed with CUDA events beside its bound;
+2. parity  — K1, its loop form (a whole quadratic solve in one launch, at
+   the svrp and minibatch shapes: R 16 and 64, d 40, 200 steps, on the
+   Figure-1 clients) and K2 against their plain PyTorch versions on the
+   card at the sweep's shapes, float32 and float64, at the reference's
+   tolerances (the loop form at K1_LOOP_TOL), timed with CUDA events beside
+   the bound; the loop form running one step fewer (a planted fault) must
+   fail its check;
 3. main path — `run_batch(..., fused=True, prox_solver="gd")` in float64 on
    the paper's Figure-1 quadratic (M = 1000, d = 40, L = 3330, delta = 10):
    svrp, catalyzed_svrp, svrp_minibatch; and on the Figure-2 a9a-like logistic
    problem (M = 60, n = 2000, d = 123, lambda = 0.1): svrp.  The launch counts
-   are zeroed just before and read just after; every kernel must have run.
+   are zeroed just before and read just after, and each sweep's are exact:
+   one K1-loop launch a round for svrp (400) and minibatch (150), none of
+   the elementwise K1; Catalyst 36,000 elementwise K1 launches (its shifted
+   solves, one a GD step); the logistic svrp one K2 launch a round (300).
    Each sweep's first 20 rounds are later replayed on the CPU (plain
    versions) with the same injected draws: comm must be equal and dist_sq
    within rtol 1e-9;
@@ -30,7 +37,9 @@ Phases, each printed as one JSON line:
 5. attention parity — K4 (flash attention) and K5 (decode attention) against
    their plain versions at the serving path's shapes (K4: Llama prefill,
    bf16 and float32, causal; and small sliding-window, non-causal and head
-   dim 80 / 64 cases; K5: B = 8, S = 4096, q bf16 against float32 and bf16
+   dim 80 / 64 cases, each with the route it took: wgmma + TMA for bf16 at
+   Dh 64 and 128; on two of them the wgmma route dropping its last key
+   tile, a planted fault, must fail; K5: B = 8, S = 4096, q bf16 against float32 and bf16
    caches, prefix and ring-buffer masks), at the reference's tolerances (K5
    also at a limit scaled to its output, K5_BF16_SCALED, which two planted
    faults must fail), timed with CUDA events beside the bound, the plain
@@ -129,7 +138,8 @@ Phases, each printed as one JSON line:
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
 20. train profile — one plain round under torch.profiler;
-21. the `kernels` line, then the `ok` line.
+21. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
+   the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -150,6 +160,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # H100 SXM: float32 / float64 outside the tensor cores, bf16 on them (dense)
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 K1_TOL = {"float32": dict(rtol=1e-6, atol=1e-6), "float64": dict(rtol=1e-12, atol=0.0)}
+# K1's loop form (a whole quadratic solve in one launch) against its plain
+# version: the update rounds as K1's does, but each step's matvec sums in
+# another order than cuBLAS, about one unit roundoff of |y| a step (beta ~ 1/L
+# cancels A's scale), carried at most num_steps times by the contracting
+# iteration (2.4e-5 in f32, 4.4e-14 in f64 at 200 steps).  Its planted fault
+# (one step fewer) moves y by beta |grad phi|, far above the f64 limit.
+K1_LOOP_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "float64": dict(rtol=1e-11, atol=1e-11)}
 K2_TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "float64": dict(rtol=1e-12, atol=1e-13)}
 # The reference's: tests/test_kernels_attention.py:_tol, tests/test_kernels_decode.py.
 K4_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -324,13 +341,16 @@ def device_ms(fn, reps: int) -> float | None:
 
 
 # module of each kernel wrapper under repro_torch.kernels
-WRAPPERS = {"prox_update": "prox_update", "flash_attention": "flash_attention",
+WRAPPERS = {"prox_update": "prox_update", "prox_update_batched": "prox_update",
+            "quadratic_prox_gd_batched": "prox_update",
+            "logistic_prox_gd_batched": "logistic_prox", "flash_attention": "flash_attention",
             "flash_attention_bwd": "flash_attention", "decode_attention": "decode_attention",
             "ssm_scan": "ssm_scan", "rwkv6_scan": "rwkv6_scan"}
 SERVE_KERNELS = ("flash_attention", "decode_attention")
 TRAIN_KERNELS = ("prox_update", "flash_attention", "flash_attention_bwd")
 HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
+SWEEP_KERNELS = ("quadratic_prox_gd_batched", "prox_update_batched", "logistic_prox_gd_batched")
 PATHS = ("sweep", "serving", "hybrid", "ssm", "training")
 
 
@@ -457,10 +477,59 @@ def phase_parity(qprob, lprob) -> dict:
     from repro_torch.kernels.logistic_prox import (
         logistic_prox_gd_batched, logistic_prox_gd_batched_plain,
     )
+    from repro_torch.kernels import prox_update as k1
     from repro_torch.kernels.prox_update import prox_update_batched, prox_update_batched_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
+    # K1's loop form at the quadratic sweeps' shapes: svrp (R 16 trials) and
+    # minibatch (R 64 = 16 trials x 4 cohort clients), d 40, 200 steps, on
+    # the Figure-1 clients at the sweep's stepsizes.
+    from repro_torch.core import theorem2_stepsize
+
+    steps = 200
+    eta0 = theorem2_stepsize(float(qprob.strong_convexity()), float(qprob.similarity()))
+    L = float(qprob.smoothness_max())
+    for R in (16, 64):
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            isz = torch.empty((), dtype=dtype).element_size()
+            A, b = qprob.A.to(dtype), qprob.b.to(dtype)
+            m = torch.randint(0, qprob.num_clients, (R,), generator=gen, device="cuda")
+            z = torch.randn(R, qprob.dim, generator=gen, device="cuda", dtype=dtype)
+            eta = eta0 * (0.5 + torch.rand(R, generator=gen, device="cuda", dtype=dtype))
+            beta, ie = 1.0 / (L + 1.0 / eta), 1.0 / eta
+
+            def loop():
+                return k1.quadratic_prox_gd_batched(A, b, m, z, beta, ie, steps,
+                                                     check_indices=False)
+
+            def loop_plain():
+                return k1.quadratic_prox_gd_batched_plain(A, b, m, z, beta, ie, steps)
+
+            out, ref = loop(), loop_plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, **K1_LOOP_TOL[dname])
+            d = qprob.dim
+            b_ms, b_by = bound_ms((R * d * d + 4 * R * d + 2 * R) * isz + 8 * R,
+                                  steps * R * (2 * d * d + 6 * d), dname)
+            res = dict(shape=[R, d, steps], max_abs_err=(out - ref).abs().max().item(),
+                       ms=time_ms(loop, 50), plain_ms=time_ms(loop_plain, 5, 1),
+                       device_ms=device_ms(loop, 20), bound_ms=b_ms, bound_by=b_by,
+                       tol=K1_LOOP_TOL[dname])
+            if dtype == torch.float64:
+                # Planted fault: the kernel runs one step fewer.
+                k1._LOOP_SKIP_STEPS = 1
+                try:
+                    wrong = loop()
+                finally:
+                    k1._LOOP_SKIP_STEPS = 0
+                fault = (wrong - ref).abs().max().item()
+                check(not torch.allclose(wrong, ref, **K1_LOOP_TOL[dname]),
+                      f"quadratic_prox_gd_batched: planted fault (one step fewer) passed the "
+                      f"check at R {R}: max abs err {fault}")
+                res["planted_fault_one_step_fewer_max_abs_err"] = fault
+            results[("quadratic_prox_gd_batched", dname, R)] = res
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         isz = torch.empty((), dtype=dtype).element_size()
@@ -513,8 +582,8 @@ def phase_parity(qprob, lprob) -> dict:
             bound_ms=b_ms, bound_by=b_by, tol=K2_TOL[dname],
         )
     emit({"phase": "parity", "library_ms": None,
-          "library_note": "no single PyTorch call computes either function",
-          "kernels": [{"name": k, "dtype": dt, **v} for (k, dt), v in results.items()]})
+          "library_note": "no single PyTorch call computes any of these functions",
+          "kernels": [{"name": key[0], "dtype": key[1], **v} for key, v in results.items()]})
     return results
 
 
@@ -524,18 +593,15 @@ def phase_main_path(qprob, lprob, l_star) -> tuple[dict, list]:
     import torch
 
     from repro_torch.experiments import run_batch
-    from repro_torch.kernels.logistic_prox import logistic_prox_gd_batched
-    from repro_torch.kernels.prox_update import prox_update_batched
 
     plan = sweeps(qprob, lprob, l_star)
     runs = []
-    prox_update_batched.launches = 0
-    logistic_prox_gd_batched.launches = 0
+    zero_launch_counts(SWEEP_KERNELS)
     for label, kind, kw in plan:
         problem = qprob if kind == "quadratic" else lprob
         x_star = problem.minimizer() if kind == "quadratic" else l_star
         draws = sweep_draws(kw, problem.num_clients)
-        k1, k2 = prox_update_batched.launches, logistic_prox_gd_batched.launches
+        before = launch_counts(SWEEP_KERNELS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_batch(kw["algo"], problem, x_star=x_star, draws=draws,
@@ -551,8 +617,7 @@ def phase_main_path(qprob, lprob, l_star) -> tuple[dict, list]:
         final = float(np.median(d2[:, -1]))
         check(0 < final < r0,
               f"{label}: median final dist_sq {final} not in (0, ||x0 - x*||^2 = {r0})")
-        launched = {"prox_update_batched": prox_update_batched.launches - k1,
-                    "logistic_prox_gd_batched": logistic_prox_gd_batched.launches - k2}
+        launched = {k: n - before[k] for k, n in launch_counts(SWEEP_KERNELS).items()}
         info = {
             "phase": "main_path", "sweep": label, "trials": res.num_trials, "rounds": rounds,
             "wall_s": wall, "rounds_per_s": rounds / wall, "dist_sq_initial": r0,
@@ -561,17 +626,28 @@ def phase_main_path(qprob, lprob, l_star) -> tuple[dict, list]:
             "launches": launched,
         }
         emit(info)
-        # Catalyst takes the elementwise kernel on every problem (the reference's form).
-        uses_k2 = kind == "logistic" and kw["algo"] != "catalyzed_svrp"
-        kernel = "logistic_prox_gd_batched" if uses_k2 else "prox_update_batched"
-        check(launched[kernel] > 0 and info["rounds_per_s"] > 0,
-              f"{label}: {kernel} was never launched")
+        expected = expected_launches(kind, kw)
+        check(launched == expected and info["rounds_per_s"] > 0,
+              f"{label}: launched {launched}, expected exactly {expected}")
         runs.append((label, kind, problem, kw, draws, x_star, res))
-    launches = {"prox_update_batched": prox_update_batched.launches,
-                "logistic_prox_gd_batched": logistic_prox_gd_batched.launches}
+    launches = launch_counts(SWEEP_KERNELS)
     for name, count in launches.items():
         check(count > 0, f"main path never launched {name}")
     return launches, runs
+
+
+def expected_launches(kind: str, kw) -> dict:
+    """The sweep kernels' launches a sweep must make: one K1-loop launch per
+    quadratic prox solve (a round), one K2 launch per logistic solve, and
+    Catalyst's K1 once a GD step (its shifted solves stay elementwise)."""
+    counts = dict.fromkeys(SWEEP_KERNELS, 0)
+    if kw["algo"] == "catalyzed_svrp":
+        counts["prox_update_batched"] = kw["num_outer"] * kw["inner_steps"] * kw["prox_steps"]
+    elif kind == "quadratic":
+        counts["quadratic_prox_gd_batched"] = kw["num_steps"]
+    else:
+        counts["logistic_prox_gd_batched"] = kw["num_steps"]
+    return counts
 
 
 def phase_profile(runs) -> None:
@@ -643,11 +719,16 @@ def _err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
-def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None):
-    """K4 against its plain version on one input, timed beside the bound and SDPA."""
+def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None,
+            plant_fault=False):
+    """K4 against its plain version on one input, timed beside the bound and
+    SDPA.  With ``plant_fault`` (bf16 at Dh 64 / 128, the wgmma route), K4
+    also runs dropping the last key tile of every row block, which the check
+    must reject."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     dname = str(dtype).split(".")[-1]
@@ -659,6 +740,20 @@ def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None):
     ref = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, **K4_TOL[dname])
+    route = fa.forward_route(dtype, Dh)
+    planted = None
+    if plant_fault:
+        check(route == "wgmma_tma", f"flash_attention: the planted fault needs the wgmma route, "
+                                    f"not {route}")
+        fa._FWD_SKIP_LAST_KEY_TILES = 1
+        try:
+            wrong = flash_attention(q, k, v, **kw)
+        finally:
+            fa._FWD_SKIP_LAST_KEY_TILES = 0
+        planted = _err(wrong, ref)
+        check(not torch.allclose(wrong.float(), ref.float(), **K4_TOL[dname]),
+              f"flash_attention {[B, Sq, Skv, H, KVH, Dh]}: planted fault (last key tile "
+              f"skipped) passed the check: max abs err {planted}")
     pairs = attention_pairs(Sq, Skv, causal, window)
     b_ms, b_by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                           4 * B * H * Dh * pairs, dname)
@@ -678,7 +773,8 @@ def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None):
 
     big = B * Sq * H > 100_000
     return dict(shape=[B, Sq, Skv, H, KVH, Dh], dtype=dname, causal=causal, window=window,
-                max_abs_err=_err(out, ref), tol=K4_TOL[dname],
+                route=route, max_abs_err=_err(out, ref), tol=K4_TOL[dname],
+                planted_fault_last_tile_skipped_max_abs_err=planted,
                 ms=time_ms(lambda: flash_attention(q, k, v, **kw), 10 if big else 50),
                 plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3 if big else 20, 1),
                 library_ms=time_ms(sdpa, 10 if big else 50),
@@ -765,12 +861,13 @@ def phase_attention_parity() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
-    k4 = {dname: k4_case(gen, 4, 2048, 2048, 24, 8, 128, dt)
+    k4 = {dname: k4_case(gen, 4, 2048, 2048, 24, 8, 128, dt, plant_fault=dt == bf16)
           for dname, dt in (("bfloat16", bf16), ("float32", f32))}
     small = [k4_case(gen, 2, 1000, 1000, 8, 2, 128, dt, window=256) for dt in (bf16, f32)]
     small += [k4_case(gen, 2, 300, 700, 8, 4, 64, dt, causal=False) for dt in (bf16, f32)]
     small += [k4_case(gen, 2, 513, 513, 32, 8, 80, dt) for dt in (bf16, f32)]
-    small += [k4_case(gen, 1, 257, 257, 32, 8, 64, dt, window=64) for dt in (bf16, f32)]
+    small += [k4_case(gen, 1, 257, 257, 32, 8, 64, dt, window=64, plant_fault=dt == bf16)
+              for dt in (bf16, f32)]
     k5 = {(str(c).split(".")[-1], m): k5_case(gen, 8, 4096, 24, 8, 128, bf16, c, m)
           for c in (f32, bf16) for m in ("prefix", "ring")}
     emit({"phase": "attention_parity", "flash_attention": list(k4.values()),
@@ -2225,6 +2322,10 @@ def main(argv=None) -> int:
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
                                 launches, parity[("prox_update_batched", "float64")]),
+        "quadratic_prox_gd_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
+                                      "src/repro/kernels/prox_update.py:91",
+                                      launches,
+                                      parity[("quadratic_prox_gd_batched", "float64", 16)]),
         "logistic_prox_gd_batched": ("src/repro_torch/kernels/csrc/logistic_prox.cu",
                                      "src/repro/kernels/logistic_prox.py:64",
                                      launches, parity[("logistic_prox_gd_batched", "float64")]),

@@ -75,6 +75,15 @@ def prox_gd(
     return y
 
 
+def gd_row_scalars(z: torch.Tensor, eta, L) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 7's per-row ``(beta, inv_eta)`` = ``(1/(L + 1/eta), 1/eta)``
+    for ``(B, d)`` targets, from per-row or scalar ``eta`` and ``L``."""
+    B = z.shape[0]
+    eta = torch.as_tensor(eta, dtype=z.dtype, device=z.device).broadcast_to((B,))
+    L = torch.as_tensor(L, dtype=z.dtype, device=z.device).broadcast_to((B,))
+    return 1.0 / (L + 1.0 / eta), 1.0 / eta
+
+
 def prox_gd_batched(
     grad_fn: Callable[[torch.Tensor], torch.Tensor],
     z: torch.Tensor,
@@ -93,11 +102,7 @@ def prox_gd_batched(
     batched kernel (`kernels.prox_update_batched`, which takes its plain
     version for CPU tensors); otherwise it is the identical torch expression.
     """
-    B = z.shape[0]
-    eta = torch.as_tensor(eta, dtype=z.dtype, device=z.device).broadcast_to((B,))
-    L = torch.as_tensor(L, dtype=z.dtype, device=z.device).broadcast_to((B,))
-    beta = 1.0 / (L + 1.0 / eta)  # (B,)
-    inv_eta = 1.0 / eta
+    beta, inv_eta = gd_row_scalars(z, eta, L)
     y = z if y0 is None else y0
 
     if use_kernel:

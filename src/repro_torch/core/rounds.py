@@ -11,8 +11,10 @@ SPPM/SVRP family is one ``RoundDef``:
 
 ``RoundOps`` here is the reference's BATCHED substrate: ``(B, d)`` state for a
 whole sweep, with the Algorithm-7 local solves routed through the batched
-Hopper kernels (`kernels.prox_update_batched` for quadratic problems and
-Catalyst, `kernels.logistic_prox_gd_batched` for logistic ones).  Where the
+Hopper kernels (`kernels.quadratic_prox_gd_batched` for quadratic problems,
+`kernels.logistic_prox_gd_batched` for logistic ones, each a whole solve in
+one launch, and `kernels.prox_update_batched` a launch per GD step for
+Catalyst).  Where the
 reference draws from PRNG keys inside the round, the port reads round ``k``
 of a `core.draws.Draws` record.
 
@@ -268,10 +270,10 @@ ROUND_DEFS: dict[str, RoundDef] = {
 
 # ============================================================ fused substrate
 #
-# Two per-problem oracles: quadratic-family problems batch their gradient
-# (one batched matvec) and take the Algorithm-7 update through the
-# ELEMENTWISE kernel, one launch per GD step; logistic problems go through
-# the logistic kernel, which runs the whole Algorithm-7 loop in ONE launch.
+# Two per-problem oracles, each running the whole Algorithm-7 loop in ONE
+# launch: quadratic-family problems through the quadratic loop kernel (the
+# reference's elementwise kernel and batched matvec per GD step, fused),
+# logistic problems through the logistic kernel.
 
 
 def fused_oracle_kind(problem) -> str:
@@ -283,8 +285,8 @@ def fused_oracle_kind(problem) -> str:
         return "logistic"
     raise ValueError(
         f"fused=True has no batched kernel prox path for {type(problem).__name__}: "
-        "supported oracles are the quadratic family (A/b attrs; generic gradient "
-        "through kernels.prox_update_batched) and the logistic family (Z/y/lam "
+        "supported oracles are the quadratic family (A/b attrs; "
+        "kernels.quadratic_prox_gd_batched) and the logistic family (Z/y/lam "
         "attrs; kernels.logistic_prox_gd_batched)"
     )
 
@@ -292,17 +294,21 @@ def fused_oracle_kind(problem) -> str:
 def prox_gd_fused(problem, m, z, eta, L, prox_steps: int):
     """The batched Algorithm-7 solve of one fused round: per-row sampled
     client ``m`` (R,), targets ``z`` (R, d), per-row eta/L scalars.  Rows are
-    trials for single-client rounds and trial x cohort pairs for minibatch."""
-    from repro_torch.core.prox import prox_gd_batched
-
+    trials for single-client rounds and trial x cohort pairs for minibatch.
+    ``m`` comes from the sweep's draws, whose range `run_batch` checked when
+    the sweep started, so the quadratic solve skips its per-call check."""
     if fused_oracle_kind(problem) == "logistic":
         from repro_torch.kernels.logistic_prox import logistic_prox_gd_batched
 
         A = problem.Z[m] * problem.y[m][:, :, None]
         beta = 1.0 / (L + 1.0 / eta)
         return logistic_prox_gd_batched(A, z, beta, 1.0 / eta, problem.lam, prox_steps)
-    grad_fn, _ = problem.local_oracle(m)  # gathers A_m, b_m once per solve
-    return prox_gd_batched(grad_fn, z, eta, L, prox_steps, use_kernel=True)
+    from repro_torch.core.prox import gd_row_scalars
+    from repro_torch.kernels.prox_update import quadratic_prox_gd_batched
+
+    beta, inv_eta = gd_row_scalars(z, eta, L)  # as prox_gd_batched takes them
+    return quadratic_prox_gd_batched(problem.A, problem.b, m, z, beta, inv_eta, prox_steps,
+                                     check_indices=False)
 
 
 def _rows(a):

@@ -136,7 +136,9 @@ def _expected_draws(algo: str, cfg: Mapping[str, Any], B: int) -> tuple[tuple, t
     return lead, (None if algo == "sppm" else lead)
 
 
-def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int) -> None:
+def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int, M: int) -> None:
+    """Shapes, and client indices in [0, M): checked once here, so the
+    kernels that read a client's data by index need not check every round."""
     clients, coins = _expected_draws(algo, cfg, B)
     got_coins = None if draws.coins is None else tuple(draws.coins.shape)
     if tuple(draws.clients.shape) != clients or got_coins != coins:
@@ -144,6 +146,10 @@ def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int) -> Non
             f"{algo}: the injected draws have clients {tuple(draws.clients.shape)} and "
             f"coins {got_coins}; this sweep needs clients {clients} and coins {coins}"
         )
+    if draws.clients.numel():
+        lo, hi = (int(v) for v in torch.aminmax(draws.clients))
+        if lo < 0 or hi >= M:
+            raise ValueError(f"{algo}: the draws' clients span [{lo}, {hi}], outside [0, {M})")
 
 
 def _fused_body(algo: str, static_items: tuple) -> Callable:
@@ -224,7 +230,7 @@ def run_batch(
             hparams.get("p"), batch_clients=cfg.get("batch_clients"),
             num_outer=cfg.get("num_outer"),
         )
-    _check_draws(draws, algo, cfg, B)
+    _check_draws(draws, algo, cfg, B, problem.num_clients)
     hp = rr.device_hparams(dev)
     res = _fused_body(algo, tuple(sorted(cfg.items())))(
         problem, x0, x_star, draws.to(dev), hp

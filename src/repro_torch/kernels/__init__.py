@@ -4,13 +4,16 @@
 module                      replaces (TPU kernel)                       route
 ==========================  ==========================================  =====
 `prox_update` (K1)          kernels/prox_update.py:91                   CUDA
-                            `prox_update_batched`
+                            `prox_update_batched`; its loop form
+                            `quadratic_prox_gd_batched` (a whole
+                            quadratic solve in one launch)
 `logistic_prox` (K2)        kernels/logistic_prox.py:64                 CUDA
                             `logistic_prox_gd_batched`
 `prox_update` (K3)          kernels/prox_update.py:45                   CUDA
                             `prox_update`
 `flash_attention` (K4)      kernels/flash_attention.py:105              CUDA
-                            `flash_attention`
+                            `flash_attention` (bf16 at head dim 64 and
+                            128: wgmma + TMA, warp-specialised)
 `flash_attention` (K4b)     kernels/ops.py:105 `_ca_bwd`, the jnp       CUDA
                             custom_vjp backward (no TPU kernel)
 `decode_attention` (K5)     kernels/decode_attention.py:62              CUDA

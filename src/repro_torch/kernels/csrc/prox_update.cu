@@ -21,9 +21,9 @@
 // (the _rn intrinsics are never contracted into an FMA), in the order of the
 // plain PyTorch version, so the kernel and the plain version agree exactly.
 // No shared memory and no tensor cores: the TPU's (8, 128) tiling has no
-// counterpart here.  Fusing the quadratic
-// gradient's batched matvec into this pass, or capturing the GD loop in a CUDA
-// graph, is what would remove the launch cost.
+// counterpart here.  The quadratic sweeps no longer take this entry: entry 3
+// below runs their whole GD loop in one launch.  Catalyst's shifted solves
+// and generic gradients still do, one launch per GD step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -228,4 +228,186 @@ extern "C" int prox_update_tree_f32(const long long* table, int leaves, double l
 extern "C" int prox_update_tree_f64(const long long* table, int leaves, double lr,
                                     double inv_eta, void* stream) {
   return launch_tree<double>(table, leaves, lr, inv_eta, stream);
+}
+
+// 3. quadratic_prox_gd_batched_{f32,f64} (K1, redesigned), the whole
+// Algorithm-7 solve of a quadratic sweep round in one launch.
+//
+// Replaces, for the quadratic family, the loop of num_steps launches of
+// entry 1 (the TPU kernel src/repro/kernels/prox_update.py:91, driven one GD
+// step at a time by src/repro/core/prox.py:90-128), each with its batched
+// matvec and subtraction beside it.  For every row r of R rows it runs
+//
+//     y <- y - beta[r] * ((A[m[r]] y - b[m[r]]) + (y - z[r]) * inv_eta[r])
+//
+// num_steps times from y0[r] and writes the last y.  A (M, d, d) and b (M, d)
+// are read in place through the row's client index m[r]: nothing is gathered.
+//
+// What bounds it on this card: neither bytes nor operations, but latency.
+// The work is a chain of num_steps dependent steps, each a d x d matvec and
+// a d-wide update.  At fig-1 svrp (R 16, d 40, 200 steps, f64) that is
+// 200 * 16 * (2 * 40 * 40 + 7 * 40) = 1.1e7 operations, 0.3 us at the H100's
+// 34 TFLOP/s in f64, and 16 * (40 * 40 + 4 * 40) * 8 = 0.23 MB, 0.07 us at
+// 3.35 TB/s; minibatch (R 64) four times that.  A step cannot start before
+// the previous one ends, so a solve costs num_steps times one step's latency
+// however many SMs there are.
+//
+// Design: one block per row.  y lives in shared memory, double-buffered: a
+// step reads one buffer and writes the other, so it needs one barrier.  Each
+// output's dot product is split over `lanes` threads (a power of two, about
+// d / 8 of them, at most 32), each summing every lanes-th column with FMAs,
+// and reduced with shuffles: a step costs a few FMAs and log2(lanes)
+// shuffles, not d dependent FMAs.  A[m[r]] never changes during the solve,
+// so where one pass of at most 1024 threads covers all d outputs (d <= 64)
+// each thread loads its <= 8 columns of its row of A into registers once
+// (8 x 8 = 64 B a thread at d 40 in f64, 12.8 KB a block), and the row's
+// owner keeps y, z and b of its row in registers too: a step then reads
+// only y from shared memory.  Larger d loops over the rows in passes with A
+// staged once in shared memory, or, when d x d x itemsize does not fit there
+// (d > 168 in f64, d > 239 in f32), read from global memory, where the
+// row's matrix stays in L2 across the steps.  The update keeps entry 1's
+// order and rounding, y - lr (g + (y - z) inv_eta) with each operation
+// rounded on its own; only the matvec sums in another order than the plain
+// version's (cuBLAS / the CPU's BLAS).
+
+namespace {
+
+constexpr int kLoopMaxThreads = 1024;
+enum { kRegsA = 0, kSmemA = 1, kGlobalA = 2 };  // where a block reads A[m[r]] from
+constexpr int kRegCols = 8;  // columns of its row a thread keeps in registers
+
+template <typename T>
+__global__ void __launch_bounds__(kLoopMaxThreads) quadratic_prox_gd_kernel(
+    const T* __restrict__ A, const T* __restrict__ b, const long long* __restrict__ m,
+    const T* __restrict__ z, const T* __restrict__ y0, const T* __restrict__ beta,
+    const T* __restrict__ inv_eta, T* __restrict__ out, int d, int steps,
+    long long s_stride, int lanes, int mode) {
+  extern __shared__ __align__(16) unsigned char loop_smem[];
+  T* sy = reinterpret_cast<T*>(loop_smem);  // two buffers of d
+  T* sz = sy + 2 * d;
+  T* sb = sz + d;
+  T* sA = sb + d;  // d * d, in mode kSmemA
+  const int r = blockIdx.x, tid = threadIdx.x, nthreads = blockDim.x;
+  const long long row = (long long)r * d;
+  const T* Ag = A + m[r] * (long long)d * d;
+  const T* bg = b + m[r] * (long long)d;
+  for (int i = tid; i < d; i += nthreads) {
+    sy[i] = y0[row + i];
+    sz[i] = z[row + i];
+    sb[i] = bg[i];
+  }
+  if (mode == kSmemA)
+    for (int i = tid; i < d * d; i += nthreads) sA[i] = Ag[i];
+  __syncthreads();
+  const T lr = beta[r * s_stride], ie = inv_eta[r * s_stride];
+  const int part = tid % lanes, slot = tid / lanes;
+  int cur = 0;
+  if (mode == kRegsA) {
+    // One pass covers every output: thread (slot, part) keeps columns
+    // part, part + lanes, ... of row `slot` of A in registers, and the
+    // row's owner (part 0) keeps y, z and b of that row.
+    const int j = slot;
+    T a[kRegCols];
+#pragma unroll
+    for (int q = 0; q < kRegCols; ++q) {
+      const int c = part + q * lanes;
+      a[q] = j < d && c < d ? Ag[(long long)j * d + c] : T(0);
+    }
+    T yj = j < d ? sy[j] : T(0);
+    const T zj = j < d ? sz[j] : T(0), bj = j < d ? sb[j] : T(0);
+    for (int s = 0; s < steps; ++s) {
+      const T* y = sy + cur * d;
+      T acc = 0;
+#pragma unroll
+      for (int q = 0; q < kRegCols; ++q) {
+        const int c = part + q * lanes;
+        if (c < d) acc = fma(a[q], y[c], acc);
+      }
+      for (int off = lanes >> 1; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (j < d && part == 0) {
+        const T g = sub_rn(acc, bj);  // A y - b
+        yj = sub_rn(yj, mul_rn(lr, add_rn(g, mul_rn(sub_rn(yj, zj), ie))));
+        sy[(cur ^ 1) * d + j] = yj;
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+  } else {
+    const T* Am = mode == kSmemA ? sA : Ag;  // kGlobalA: A stays in L2 across the steps
+    const int per_pass = nthreads / lanes;
+    for (int s = 0; s < steps; ++s) {
+      const T* y = sy + cur * d;
+      T* yn = sy + (cur ^ 1) * d;
+      for (int j0 = 0; j0 < d; j0 += per_pass) {  // the same trip count on every thread
+        const int j = j0 + slot;
+        T acc = 0;
+        if (j < d) {
+          const T* Aj = Am + (long long)j * d;
+          for (int c = part; c < d; c += lanes) acc = fma(Aj[c], y[c], acc);
+        }
+        for (int off = lanes >> 1; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (j < d && part == 0) {
+          const T g = sub_rn(acc, sb[j]);  // A y - b
+          const T yj = y[j];
+          yn[j] = sub_rn(yj, mul_rn(lr, add_rn(g, mul_rn(sub_rn(yj, sz[j]), ie))));
+        }
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+  }
+  for (int i = tid; i < d; i += nthreads) out[row + i] = sy[cur * d + i];
+}
+
+constexpr long long kMaxSmem = 232448;  // bytes of shared memory one Hopper block may use
+
+template <typename T>
+int launch_loop(const void* A, const void* b, const void* m, const void* z, const void* y0,
+                const void* beta, const void* inv_eta, void* out, long long rows, long long d,
+                long long steps, long long s_stride, void* stream) {
+  if (rows == 0 || d == 0) return 0;
+  if (d > 32768 || steps < 0 || steps > 0x7fffffffLL || rows > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int lanes = 1;
+  while (lanes < 32 && lanes * kRegCols < d) lanes *= 2;
+  long long threads = (d * lanes + 31) / 32 * 32;
+  const long long vec_bytes = 4 * d * (long long)sizeof(T);
+  const long long a_bytes = d * d * (long long)sizeof(T);
+  int mode = kRegsA;  // d <= 64: one pass, every thread's columns in kRegCols registers
+  if (threads > kLoopMaxThreads) {
+    threads = kLoopMaxThreads;
+    mode = vec_bytes + a_bytes <= kMaxSmem ? kSmemA : kGlobalA;
+  }
+  const long long smem = vec_bytes + (mode == kSmemA ? a_bytes : 0);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(quadratic_prox_gd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  quadratic_prox_gd_kernel<T><<<(unsigned)rows, (unsigned)threads, (size_t)smem,
+                                (cudaStream_t)stream>>>(
+      (const T*)A, (const T*)b, (const long long*)m, (const T*)z, (const T*)y0,
+      (const T*)beta, (const T*)inv_eta, (T*)out, (int)d, (int)steps, s_stride, lanes, mode);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// A (M, d, d), b (M, d), m (R,) int64 in [0, M), z and y0 (R, d), beta and
+// inv_eta (R,) read with stride s_stride (0: one scalar for all rows), out
+// (R, d); all contiguous, of one floating type.
+extern "C" int quadratic_prox_gd_batched_f32(const void* A, const void* b, const void* m,
+                                             const void* z, const void* y0, const void* beta,
+                                             const void* inv_eta, void* out, long long rows,
+                                             long long d, long long steps, long long s_stride,
+                                             void* stream) {
+  return launch_loop<float>(A, b, m, z, y0, beta, inv_eta, out, rows, d, steps, s_stride, stream);
+}
+
+extern "C" int quadratic_prox_gd_batched_f64(const void* A, const void* b, const void* m,
+                                             const void* z, const void* y0, const void* beta,
+                                             const void* inv_eta, void* out, long long rows,
+                                             long long d, long long steps, long long s_stride,
+                                             void* stream) {
+  return launch_loop<double>(A, b, m, z, y0, beta, inv_eta, out, rows, d, steps, s_stride,
+                             stream);
 }

@@ -2,9 +2,12 @@
 
 * `flash_attention` (K4) ports the TPU kernel
   `repro.kernels.flash_attention.flash_attention`
-  (src/repro/kernels/flash_attention.py:105) as a CUDA C++ kernel for Hopper
-  (`csrc/flash_attention.cu`: tensor-core `mma.sync` for bf16, FMA for
-  float32, the key loop inside the block; built by `kernels._build`).  With
+  (src/repro/kernels/flash_attention.py:105) as CUDA C++ kernels for Hopper
+  (`csrc/flash_attention.cu`, built by `kernels._build`), the key loop
+  inside the block.  The route depends on dtype and head dim alone
+  (`forward_route`): bf16 at Dh 64 and 128 runs a warp-specialised kernel
+  (TMA loads by a producer warpgroup, `wgmma` in two consumer warpgroups),
+  bf16 at Dh 80 the `mma.sync` kernel, float32 the FMA kernel.  With
   ``with_lse=True`` it also returns the softmax log-sum-exp of every row.
 * `flash_attention_bwd` (K4b) is the backward, written by hand
   (`csrc/flash_attention_bwd.cu`).  The reference has no TPU kernel for it:
@@ -46,8 +49,7 @@ HEAD_DIMS = (64, 80, 128)  # the dense zoo's head dims: granite, qwen3, llama/qw
 _P = ctypes.c_void_p
 _i = ctypes.c_int
 _ARGTYPES = {
-    "flash_attention_fwd": [_P, _P, _P, _P, _P, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
-                            ctypes.c_float, _P],
+    "flash_attention_fwd": [_P] * 5 + [_i] * 11 + [ctypes.c_float, _P],
 }
 _BWD_ARGTYPES = {
     "flash_attention_bwd": [_P] * 12 + [_i] * 11 + [ctypes.c_float, _P],
@@ -136,6 +138,20 @@ def _check_attention(name, q, k, v, sliding_window, **more):
     return dtype
 
 
+def forward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K4 kernel a CUDA call runs (`launch_dh` in csrc/flash_attention.cu
+    chooses by the same rule): "wgmma_tma" for bf16 at head dim 64 and 128,
+    "mma_sync" for bf16 at 80, "fma_f32" for float32."""
+    if dtype == torch.bfloat16:
+        return "wgmma_tma" if head_dim % 64 == 0 else "mma_sync"
+    return "fma_f32"
+
+
+# Planted fault for chip_smoke.py's checks: K4's wgmma route drops this many
+# of the last key tiles of every row block (0 in every real run).
+_FWD_SKIP_LAST_KEY_TILES = 0
+
+
 def flash_attention(q, k, v, *, causal=True, sliding_window=None, q_offset=0, with_lse=False):
     """Attention of ``q`` over ``k``/``v`` (see the module docstring), one
     launch; with ``with_lse``, ``(out, lse)``."""
@@ -152,7 +168,7 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=None, q_offset=0, wi
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
                 int(dtype == torch.bfloat16), B, Sq, Skv, H, KVH, Dh, int(q_offset), int(causal),
-                int(sliding_window or 0), Dh**-0.5, _build.stream_of(q))
+                int(sliding_window or 0), _FWD_SKIP_LAST_KEY_TILES, Dh**-0.5, _build.stream_of(q))
     _build.check_status(name, status)
     flash_attention.launches += 1
     return (out, lse) if with_lse else out

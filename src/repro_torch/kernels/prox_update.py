@@ -1,13 +1,19 @@
 """The Algorithm-7 step  y <- y - lr (g + (y - z) inv_eta)  on the card: K1 and K3.
 
-Both are CUDA C++ kernels for Hopper in `csrc/prox_update.cu`, built by
+All are CUDA C++ kernels for Hopper in `csrc/prox_update.cu`, built by
 `kernels._build`.
 
 * `prox_update_batched` (K1) ports the TPU kernel
   `repro.kernels.prox_update.prox_update_batched`
   (src/repro/kernels/prox_update.py:91): the batched step of a sweep, rows
   are the trials (or trial x cohort pairs) and each row has its own
-  ``(lr, inv_eta)``.
+  ``(lr, inv_eta)``.  Catalyst's shifted solves take it, one launch per GD
+  step.
+* `quadratic_prox_gd_batched` (K1's loop form) runs ``num_steps`` of that
+  step with the quadratic gradient ``A[m] y - b[m]`` fused in, the whole
+  solve in one launch; the quadratic sweeps (sppm, svrp, svrp_minibatch)
+  take it.  Its plain version takes each step as the gradient of
+  `QuadraticProblem.local_oracle`, then K1's plain update.
 * `prox_update` (K3) ports `repro.kernels.prox_update.prox_update`
   (src/repro/kernels/prox_update.py:45): one step, one pair of scalars, over
   one tensor of any shape or over a whole group of leaves of one dtype in
@@ -37,6 +43,8 @@ _ARGTYPES = {
     **{f"prox_update_tree_{s}": [ctypes.POINTER(_I), ctypes.c_int, ctypes.c_double,
                                  ctypes.c_double, _P]
        for s in ("bf16", "f32", "f64")},
+    **{f"quadratic_prox_gd_batched_{s}": [_P] * 8 + [_I] * 4 + [_P]
+       for s in _build.SUFFIX.values()},
 }
 TREE_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
 MAX_LEAVES = 64  # leaves of one launch: the kernel's parameter block (csrc/prox_update.cu)
@@ -74,6 +82,71 @@ def prox_update_batched(y, g, z, local_lr, inv_eta):
 
 
 prox_update_batched.launches = 0
+
+# Planted fault for chip_smoke.py's checks: the loop kernel runs this many
+# steps fewer than asked (0 in every real run).
+_LOOP_SKIP_STEPS = 0
+
+
+def quadratic_prox_gd_batched_plain(A, b, m, z, beta, inv_eta, num_steps, y0=None):
+    """The plain version: ``num_steps`` times `QuadraticProblem.local_oracle`'s
+    gradient ``A[m] y - b[m]``, then `prox_update_batched_plain`."""
+    A_m, b_m = A[m], b[m]
+    y = z if y0 is None else y0
+    for _ in range(num_steps):
+        g = torch.matmul(A_m, y.unsqueeze(-1)).squeeze(-1) - b_m
+        y = prox_update_batched_plain(y, g, z, beta, inv_eta)
+    return y
+
+
+def quadratic_prox_gd_batched(A, b, m, z, beta, inv_eta, num_steps: int, y0=None, *,
+                              check_indices: bool = True):
+    """``num_steps`` Algorithm-7 steps on the quadratics ``(A[m[r]], b[m[r]])``,
+    every row at once, from ``y0`` (default ``z``): one kernel launch.
+
+    ``A`` is ``(M, d, d)``, ``b`` ``(M, d)``, ``m`` the ``(R,)`` int64 client of
+    each row, ``z`` and ``y0`` ``(R, d)``; ``beta`` and ``inv_eta`` are ``(R,)``
+    or scalars, taken as `prox_update_batched` takes its ``(lr, inv_eta)``.
+    The kernel reads ``A[m]`` unchecked, so the wrapper refuses indices
+    outside ``[0, M)``, which waits on the device once; a caller whose
+    indices were checked already (a sweep checks its draws when it starts)
+    passes ``check_indices=False``."""
+    if A.device.type == "cpu":
+        return quadratic_prox_gd_batched_plain(A, b, m, z, beta, inv_eta, num_steps, y0)
+    name = "quadratic_prox_gd_batched"
+    x0 = z if y0 is None else y0
+    dtype = _build.check_cuda_operands(name, A=A, b=b, z=z, y0=x0)
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or b.shape != A.shape[:2]:
+        raise ValueError(f"{name}: expected A (M, d, d) and b (M, d), got {tuple(A.shape)}, "
+                         f"{tuple(b.shape)}")
+    M, d = A.shape[0], A.shape[2]
+    if z.ndim != 2 or z.shape[1] != d or x0.shape != z.shape:
+        raise ValueError(f"{name}: expected z and y0 ({z.shape[0] if z.ndim else '?'}, {d}), "
+                         f"got {tuple(z.shape)}, {tuple(x0.shape)}")
+    R = z.shape[0]
+    if m.device != A.device or m.dtype != torch.int64 or m.shape != (R,) or not m.is_contiguous():
+        raise ValueError(f"{name}: m must be a contiguous int64 ({R},) tensor on {A.device}, got "
+                         f"{m.dtype} {tuple(m.shape)} on {m.device}")
+    if num_steps < 0:
+        raise ValueError(f"{name}: num_steps must be >= 0, got {num_steps}")
+    if R and M == 0:
+        raise ValueError(f"{name}: {R} rows but no client")
+    if R and check_indices:
+        lo, hi = (int(v) for v in torch.aminmax(m))
+        if lo < 0 or hi >= M:
+            raise ValueError(f"{name}: client indices span [{lo}, {hi}], outside [0, {M})")
+    beta_t, ie_t, stride = _build.row_scalars(name, ("beta", "inv_eta"), (beta, inv_eta), R, z)
+    out = torch.empty_like(z)
+    fn = getattr(_build.load("prox_update", _ARGTYPES), f"{name}_{_build.SUFFIX[dtype]}")
+    status = fn(A.data_ptr(), b.data_ptr(), m.data_ptr(), z.data_ptr(), x0.data_ptr(),
+                beta_t.data_ptr(), ie_t.data_ptr(), out.data_ptr(), R, d,
+                max(int(num_steps) - _LOOP_SKIP_STEPS, 0), stride, _build.stream_of(z))
+    _build.check_status(name, status)
+    quadratic_prox_gd_batched.launches += 1
+    return out
+
+
+quadratic_prox_gd_batched.launches = 0
 
 
 def prox_update_plain(y, g, z, local_lr, inv_eta):

@@ -8,6 +8,11 @@ machine without JAX; there, run it without the suite's JAX conftest:
 
 Tolerances are the reference's (tests/test_kernels_prox.py): prox_update f32
 1e-6 / f64 1e-12; logistic f32 rtol 1e-5 atol 1e-6 / f64 rtol 1e-12 atol 1e-13;
+K1's loop form (a whole quadratic solve in one launch) f32 rtol = atol = 1e-4,
+f64 1e-11: its update rounds as K1's does, but each step's matvec sums in
+another order than the plain version's cuBLAS, an error of about one unit
+roundoff of |y| a step (beta ~ 1/L cancels A's scale), which the contracting
+iteration carries at most STEPS times (2.4e-5 in f32, 4.4e-14 in f64 at 200);
 flash attention f32 2e-5 / bf16 2e-2 (tests/test_kernels_attention.py:_tol);
 decode attention f32 2e-5 / bf16 3e-2 (tests/test_kernels_decode.py), and
 with a bf16 operand also max abs <= 2^-7 max|plain| and relative L2 <= 2^-7
@@ -52,12 +57,16 @@ from repro_torch.kernels.prox_update import (  # noqa: E402
     prox_update_batched,
     prox_update_batched_plain,
     prox_update_plain,
+    quadratic_prox_gd_batched,
+    quadratic_prox_gd_batched_plain,
 )
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref  # noqa: E402
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
 K2_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13)}
+K1_LOOP_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+               torch.float64: dict(rtol=1e-11, atol=1e-11)}
 K4_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 K5_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 K5_BF16_SCALED = 2.0**-7
@@ -76,7 +85,7 @@ K7_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    prox_update_batched.launches = 0
+    prox_update_batched.launches = quadratic_prox_gd_batched.launches = 0
     logistic_prox_gd_batched.launches = 0
     flash_attention.launches = decode_attention.launches = 0
     prox_update.launches = flash_attention_bwd.launches = 0
@@ -106,6 +115,72 @@ def test_prox_update_kernel_matches_plain(cuda, shape, dtype, scalar):
     assert prox_update_batched.launches == 1
     assert out.shape == y.shape and out.dtype == dtype and out.is_cuda
     torch.testing.assert_close(out, prox_update_batched_plain(y, g, z, lr, inv_eta), **K1_TOL[dtype])
+
+
+def _spd_clients(gen, M, d, dtype, device):
+    """M symmetric positive definite (d, d) matrices with spectra in [1, 200]."""
+    q, _ = torch.linalg.qr(torch.randn((M, d, d), generator=gen, dtype=torch.float64))
+    eigs = torch.exp(torch.rand((M, 1, d), generator=gen, dtype=torch.float64) * 5.3)
+    A = (q * eigs) @ q.transpose(1, 2)
+    return (0.5 * (A + A.transpose(1, 2))).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_y0", [False, True], ids=["y0_absent", "y0_given"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,d", [(16, 40), (64, 40), (5, 200), (3, 7)])
+def test_quadratic_prox_loop_kernel_matches_plain(cuda, rows, d, dtype, with_y0):
+    """fig-1 svrp (R 16) and minibatch (R 64) at d 40; d 200, whose A does
+    not fit in shared memory in f64 (it is read from global memory there);
+    a d below one warp's lanes."""
+    gen = torch.Generator().manual_seed(5)
+    M, steps = 50, 200
+    A = _spd_clients(gen, M, d, dtype, cuda)
+    b = _randn(gen, (M, d), dtype, cuda)
+    m = torch.randint(0, M, (rows,), generator=gen).to(cuda)
+    z = _randn(gen, (rows, d), dtype, cuda)
+    y0 = _randn(gen, (rows, d), dtype, cuda) if with_y0 else None
+    eta = torch.linspace(0.01, 0.5, rows, dtype=dtype, device=cuda)
+    beta, inv_eta = 1.0 / (200.0 + 1.0 / eta), 1.0 / eta
+    out = quadratic_prox_gd_batched(A, b, m, z, beta, inv_eta, steps, y0=y0)
+    torch.cuda.synchronize()
+    assert quadratic_prox_gd_batched.launches == 1 and prox_update_batched.launches == 0
+    assert out.shape == z.shape and out.dtype == dtype
+    want = quadratic_prox_gd_batched_plain(A, b, m, z, beta, inv_eta, steps, y0)
+    torch.testing.assert_close(out, want, **K1_LOOP_TOL[dtype])
+    start = z if y0 is None else y0
+    assert (want - start).abs().max() > 1e-2  # the solve moved
+    # one scalar pair for all rows
+    out = quadratic_prox_gd_batched(A, b, m, z, 0.004, 2.0, steps, y0=y0)
+    want = quadratic_prox_gd_batched_plain(A, b, m, z, 0.004, 2.0, steps, y0)
+    torch.testing.assert_close(out, want, **K1_LOOP_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_quadratic_prox_loop_refuses_what_it_does_not_take(cuda):
+    A = torch.eye(4, dtype=torch.float64, device=cuda).expand(3, 4, 4).contiguous()
+    b = torch.zeros((3, 4), dtype=torch.float64, device=cuda)
+    z = torch.zeros((2, 4), dtype=torch.float64, device=cuda)
+    m = torch.tensor([0, 2], device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        quadratic_prox_gd_batched(A.half(), b.half(), m, z.half(), 0.1, 2.0, 3)
+    with pytest.raises(TypeError, match="other operands"):
+        quadratic_prox_gd_batched(A, b.float(), m, z, 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="A \\(M, d, d\\)"):
+        quadratic_prox_gd_batched(A[:, :3].contiguous(), b, m, z, 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="z and y0"):
+        quadratic_prox_gd_batched(A, b, m, z[:, :3].contiguous(), 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quadratic_prox_gd_batched(A, b, m, z.cpu(), 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="int64"):
+        quadratic_prox_gd_batched(A, b, m.cpu(), z, 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="int64"):
+        quadratic_prox_gd_batched(A, b, m.int(), z, 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="outside"):
+        quadratic_prox_gd_batched(A, b, torch.tensor([0, 3], device=cuda), z, 0.1, 2.0, 3)
+    with pytest.raises(ValueError, match="outside"):
+        quadratic_prox_gd_batched(A, b, torch.tensor([-1, 0], device=cuda), z, 0.1, 2.0, 3)
+    assert quadratic_prox_gd_batched.launches == 0
 
 
 @pytest.mark.gpu
@@ -167,7 +242,9 @@ def test_main_path_goes_through_the_kernels(cuda):
                                                                    device="cpu", **kw)
         assert torch.equal(gpu.comm.cpu(), cpu.comm)
         torch.testing.assert_close(gpu.dist_sq.cpu(), cpu.dist_sq, rtol=1e-9, atol=0.0)
-    assert prox_update_batched.launches == 20 * 30
+    # One loop launch per quadratic prox solve (30 rounds), none of the
+    # per-step kernel; one K2 launch per logistic solve.
+    assert quadratic_prox_gd_batched.launches == 30 and prox_update_batched.launches == 0
     assert logistic_prox_gd_batched.launches == 30
 
 
@@ -179,6 +256,12 @@ FLASH_CASES = [
     (2, 300, 300, 4, 1, 64, True, 100, 0),  # sliding window, ragged
     (1, 64, 320, 4, 2, 128, True, None, 256),  # a chunk of queries at an offset
     (1, 40, 40, 2, 2, 64, True, 8, 100),  # window shorter than the offset: rows with no key
+    # bf16 takes the wgmma + TMA route at Dh 64 and 128 (128-row q tiles, 128-key tiles):
+    (1, 1000, 1000, 8, 8, 128, True, None, 0),  # ragged Sq, B*H 8 < 132 CTAs a wave, group 1
+    (4, 513, 513, 48, 16, 64, True, None, 0),  # ragged by one row, B*H 192 > 132, group 3
+    (2, 200, 712, 32, 4, 128, True, None, 512),  # Skv > Sq at an offset, group 8
+    (1, 1000, 1000, 8, 1, 64, False, None, 0),  # non-causal, ragged Skv tail, group 8
+    (3, 513, 700, 24, 8, 128, True, 300, 187),  # window at an offset, group 3
 ]
 
 
@@ -417,6 +500,22 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
     _check_grads(got, flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), dtype)
     unseen = ~_seen_rows(case, cuda)
     assert bool((got[0][:, unseen] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_rejects_a_skipped_last_tile(cuda, monkeypatch, dh):
+    """The planted fault chip_smoke.py uses: K4's wgmma route dropping the
+    last key tile of every row block fails the bf16 check."""
+    case = (2, 256, 256, 12, 4, dh, True, None, 0)
+    q, k, v, _, kw = _bwd_inputs(case, torch.bfloat16, cuda)
+    assert fa_module.forward_route(torch.bfloat16, dh) == "wgmma_tma"
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(flash_attention(q, k, v, **kw), want, **K4_TOL[torch.bfloat16])
+    monkeypatch.setattr(fa_module, "_FWD_SKIP_LAST_KEY_TILES", 1)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(flash_attention(q, k, v, **kw), want,
+                                   **K4_TOL[torch.bfloat16])
 
 
 @pytest.mark.gpu
