@@ -20,7 +20,13 @@ Phases, each printed as one JSON line:
    card at the sweep's shapes, float32 and float64, at the reference's
    tolerances (the loop form at K1_LOOP_TOL), timed with CUDA events beside
    the bound; the loop form running one step fewer (a planted fault) must
-   fail its check;
+   fail its check.  K2 runs through the sweep's indexed entry (16 sampled
+   Figure-2 clients' Z and y read in place; its bound counts the distinct
+   clients' bytes), launched twice bit for bit, and also through the
+   reference's entry on the gathered signed rows; one cluster rank's
+   partial gradient dropped (a planted fault) must fail its check; in
+   float64 the design's other options are timed beside it (every step
+   reading A from L2; clusters of 8 and of 16 blocks);
 3. main path — `run_batch(..., fused=True, prox_solver="gd")` in float64 on
    the paper's Figure-1 quadratic (M = 1000, d = 40, L = 3330, delta = 10):
    svrp, catalyzed_svrp, svrp_minibatch; and on the Figure-2 a9a-like logistic
@@ -88,7 +94,8 @@ Phases, each printed as one JSON line:
 12. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
    rwkv6-1.6b's prefill shape (B 4, T 2048, 32 heads, K = V = 64) and decode
    shape (B 8, T 1, the state written over state0 as decode runs it) in
-   bf16 and float32, timed beside the bound and the plain version; and at
+   bf16 and float32, timed beside the bound and the plain version (at
+   decode the time is the wrapper's host time: back-to-back calls); and at
    T = 1000 (off the 32-step tile), at T = 300 written over state0, under
    strong decay (w in [0.03, 0.07]) and at the reference's small
    shapes (K 8, 16, 32): bf16 at the reference's tolerance element by
@@ -262,7 +269,13 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+CARD = None  # `nvidia-smi` name and power limit, set by phase_device
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the card it was measured on."""
+    if "phase" in obj and CARD is not None:
+        obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
 
 
@@ -452,7 +465,8 @@ def phase_device() -> dict:
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    card = CARD = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
     reports = _build.build()
@@ -474,9 +488,6 @@ def phase_parity(qprob, lprob) -> dict:
     """Kernel vs plain version on the card at the main path's shapes."""
     import torch
 
-    from repro_torch.kernels.logistic_prox import (
-        logistic_prox_gd_batched, logistic_prox_gd_batched_plain,
-    )
     from repro_torch.kernels import prox_update as k1
     from repro_torch.kernels.prox_update import prox_update_batched, prox_update_batched_plain
 
@@ -553,38 +564,102 @@ def phase_parity(qprob, lprob) -> dict:
             bound_ms=b_ms, bound_by=b_by, tol=K1_TOL[dname],
         )
 
-        # K2 at the Figure-2 svrp shape: R = 16 sampled clients' label-signed rows.
-        steps = 20
-        m = torch.randint(0, lprob.num_clients, (16,), generator=gen, device="cuda")
-        A = (lprob.Z[m] * lprob.y[m][:, :, None]).to(dtype)
-        R, n, d = A.shape
-        zz = torch.randn(R, d, generator=gen, device="cuda", dtype=dtype) * 0.3
-        eta = 0.5 + torch.rand(R, generator=gen, device="cuda", dtype=dtype)
-        beta = 1.0 / (float(lprob.smoothness_max()) + 1.0 / eta)
-        out = logistic_prox_gd_batched(A, zz, beta, 1.0 / eta, lprob.lam, steps)
-        ref = logistic_prox_gd_batched_plain(A, zz, beta, 1.0 / eta, lprob.lam, steps)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, ref, **K2_TOL[dname])
-        flops = steps * R * (4 * n * d + 4 * n + 7 * d)
-        b_ms, b_by = bound_ms((R * n * d + 2 * R * d + 2 * R) * isz, flops, dname)
-        inv_eta = 1.0 / eta
-
-        def k2():
-            return logistic_prox_gd_batched(A, zz, beta, inv_eta, lprob.lam, steps)
-
-        def k2_plain():
-            return logistic_prox_gd_batched_plain(A, zz, beta, inv_eta, lprob.lam, steps)
-
-        results[("logistic_prox_gd_batched", dname)] = dict(
-            shape=[R, n, d, steps], max_abs_err=(out - ref).abs().max().item(),
-            ms=time_ms(k2, 20), plain_ms=time_ms(k2_plain, 20),
-            device_ms=device_ms(k2, 5), plain_device_ms=device_ms(k2_plain, 5),
-            bound_ms=b_ms, bound_by=b_by, tol=K2_TOL[dname],
-        )
+        # K2 at the Figure-2 svrp shape through the sweep's entry: R = 16
+        # sampled clients, their features and labels read in place.
+        results[("logistic_prox_gd_batched", dname)] = k2_case(gen, lprob, dtype)
     emit({"phase": "parity", "library_ms": None,
           "library_note": "no single PyTorch call computes any of these functions",
           "kernels": [{"name": key[0], "dtype": key[1], **v} for key, v in results.items()]})
     return results
+
+
+def k2_case(gen, lprob, dtype) -> dict:
+    """K2 at the Figure-2 svrp shape (R 16 sampled clients of n 2000 rows,
+    d 123, 20 steps) through the sweep's indexed entry, against its plain
+    version (which gathers the signed rows first): the check, two launches
+    bit for bit, the time beside the bound on the bytes this draw reads,
+    the reference's entry on the gathered rows, and the planted fault (one
+    cluster rank's partial gradient dropped), which must fail the check.
+    In float64 also the design's options: every step reading A from L2,
+    clusters of 8 blocks (two waves at R 16: the card holds 15 such
+    clusters) and of 16 (non-portable)."""
+    import torch
+
+    from repro_torch.kernels import logistic_prox as k2
+
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+    steps, R = 20, 16
+    Z, y = lprob.Z.to(dtype), lprob.y.to(dtype)
+    m = torch.randint(0, lprob.num_clients, (R,), generator=gen, device="cuda")
+    _, n, d = Z.shape
+    zz = torch.randn(R, d, generator=gen, device="cuda", dtype=dtype) * 0.3
+    eta = 0.5 + torch.rand(R, generator=gen, device="cuda", dtype=dtype)
+    beta = 1.0 / (float(lprob.smoothness_max()) + 1.0 / eta)
+    inv_eta = 1.0 / eta
+    A = Z[m] * y[m][:, :, None]
+
+    def k2_run():
+        return k2.logistic_prox_gd_indexed(Z, y, m, zz, beta, inv_eta, lprob.lam, steps,
+                                           check_indices=False)
+
+    def k2_plain():
+        return k2.logistic_prox_gd_indexed_plain(Z, y, m, zz, beta, inv_eta, lprob.lam, steps)
+
+    def k2_signed():
+        return k2.logistic_prox_gd_batched(A, zz, beta, inv_eta, lprob.lam, steps)
+
+    out, again, ref = k2_run(), k2_run(), k2_plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **K2_TOL[dname])
+    check(torch.equal(out, again), "logistic_prox_gd_indexed: two launches differ")
+    torch.testing.assert_close(k2_signed(), ref, **K2_TOL[dname])
+    clients = int(torch.unique(m).numel())
+    cluster = k2.cluster_size(R, n, d, dtype, Z.device)
+    res_rows = k2.resident_rows(n, d, cluster, isz)
+    # The distinct clients' features and labels read once; z, beta, inv_eta,
+    # m read and the output written once.
+    nbytes = (clients * (n * d + n) + 2 * R * d + 2 * R) * isz + 8 * R
+    flops = steps * R * (4 * n * d + 4 * n + 7 * d)
+    b_ms, b_by = bound_ms(nbytes, flops, dname)
+    k2._DROP_RANK = 3
+    try:
+        wrong = k2_run()
+    finally:
+        k2._DROP_RANK = -1
+    fault = (wrong - ref).abs().max().item()
+    check(not torch.allclose(wrong, ref, **K2_TOL[dname]),
+          f"logistic_prox_gd_indexed: the planted fault (rank 3's partial dropped) passed the "
+          f"check: max abs err {fault}")
+    res = dict(shape=[R, n, d, steps], clients=clients,
+               cluster=cluster, resident_rows=res_rows,
+               clusters_at_once=k2.clusters_at_once(dtype, d, cluster, res_rows),
+               max_abs_err=(out - ref).abs().max().item(), bit_identical_relaunch=True,
+               planted_fault_rank_dropped_max_abs_err=fault,
+               plain_ms=time_ms(k2_plain, 5, 1), ms=time_ms(k2_run, 50),
+               signed_entry_ms=time_ms(k2_signed, 50), device_ms=device_ms(k2_run, 10),
+               plain_device_ms=device_ms(k2_plain, 5), bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, flops=flops, tol=K2_TOL[dname], library_ms=None)
+    if dtype == torch.float64:
+        options = {}
+        for label, fixed, resident in (("l2_stream", None, False), ("resident_c8", 8, True),
+                                       ("resident_c16", 16, True)):
+            k2._CLUSTER, k2._RESIDENT = fixed, resident
+            try:
+                c = k2.cluster_size(R, n, d, dtype, Z.device)
+                rows_c = k2.resident_rows(n, d, c, isz)
+                got = k2_run()
+                torch.cuda.synchronize()
+                options[label] = dict(cluster=c, resident_rows=rows_c,
+                                      clusters_at_once=k2.clusters_at_once(dtype, d, c, rows_c),
+                                      max_abs_err=(got - ref).abs().max().item(),
+                                      ms=time_ms(k2_run, 50))
+            except RuntimeError as e:  # a cluster the card cannot schedule
+                options[label] = dict(error=str(e)[:200])
+            finally:
+                k2._CLUSTER, k2._RESIDENT = None, True
+        res["options"] = options
+    return res
 
 
 def phase_main_path(qprob, lprob, l_star) -> tuple[dict, list]:

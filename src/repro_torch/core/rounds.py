@@ -12,7 +12,7 @@ SPPM/SVRP family is one ``RoundDef``:
 ``RoundOps`` here is the reference's BATCHED substrate: ``(B, d)`` state for a
 whole sweep, with the Algorithm-7 local solves routed through the batched
 Hopper kernels (`kernels.quadratic_prox_gd_batched` for quadratic problems,
-`kernels.logistic_prox_gd_batched` for logistic ones, each a whole solve in
+`kernels.logistic_prox_gd_indexed` for logistic ones, each a whole solve in
 one launch, and `kernels.prox_update_batched` a launch per GD step for
 Catalyst).  Where the
 reference draws from PRNG keys inside the round, the port reads round ``k``
@@ -287,7 +287,7 @@ def fused_oracle_kind(problem) -> str:
         f"fused=True has no batched kernel prox path for {type(problem).__name__}: "
         "supported oracles are the quadratic family (A/b attrs; "
         "kernels.quadratic_prox_gd_batched) and the logistic family (Z/y/lam "
-        "attrs; kernels.logistic_prox_gd_batched)"
+        "attrs; kernels.logistic_prox_gd_indexed)"
     )
 
 
@@ -296,13 +296,14 @@ def prox_gd_fused(problem, m, z, eta, L, prox_steps: int):
     client ``m`` (R,), targets ``z`` (R, d), per-row eta/L scalars.  Rows are
     trials for single-client rounds and trial x cohort pairs for minibatch.
     ``m`` comes from the sweep's draws, whose range `run_batch` checked when
-    the sweep started, so the quadratic solve skips its per-call check."""
+    the sweep started, so neither solve repeats the check; both read the
+    sampled clients' data in place."""
     if fused_oracle_kind(problem) == "logistic":
-        from repro_torch.kernels.logistic_prox import logistic_prox_gd_batched
+        from repro_torch.kernels.logistic_prox import logistic_prox_gd_indexed
 
-        A = problem.Z[m] * problem.y[m][:, :, None]
         beta = 1.0 / (L + 1.0 / eta)
-        return logistic_prox_gd_batched(A, z, beta, 1.0 / eta, problem.lam, prox_steps)
+        return logistic_prox_gd_indexed(problem.Z, problem.y, m, z, beta, 1.0 / eta,
+                                        problem.lam, prox_steps, check_indices=False)
     from repro_torch.core.prox import gd_row_scalars
     from repro_torch.kernels.prox_update import quadratic_prox_gd_batched
 

@@ -8,7 +8,10 @@ module                      replaces (TPU kernel)                       route
                             `quadratic_prox_gd_batched` (a whole
                             quadratic solve in one launch)
 `logistic_prox` (K2)        kernels/logistic_prox.py:64                 CUDA
-                            `logistic_prox_gd_batched`
+                            `logistic_prox_gd_batched` (a row split
+                            over a thread-block cluster; the sweep's
+                            entry `logistic_prox_gd_indexed` reads the
+                            sampled clients' Z and y in place)
 `prox_update` (K3)          kernels/prox_update.py:45                   CUDA
                             `prox_update`
 `flash_attention` (K4)      kernels/flash_attention.py:105              CUDA

@@ -97,8 +97,16 @@ def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+# The current stream's raw handle without building a torch.cuda.Stream (a
+# few microseconds a call, which a T = 1 decode launch would notice); CUDA
+# builds of PyTorch have it, the public spelling is the fallback.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device (kernels launch there)."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -2,10 +2,11 @@
 
 * `rwkv6_scan` (K7) ports the TPU kernel `repro.kernels.rwkv6_scan.rwkv6_scan`
   (src/repro/kernels/rwkv6_scan.py:58) as a CUDA C++ kernel for Hopper
-  (`csrc/rwkv6_scan.cu`: a block per (head, batch row, 16 columns of the
-  state), eight lanes per column holding its rows in registers, 32-step
-  tiles of r, k, w and v staged in shared memory, float32 FMA; built by
-  `kernels._build`).  It is the scan of every time-mix layer
+  (`csrc/rwkv6_scan.cu`: a block per (head, batch row), each thread holding
+  8 rows x 4 columns of the state in registers, the bonus as one scalar a
+  step, 32-step tiles of r, k, w and v landing in two shared-memory slots
+  by TMA, float32 FMA; T = 1 takes a one-step kernel with nothing staged;
+  built by `kernels._build`).  It is the scan of every time-mix layer
   (`models.rwkv.timemix_apply`) on both serving paths: over the whole
   sequence at prefill and with T = 1 and the carried state at decode.
 * `rwkv6_scan_plain` is its plain version, the port of the reference's
@@ -31,6 +32,13 @@ decode steps each layer's state in place) and returned as it.
 counts nothing).  A CUDA tensor the kernel does not take raises; nothing
 falls back.  K7 has no backward: under autograd a CUDA input that needs a
 gradient raises.
+
+Decode calls K7 24 times a step at T = 1, where the device takes a few
+microseconds a call, so the wrapper keeps its host time small: the operand
+checks run once for each distinct signature (shapes, strides, dtypes,
+devices) and the shapes and strides go to the kernel packed in one cached
+array; what depends on the call itself (autograd, the overlap of out_state
+and state0) is checked every call.
 """
 from __future__ import annotations
 
@@ -42,9 +50,10 @@ from repro_torch.kernels import _build
 
 SHAPES = (8, 16, 32, 64)  # K = V built: rwkv6's head size 64 and the reference's test sizes
 _P = ctypes.c_void_p
-_i = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = {"rwkv6_scan_fwd": [_P] * 8 + [_i] * 5 + [_L] * 16 + [_P]}
+_ARGTYPES = {"rwkv6_scan_fwd": [_P] * 8 + [ctypes.POINTER(_L), _P]}
+_SIGNATURES: dict = {}  # operand signature -> (state shape, packed dims)
+_MAX_SIGNATURES = 256
 
 
 def rwkv6_scan_plain(r, k, v, w, u, state0=None, *, out_state=None, acc_dtype=torch.float32):
@@ -72,7 +81,8 @@ def rwkv6_scan_plain(r, k, v, w, u, state0=None, *, out_state=None, acc_dtype=to
 
 
 def _check(name, r, k, v, w, u, state0, out_state=None):
-    """Raise unless the operands are what K7 takes; returns (B, T, H, K)."""
+    """Raise unless the operands' shapes, dtypes and devices are what K7
+    takes (once a signature); returns (B, T, H, K)."""
     tensors = dict(r=r, k=k, v=v, w=w, u=u)
     for arg, t in (("state0", state0), ("out_state", out_state)):
         if t is not None:
@@ -103,43 +113,80 @@ def _check(name, r, k, v, w, u, state0, out_state=None):
             _build.check_cuda_operands(name, dtypes=(torch.float32,), **{arg: t})
             if t.shape != (Bb, H, K, K):
                 raise ValueError(f"{name}: {arg} {tuple(t.shape)} must be ({Bb}, {H}, {K}, {K})")
-    # Each block reads its columns of state0 before its time loop and writes
-    # the same columns of the output after it, so the output may be state0
-    # itself; a partial overlap would let one block read what another wrote.
-    if (out_state is not None and state0 is not None and out_state.data_ptr() != state0.data_ptr()
-            and _overlap(out_state, state0)):
-        raise ValueError(f"{name}: out_state overlaps state0 without being it")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(f"{name}: K7 has no backward yet; the ssm family's "
-                                  f"training is not ported")
     return Bb, T, H, K
 
 
-def _overlap(a, b) -> bool:
-    """Whether two contiguous tensors share any byte."""
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+def _signature(r, k, v, w, u, state0, out_state):
+    """What the operand checks depend on, besides the pointers: shapes,
+    strides, dtypes and devices (one flat tuple, cheap to build and hash)."""
+    return (r.shape, r.stride(), k.shape, k.stride(), v.shape, v.stride(), w.shape, w.stride(),
+            r.dtype, k.dtype, v.dtype, w.dtype, r.device, k.device, v.device, w.device,
+            u.shape, u.stride(), u.dtype, u.device,
+            None if state0 is None else (state0.shape, state0.stride(), state0.dtype,
+                                         state0.device),
+            None if out_state is None else "state0" if out_state is state0 else (
+                out_state.shape, out_state.stride(), out_state.dtype, out_state.device))
+
+
+def _packed(r, k, v, w):
+    """The kernel's dims: is_bf16, B, T, H, K, then r's, k's, v's and w's strides."""
+    dims = [int(r.dtype == torch.bfloat16), *r.shape, *r.stride(), *k.stride(), *v.stride(),
+            *w.stride()]
+    return (_L * len(dims))(*dims)
 
 
 def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
     """The WKV recurrence of one time-mix layer (see the module docstring), one launch."""
-    if r.device.type == "cpu":
-        return rwkv6_scan_plain(r, k, v, w, u, state0, out_state=out_state)
     name = "rwkv6_scan"
-    if r.device.type != "cuda":
+    if not r.is_cuda:
+        if r.device.type == "cpu":
+            return rwkv6_scan_plain(r, k, v, w, u, state0, out_state=out_state)
         raise ValueError(f"{name}: r is on {r.device}, expected a CUDA tensor")
-    Bb, T, H, K = _check(name, r, k, v, w, u, state0, out_state)
-    y = torch.empty((Bb, T, H, K), dtype=r.dtype, device=r.device)
-    s_out = (torch.empty((Bb, H, K, K), dtype=torch.float32, device=r.device)
-             if out_state is None else out_state)
-    fn = _build.load("rwkv6_scan", _ARGTYPES).rwkv6_scan_fwd
-    status = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                None if state0 is None else state0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-                int(r.dtype == torch.bfloat16), Bb, T, H, K,
-                *r.stride(), *k.stride(), *v.stride(), *w.stride(), _build.stream_of(r))
+    key = _signature(r, k, v, w, u, state0, out_state)
+    entry = _SIGNATURES.get(key)
+    if entry is None:
+        _check(name, r, k, v, w, u, state0, out_state)
+        if len(_SIGNATURES) >= _MAX_SIGNATURES:
+            _SIGNATURES.clear()
+        Bb, _, H, K = r.shape
+        entry = _SIGNATURES[key] = ((Bb, H, K, K), _packed(r, k, v, w))
+    if torch.is_grad_enabled() and (
+            r.requires_grad or k.requires_grad or v.requires_grad or w.requires_grad
+            or u.requires_grad or (state0 is not None and state0.requires_grad)
+            or (out_state is not None and out_state.requires_grad)):
+        raise NotImplementedError(f"{name}: K7 has no backward yet; the ssm family's "
+                                  f"training is not ported")
+    # Each block reads its (b, h) state before its time loop and writes it
+    # after, so the output may be state0 itself; a partial overlap would let
+    # one block read what another wrote.
+    if out_state is not None and state0 is not None:
+        a0, b0 = out_state.data_ptr(), state0.data_ptr()
+        nbytes = state0.numel() * 4
+        if a0 != b0 and a0 < b0 + nbytes and b0 < a0 + nbytes:
+            raise ValueError(f"{name}: out_state overlaps state0 without being it")
+    s_shape, dims = entry
+    # y has r's shape (V = K), dtype and device, contiguous; empty_like is
+    # the cheapest allocation on the host.
+    y = torch.empty_like(r, memory_format=torch.contiguous_format)
+    s_out = (torch.empty(s_shape, dtype=torch.float32, device=r.device) if out_state is None
+             else out_state)
+    status = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                       None if state0 is None else state0.data_ptr(), y.data_ptr(),
+                       s_out.data_ptr(), dims, _build.stream_of(r))
     _build.check_status(name, status)
     rwkv6_scan.launches += 1
     return y, s_out
+
+
+_fn = None
+
+
+def _kernel():
+    """The bound `rwkv6_scan_fwd` (built and loaded at first use)."""
+    global _fn
+    if _fn is None:
+        _fn = _build.load("rwkv6_scan", _ARGTYPES).rwkv6_scan_fwd
+    return _fn
 
 
 rwkv6_scan.launches = 0

@@ -48,9 +48,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
+from repro_torch.kernels import logistic_prox as k2_module  # noqa: E402
 from repro_torch.kernels.logistic_prox import (  # noqa: E402
     logistic_prox_gd_batched,
     logistic_prox_gd_batched_plain,
+    logistic_prox_gd_indexed,
+    logistic_prox_gd_indexed_plain,
 )
 from repro_torch.kernels.prox_update import (  # noqa: E402
     prox_update,
@@ -204,6 +207,79 @@ def test_logistic_prox_kernel_matches_plain(cuda, shape, dtype, with_y0):
     torch.testing.assert_close(out, want, **K2_TOL[dtype])
 
 
+def _k2_clients(M, n, d, R, dtype, device, seed=2):
+    """Z (M, n, d) * 0.2, labels y (M, n) in {-1, 1}, clients m (R,), z and
+    y0 (R, d), per-row beta and inv_eta."""
+    gen = torch.Generator().manual_seed(seed)
+    Z = _randn(gen, (M, n, d), dtype, device) * 0.2
+    y = (torch.randint(0, 2, (M, n), generator=gen) * 2 - 1).to(device, dtype)
+    m = torch.randint(0, M, (R,), generator=gen).to(device)
+    z, y0 = (_randn(gen, (R, d), dtype, device) for _ in range(2))
+    beta = torch.linspace(0.02, 0.3, R, dtype=dtype, device=device)
+    inv_eta = torch.linspace(0.5, 3.0, R, dtype=dtype, device=device)
+    return Z, y, m, z, y0, beta, inv_eta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["batched", "indexed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_logistic_prox_cluster_shapes(cuda, entry, dtype):
+    """Both entries at R in {1, 16, 40} (clusters of 8 and 3 blocks a row),
+    n in {1, 7, 2000} (fewer rows than blocks, ragged, the Figure-2 clients'
+    2000 with a resident slice) and d in {1, 123, 300}, with a y0."""
+    for R in (1, 16, 40):
+        for n in (1, 7, 2000):
+            for d in (1, 123, 300):
+                Z, y, m, z, y0, beta, inv_eta = _k2_clients(6, n, d, R, dtype, cuda, seed=R + n + d)
+                if entry == "batched":
+                    A = Z[m] * y[m][..., None]
+                    out = logistic_prox_gd_batched(A, z, beta, inv_eta, 0.1, 9, y0=y0)
+                    want = logistic_prox_gd_batched_plain(A, z, beta, inv_eta, 0.1, 9, y0)
+                else:
+                    out = logistic_prox_gd_indexed(Z, y, m, z, beta, inv_eta, 0.1, 9, y0=y0)
+                    want = logistic_prox_gd_indexed_plain(Z, y, m, z, beta, inv_eta, 0.1, 9, y0)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out, want, **K2_TOL[dtype],
+                                           msg=lambda e: f"R {R}, n {n}, d {d}: {e}")
+    assert logistic_prox_gd_batched.launches == 27
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_logistic_prox_takes_the_old_kernels_largest_n(cuda, dtype):
+    """The most rows the one-block-a-row kernel took at d = 123, (n + d +
+    512) itemsize = 232,448 bytes, still runs (now on the cluster route)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    n = 232_448 // isz - 123 - 512
+    Z, y, m, z, _, beta, inv_eta = _k2_clients(2, n, 123, 2, dtype, cuda)
+    out = logistic_prox_gd_indexed(Z, y, m, z, beta, inv_eta, 0.1, 3)
+    want = logistic_prox_gd_indexed_plain(Z, y, m, z, beta, inv_eta, 0.1, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **K2_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_logistic_prox_is_deterministic_and_checks_its_clients(cuda, monkeypatch):
+    """Two launches give the same bits (the cluster sums in a fixed order, no
+    atomics); a client index outside [0, M) raises; dropping one cluster
+    rank's partial gradient (chip_smoke.py's planted fault) is caught."""
+    Z, y, m, z, _, beta, inv_eta = _k2_clients(60, 2000, 123, 16, torch.float64, cuda)
+    first = logistic_prox_gd_indexed(Z, y, m, z, beta, inv_eta, 0.1, 20)
+    second = logistic_prox_gd_indexed(Z, y, m, z, beta, inv_eta, 0.1, 20)
+    assert torch.equal(first, second)
+    for wrong in (60, -1):
+        bad = m.clone()
+        bad[3] = wrong
+        with pytest.raises(ValueError, match="outside"):
+            logistic_prox_gd_indexed(Z, y, bad, z, beta, inv_eta, 0.1, 20)
+    assert logistic_prox_gd_batched.launches == 2
+    want = logistic_prox_gd_indexed_plain(Z, y, m, z, beta, inv_eta, 0.1, 20)
+    torch.testing.assert_close(first, want, **K2_TOL[torch.float64])
+    monkeypatch.setattr(k2_module, "_DROP_RANK", 3)
+    wrong = logistic_prox_gd_indexed(Z, y, m, z, beta, inv_eta, 0.1, 20)
+    assert not torch.allclose(wrong, want, **K2_TOL[torch.float64])
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     y = torch.zeros((4, 8), dtype=torch.float64, device=cuda)
@@ -213,9 +289,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         prox_update_batched(y.t(), y.t(), y.t(), 0.1, 2.0)
     with pytest.raises(ValueError, match="share one"):
         prox_update_batched(y, y[:2], y, 0.1, 2.0)
-    A = torch.zeros((2, 30000, 8), dtype=torch.float64, device=cuda)
+    # Rows wider than the cluster route's 512 take the one-block-a-row
+    # kernel, which holds n + d + 512 values in shared memory.
+    A = torch.zeros((1, 28000, 600), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        logistic_prox_gd_batched(A, torch.zeros((2, 8), dtype=torch.float64, device=cuda),
+        logistic_prox_gd_batched(A, torch.zeros((1, 600), dtype=torch.float64, device=cuda),
                                  0.1, 2.0, 0.1, 3)
     assert prox_update_batched.launches == 0 and logistic_prox_gd_batched.launches == 0
 
@@ -753,6 +831,39 @@ def test_rwkv6_scan_state0_as_output_matches_plain(cuda, T, dtype):
     torch.cuda.synchronize()
     assert rwkv6_scan.launches == 1 and S.data_ptr() == state.data_ptr()
     torch.testing.assert_close(state, want_S, **K7_STATE_TOL)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y, want_y, **K7_TOL[dtype])
+    else:
+        rel = (torch.linalg.vector_norm(y - want_y) / torch.linalg.vector_norm(want_y)).item()
+        assert rel <= K7_TOL[dtype]["rtol"], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K", [8, 16, 32, 64])
+def test_rwkv6_scan_layouts(cuda, K, dtype):
+    """At every K: T = 1 in place (decode) and T = 70 (off the 32-step
+    tile) read through a K stride that is not 1 (the staging copies element
+    by element), and a state0 / out_state that start off a 16-byte boundary
+    (the state read and written element by element)."""
+    r, k, v, w, u, s0 = _rwkv_inputs((3, 1, 5, K), dtype, cuda, with_state=True, seed=K)
+    want_y, want_S = rwkv6_scan_plain(r, k, v, w, u, s0)
+    state = s0.clone()
+    y, S = rwkv6_scan(r, k, v, w, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert S.data_ptr() == state.data_ptr()
+    torch.testing.assert_close(state, want_S, **K7_STATE_TOL)
+    torch.testing.assert_close(y, want_y, **K7_TOL[dtype])
+    r, k, v, w, u, s0 = _rwkv_inputs((2, 70, 3, K), dtype, cuda, with_state=True, seed=K + 1)
+    r, k, v, w = (t.transpose(2, 3).contiguous().transpose(2, 3) for t in (r, k, v, w))
+    assert r.stride(3) != 1
+    off = torch.zeros(s0.numel() + 1, device=cuda)[1:].view(s0.shape)
+    off.copy_(s0)
+    want_y, want_S = rwkv6_scan_plain(r, k, v, w, u, s0)
+    y, S = rwkv6_scan(r, k, v, w, u, off, out_state=off)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == 2
+    torch.testing.assert_close(S, want_S, **K7_STATE_TOL)
     if dtype == torch.bfloat16:
         torch.testing.assert_close(y, want_y, **K7_TOL[dtype])
     else:

@@ -158,22 +158,30 @@ def test_fused_solve_sends_logistic_problems_through_k2(monkeypatch):
     problem = make_a9a_like_problem(6, 40, n_pool=300, dim=12, nnz_per_row=4, seed=1,
                                     device="cpu")
     calls = []
-    real = tlogistic.logistic_prox_gd_batched
+    real = tlogistic.logistic_prox_gd_indexed
 
     def spy(*args, **kwargs):
-        calls.append(args[0].shape)
+        calls.append((args[0] is problem.Z, args[1] is problem.y, args[2].tolist(),
+                      kwargs["check_indices"]))
         return real(*args, **kwargs)
 
     def forbidden(*args, **kwargs):
         raise AssertionError("a logistic solve took the quadratic loop kernel")
 
-    monkeypatch.setattr(tlogistic, "logistic_prox_gd_batched", spy)
+    monkeypatch.setattr(tlogistic, "logistic_prox_gd_indexed", spy)
     monkeypatch.setattr(tk1, "quadratic_prox_gd_batched", forbidden)
     m = torch.tensor([0, 3, 5])
     z = torch.zeros((3, problem.dim), dtype=torch.float64)
     eta = torch.full((3,), 0.5, dtype=torch.float64)
-    out = trounds.prox_gd_fused(problem, m, z, eta, torch.full((3,), 2.0, dtype=torch.float64), 5)
-    assert calls == [(3, 40, problem.dim)] and out.shape == z.shape
+    L = torch.full((3,), 2.0, dtype=torch.float64)
+    out = trounds.prox_gd_fused(problem, m, z, eta, L, 5)
+    # The clients' features and labels in place (no gather before the call),
+    # the sweep's draws already range-checked.
+    assert calls == [(True, True, [0, 3, 5], False)] and out.shape == z.shape
+    A = problem.Z[m] * problem.y[m][:, :, None]
+    want = tlogistic.logistic_prox_gd_batched_plain(A, z, 1.0 / (L + 1.0 / eta), 1.0 / eta,
+                                                    problem.lam, 5)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 def test_sweep_refuses_draws_outside_its_clients():

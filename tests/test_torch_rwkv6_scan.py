@@ -22,7 +22,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.rwkv6_scan import rwkv6_scan as pallas_rwkv6  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import _check, rwkv6_scan, rwkv6_scan_plain  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    _check,
+    _packed,
+    rwkv6_scan,
+    rwkv6_scan_plain,
+)
 
 Y_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -152,3 +157,45 @@ def test_check_refuses_what_k7_does_not_take():
         _check("rwkv6_scan", r, k, v, w.bfloat16(), u, None)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         _check("rwkv6_scan", r, k, v, w, u, torch.from_numpy(s0))
+
+
+def _scalar_bonus_scan(r, k, v, w, u, s0):
+    """The algebra K7 runs (csrc/rwkv6_scan.cu), in float64: the bonus as
+    one scalar a step, y_t = S^T r_t + beta_t v_t with
+    beta_t = sum_k r_t[k] u[k] k_t[k], then S = diag(w_t) S + k_t v_t^T."""
+    r, k, v, w, u, S = (a.double() for a in (r, k, v, w, u, s0))
+    ys = []
+    for t in range(r.shape[1]):
+        beta = (r[:, t] * u * k[:, t]).sum(-1)  # (B, H)
+        ys.append(torch.einsum("bhkv,bhk->bhv", S, r[:, t]) + beta[..., None] * v[:, t])
+        S = w[:, t, :, :, None] * S + k[:, t, :, :, None] * v[:, t, :, None, :]
+    return torch.stack(ys, dim=1), S
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+@pytest.mark.parametrize("shape", RWKV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_scalar_bonus_algebra_equals_the_plain_scan(shape, decay):
+    """K7 forms the bonus u o (k v^T) read by r as v_t times one scalar a
+    step (5 K V operations a step where the plain scan's 7); in float64
+    that is the plain scan's function to 1e-12, from a state0."""
+    *arrays, s0 = _inputs(shape, decay, seed=5)
+    r, k, v, w, u = (torch.from_numpy(a).double() for a in arrays)
+    s0 = torch.from_numpy(s0).double()
+    y, S = _scalar_bonus_scan(r, k, v, w, u, s0)
+    want_y, want_S = rwkv6_scan_plain(r, k, v, w, u, s0, acc_dtype=torch.float64)
+    torch.testing.assert_close(y, want_y, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(S, want_S, rtol=1e-12, atol=1e-12)
+
+
+def test_packed_dims_are_what_the_kernel_reads():
+    """The wrapper hands K7 its shapes and strides in one array, read by
+    `rwkv6_scan_fwd` as is_bf16, B, T, H, K, then r's, k's, v's and w's
+    strides in (b, t, h, k) order; column views of one tensor keep theirs."""
+    B, T, H, K = 2, 5, 3, 8
+    packed = torch.zeros((B, T, 4 * H * K), dtype=torch.bfloat16)
+    r, k, v, w = (packed[..., i * H * K:(i + 1) * H * K].view(B, T, H, K) for i in range(4))
+    dims = list(_packed(r, k, v, w))
+    assert dims[:5] == [1, B, T, H, K]
+    assert dims[5:] == [T * 4 * H * K, 4 * H * K, K, 1] * 4
+    assert list(_packed(*(t.float().contiguous() for t in (r, k, v, w))))[:6] == [0, B, T, H, K,
+                                                                              T * H * K]
