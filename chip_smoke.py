@@ -64,14 +64,18 @@ Phases, each printed as one JSON line:
    torch.profiler;
 8. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
    prefill shape (B 4, T 2048, 80 heads, P 64, N 64; x, B and C as column
-   views of one tensor, as the model hands them) in bf16 and float32, timed
-   beside its bound and the plain version; and at T = 1000 (off the chunk),
-   with a given state0, under strong decay (A = -16, dt in [0.5, 4]), at the
-   reduced P 128 / N 16, and against the sequential recurrence at T <= 256:
-   bf16 at the reference's tolerance element by element, float32 at its
-   2e-4 in relative L2 against the plain version and a float64 recurrence
-   (see k6_verdict); a planted fault (the state not carried across chunks)
-   must fail;
+   views of one tensor, as the model hands them) in bf16 (the tensor-core
+   route) and float32 (the FMA route), timed beside its bound and the plain
+   version; and at
+   T = 1000 (off the chunk), with a given state0, under strong decay
+   (A = -16, dt in [0.5, 4]), at the reduced P 128 / N 16, with an odd head
+   count, with x, B and C at an inner stride of 2 (the
+   tensor-core route's plain-load staging), and against the sequential
+   recurrence at T <= 256: bf16 at the reference's tolerance element by
+   element, float32 at its 2e-4 in relative L2 against the plain version and
+   a float64 recurrence (see k6_verdict); two planted faults must fail: the
+   state not carried across chunks, and (bf16) the tensor-core route
+   leaving out the low bf16 parts of its split operands;
 9. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
    seed 0 on the card with LoRA b, conv_b and D randomised (zeros and ones at
    init hide a wrong wiring): `make_prefill_step` on 4 x 2048 tokens (K6 45
@@ -125,9 +129,13 @@ Phases, each printed as one JSON line:
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
    sliding-window, a q_offset (Sq != Skv), a no-key-rows and Dh 80 / 64
-   case; each against its plain version on the card, timed beside its
-   bound and (K4b) SDPA's forward + backward; a planted K4b fault (the
-   first 64-key tile skipped) must fail the check;
+   case, with groups of 6 and of 1 at Dh 64 and 128 (bf16 there takes the
+   wgmma + TMA route, Dh 80 the mma.sync one); each against its plain
+   version on the card, timed beside its bound and (K4b) SDPA's forward +
+   backward, with two launches of the wgmma route compared (dK and dV bit
+   for bit, dQ's spread in relative L2); two planted K4b faults must fail
+   the check: the first 64-key tile skipped, and one query head of each
+   group left out of dK and dV (the wgmma route's group sum);
 17. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
    bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
    from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
@@ -213,7 +221,9 @@ TRAIN = dict(arch="qwen2-1.5b", cohorts=2, per_cohort_batch=2, seq_len=1024, loc
 # attention (forward and backward) on the card, at points both runs share:
 # the cohort-mean gradient at x0 (relative L2, float32) with the loss there,
 # and the round's update x' - x0 (relative L2).  Read on an H100 80GB HBM3 at
-# 700 W: two kernel runs agree bit for bit; the plain run reads 2.9e-2 on the
+# 700 W: two kernel runs agreed bit for bit until K4b's wgmma route, whose dQ
+# sums across key tiles in no fixed order (two runs now read ~9e-3 on the
+# gradient, 0 on the loss); the plain run reads 2.9e-2 on the
 # gradient (worst leaf 3.6e-2), 2.8e-5 on the loss and 1.17 on the update,
 # which in bf16 at lr 0.1 is made of rounding flips (0.13 in L2 over 1.78e9
 # weights; K3 rounds once from float32, the plain version after every
@@ -1214,17 +1224,19 @@ def phase_serving_profile(cfg, params, tokens) -> None:
 
 
 # --------------------------------------------------------- hybrid (K6)
-def ssm_inputs(gen, shape, dtype, *, strong=False, with_state=False):
+def ssm_inputs(gen, shape, dtype, *, strong=False, with_state=False, stride=1):
     """K6's operands as the model hands them: x, B and C column views of one
-    (B, T, H P + 2 N) tensor; dt after softplus (float32); A = -linspace(1,
+    (B, T, H P + 2 N) tensor (with ``stride`` 2, of every other column of a
+    tensor twice as wide); dt after softplus (float32); A = -linspace(1,
     16, H) as at init (with ``strong``: A = -16 and dt in [0.5, 4]); D
     normal; an optional normal state0."""
     import torch
     import torch.nn.functional as F
 
     Bb, T, H, P, N = shape
-    xbc = torch.randn(Bb, T, H * P + 2 * N, generator=gen, device="cuda").to(dtype)
-    x = xbc[..., :H * P].view(Bb, T, H, P)
+    W = H * P + 2 * N
+    xbc = torch.randn(Bb, T, stride * W, generator=gen, device="cuda").to(dtype)[..., ::stride]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
     Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
     if strong:
         dt = torch.rand(Bb, T, H, generator=gen, device="cuda") * 3.5 + 0.5
@@ -1288,8 +1300,8 @@ def k6_verdict(y, h, want_y, want_h, dname: str, truth=None) -> dict:
     yf, wf = y.float(), want_y.float()
     over = (yf - wf).abs() > tol["atol"] + tol["rtol"] * wf.abs()
     res = dict(max_abs_err=_err(y, want_y), rel_l2=rel_err(y, want_y),
-               state_max_abs_err=_err(h, want_h), elements_over_tol=int(over.sum()),
-               finite=finite)
+               state_max_abs_err=_err(h, want_h), state_rel_l2=rel_err(h, want_h),
+               elements_over_tol=int(over.sum()), finite=finite)
     ok = finite and bool(torch.allclose(h, want_h, **K6_STATE_TOL))
     if dname == "bfloat16":
         res["ok"] = ok and res["elements_over_tol"] == 0
@@ -1305,22 +1317,24 @@ def k6_verdict(y, h, want_y, want_h, dname: str, truth=None) -> dict:
 
 
 def k6_case(gen, shape, dtype, *, strong=False, with_state=False, against_ref=False,
-            timed=False):
+            timed=False, stride=1):
     """K6 against its plain version (and with ``against_ref`` the sequential
     recurrence) on one input; with ``timed``, K6 timed beside its bound and
-    the plain version, and the planted fault, which must fail the check."""
+    the plain version, and the planted faults, which must fail the check."""
     import torch
 
+    from repro_torch.kernels import ssm_scan as sm
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref
 
     dname = str(dtype).split(".")[-1]
-    args = ssm_inputs(gen, shape, dtype, strong=strong, with_state=with_state)
+    args = ssm_inputs(gen, shape, dtype, strong=strong, with_state=with_state, stride=stride)
     y, h = ssm_scan(*args)
     want_y, want_h = ssm_scan_plain(*args)
     torch.cuda.synchronize()
     truth = recurrence_f64(*args) if dname == "float32" else None
-    res = dict(shape=list(shape), dtype=dname, strong_decay=strong, state0=with_state,
-               **k6_verdict(y, h, want_y, want_h, dname, truth))
+    route = sm.scan_route(dtype, shape[3], shape[4])
+    res = dict(shape=list(shape), dtype=dname, route=route, strong_decay=strong,
+               state0=with_state, stride=stride, **k6_verdict(y, h, want_y, want_h, dname, truth))
     check(res["ok"], f"ssm_scan {shape} {dname} strong={strong} state0={with_state}: {res}")
     if against_ref:
         ref_y, ref_h = ssm_scan_ref(*args)
@@ -1331,6 +1345,15 @@ def k6_case(gen, shape, dtype, *, strong=False, with_state=False, against_ref=Fa
     res["planted_fault"] = k6_verdict(*ssm_scan_no_carry(*args), want_y, want_h, dname, truth)
     check(not res["planted_fault"]["ok"],
           f"ssm_scan: a state not carried across chunks passed the check: {res['planted_fault']}")
+    if route == "tensor_core":
+        sm._DROP_LOW_HALF = True
+        try:
+            res["planted_fault_low_half"] = k6_verdict(*ssm_scan(*args), want_y, want_h, dname)
+        finally:
+            sm._DROP_LOW_HALF = False
+        check(not res["planted_fault_low_half"]["ok"],
+              f"ssm_scan: split operands without their low parts passed the check: "
+              f"{res['planted_fault_low_half']}")
     Bb, T, H, P, N = shape
     esz = torch.empty((), dtype=dtype).element_size()
     nbytes = 2 * Bb * T * H * P * esz + Bb * T * H * 4 + 2 * Bb * T * N * esz + 2 * H * 4 \
@@ -1344,14 +1367,16 @@ def k6_case(gen, shape, dtype, *, strong=False, with_state=False, against_ref=Fa
                ms=time_ms(lambda: ssm_scan(*args), 10),
                plain_ms=time_ms(lambda: ssm_scan_plain(*args), 3, 1),
                device_ms=device_ms(lambda: ssm_scan(*args), 5), library_ms=None)
+    res["bound_share"] = b_ms / res["ms"]
     return res
 
 
 def phase_ssm_parity() -> dict:
     """K6 against its plain version on the card: Zamba2's prefill shape in
     bf16 and float32 (timed), T off the chunk, a given state0, strong decay,
-    the reduced P 128 / N 16, and against the sequential recurrence at
-    T <= 256; the planted fault must fail."""
+    an odd head count, operands at an inner stride of 2, the reduced P 128 /
+    N 16, and against the sequential recurrence at T <= 256; the planted
+    faults must fail."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1362,6 +1387,8 @@ def phase_ssm_parity() -> dict:
     for dt in (bf16, f32):
         cases += [k6_case(gen, (2, 1000, 80, 64, 64), dt),
                   k6_case(gen, (2, 512, 80, 64, 64), dt, with_state=True),
+                  k6_case(gen, (2, 300, 5, 64, 64), dt, with_state=True),
+                  k6_case(gen, (2, 300, 80, 64, 64), dt, with_state=True, stride=2),
                   k6_case(gen, (2, 512, 80, 64, 64), dt, strong=True, with_state=True),
                   k6_case(gen, (2, 1000, 4, 128, 16), dt, with_state=True),
                   k6_case(gen, (2, 256, 8, 64, 64), dt, with_state=True, against_ref=True),
@@ -1903,10 +1930,12 @@ def k4b_verdict(got, want, dname: str) -> dict:
 
 def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_offset=0,
              timed=False):
-    """K4's log-sum-exp and K4b against their plain versions on one input;
-    with ``timed``, K4b timed beside its bound, the plain backward and SDPA's
-    forward + backward, and a planted fault (K4b skipping its first 64-key
-    tile) that the check must reject."""
+    """K4's log-sum-exp and K4b against their plain versions on one input
+    (rows that see no key must get dq exactly 0); with ``timed``, K4b timed
+    beside its bound, the plain backward and SDPA's forward + backward, two
+    launches compared, and the planted faults (K4b skipping its first 64-key
+    tile; the wgmma route leaving one query head of each group out of dK and
+    dV) that the check must reject."""
     import torch
     import torch.nn.functional as F
 
@@ -1933,7 +1962,11 @@ def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_
     verdict = k4b_verdict(got, want, dname)
     shape = [B, Sq, Skv, H, KVH, Dh]
     check(verdict["ok"], f"flash_attention_bwd {dname} {shape} {kw}: {verdict}")
-    res = dict(shape=shape, dtype=dname, causal=causal, window=window, q_offset=q_offset,
+    check(bool((got[0][:, ~seen] == 0).all()),
+          f"flash_attention_bwd {dname} {shape} {kw}: a row with no key got dq != 0")
+    route = fa.backward_route(dtype, Dh, H // KVH)
+    res = dict(shape=shape, dtype=dname, route=route, causal=causal, window=window,
+               q_offset=q_offset,
                fwd_max_abs_err=out_err, lse_max_abs_err=lse_err,
                rows_without_key=int((~seen).sum()),
                max_abs_err=max(verdict[n]["max_abs_err"] for n in ("dq", "dk", "dv")),
@@ -1946,6 +1979,25 @@ def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_
     finally:
         fa._BWD_SKIP_KEY_TILES = 0
     check(not planted["ok"], f"flash_attention_bwd: a skipped key tile passed the check: {planted}")
+    if route == "wgmma_tma":
+        fa._BWD_DROP_GROUP_RANK = 3 % (H // KVH)
+        try:
+            res["planted_fault_group_rank"] = k4b_verdict(
+                fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), want, dname)
+        finally:
+            fa._BWD_DROP_GROUP_RANK = -1
+        check(not res["planted_fault_group_rank"]["ok"],
+              f"flash_attention_bwd: a query head left out of the group sum passed the check: "
+              f"{res['planted_fault_group_rank']}")
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        res["second_launch"] = dict(
+            dk_dv_bit_identical=bool(torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])),
+            dq_bit_identical=bool(torch.equal(again[0], got[0])),
+            dq_rel_l2_between_launches=rel_err(again[0], got[0]))
+        check(res["second_launch"]["dk_dv_bit_identical"]
+              and res["second_launch"]["dq_rel_l2_between_launches"] <= K4B_BF16_REL,
+              f"flash_attention_bwd: two launches disagree: {res['second_launch']}")
+        del again
     del got, want
     pairs = attention_pairs(Sq, Skv, causal, window, q_offset)
     esz = q.element_size()
@@ -1972,6 +2024,7 @@ def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_
                library_ms=time_ms(sdpa_fwd_bwd, 20), device_ms=device_ms(k4b, 5),
                fwd_ms=time_ms(lambda: fa.flash_attention(q, k, v, with_lse=True, **kw),
                               5 if big else 20))
+    res["bound_share"] = b_ms / res["ms"]
     return res
 
 
@@ -2046,7 +2099,9 @@ def phase_train_parity() -> dict:
                   k4b_case(gen, 1, 256, 1024, 12, 2, 128, dt, q_offset=768),
                   k4b_case(gen, 1, 100, 100, 12, 2, 64, dt, window=16, q_offset=100),
                   k4b_case(gen, 2, 513, 513, 12, 2, 80, dt),
-                  k4b_case(gen, 2, 300, 300, 12, 2, 64, dt, causal=False)]
+                  k4b_case(gen, 2, 300, 300, 12, 2, 64, dt, causal=False),
+                  k4b_case(gen, 2, 512, 512, 8, 8, 128, dt),
+                  k4b_case(gen, 1, 300, 428, 6, 6, 64, dt, window=100, q_offset=128)]
     emit({"phase": "train_parity", "prox_update": k3_res, "prox_update_small": small,
           "flash_attention_bwd": list(main.values()), "flash_attention_bwd_cases": cases,
           "library": "K4b: scaled_dot_product_attention(is_causal, enable_gqa) forward + "

@@ -26,8 +26,13 @@
 // five products of the backward are 10 B H pairs Dh = 16.1 GFLOP, 16 us at
 // the 989 TFLOP/s bf16 tensor-core peak, against 19 MB of operands.
 //
-// Design: FA2's deterministic pair of kernels, with no atomics, between a
-// row-sum launch before and a group reduction after.
+// Two routes, chosen by dtype, head dim and group alone (`backward_route`
+// in flash_attention.py): bf16 at Dh 64 and 128 with G <= 8 takes the
+// wgmma + TMA kernel (namespace wg, below), which forms the five products
+// of FA2's backward in one kernel; bf16 at Dh 80 (whose rows are not whole
+// 128-byte swizzled boxes), G > 8 (more than a portable cluster) and
+// float32 take the first design: FA2's deterministic pair of kernels, with
+// no atomics, between a row-sum launch before and a group reduction after.
 //
 //  1. bwd_delta: one warp per (b, i, h) row computes delta.
 //  2. bwd_dkdv: one block per (key tile, query head, batch).  The block keeps
@@ -51,7 +56,9 @@
 //    P / dS in shared memory (rows padded against bank conflicts), FMA.
 //
 // Recomputing S and dP in both kernels costs 7 products instead of FA2's 5
-// with atomics; wgmma, TMA and one fused kernel are the later, faster design.
+// with atomics; the wgmma route forms 5.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -769,6 +776,599 @@ cudaError_t launch_all(int dh, const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------ bf16 at Dh 64 and 128: wgmma + TMA
+// One kernel with the five products (namespace wg), between a prologue
+// launch (delta, lse in base-2 units, the dQ accumulator zeroed) and an
+// epilogue launch (dQ scaled and rounded to bf16).
+//
+// Grid (H, key tiles of BK = 128, B) as clusters of G blocks along H: the G
+// query heads of one kv head, one block each.  A block holds its K and V
+// tile (TMA, once) and walks the query tiles of BQ = 64 rows its keys can
+// see, two stages of Q, dO, lse and delta landing by TMA while the last
+// tile computes (thread 0 issues every load).  Two consumer warpgroups own
+// 64 keys each:
+//
+//     S^T  = K Q^T,  dP^T = V dO^T          wgmma, both operands in shared memory
+//     P^T  = exp2(S^T scale log2e - lse2),  dS^T = P^T (dP^T - delta)   registers
+//     dV  += P^T dO, dK += dS^T Q           wgmma, P^T and dS^T from registers
+//     dQ_partial = dS K                      wgmma, dS^T from shared memory (transposed)
+//
+// dQ across key tiles: each warpgroup's partial (64 queries x 64 of Dh at
+// Dh 128, where the two split the columns; all 64 at Dh 64, where they
+// split the keys) goes to shared memory and one thread adds it into a
+// float32 accumulator in device memory with one bulk reduce-add
+// (cp.reduce.async.bulk ... add.f32): the order of the adds is not fixed,
+// so dQ is not bit-reproducible between launches.  dK and dV: after the
+// loop every block of the cluster puts its query head's float32 dK and dV
+// in its own shared memory, and block r sums the r-th slice of all G in
+// rank order through distributed shared memory (deterministic) and writes
+// it in the output type: no float32 partials in device memory and no group
+// reduction launch.  256 threads at one block an SM give ptxas 255
+// registers a thread (the dK and dV accumulators alone take DH of them).
+namespace wg {
+
+namespace cg = cooperative_groups;
+
+// 2^x by the SFU (MUFU.EX2, ~2 ulp, subnormal results flushed to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int BK = 128, BQ = 64, kThreads = 256, kBox = 64;
+
+template <int DH>
+struct Smem {
+  static constexpr int K = 0;  // tiles: DH / 64 column boxes of (rows, 64) bf16, 128B-swizzled
+  static constexpr int V = K + BK * DH * 2;
+  static constexpr int Q = V + BK * DH * 2;     // two stages
+  static constexpr int DO = Q + 2 * BQ * DH * 2;  // two stages
+  static constexpr int DS = DO + 2 * BQ * DH * 2;  // dS^T (BK, BQ) bf16, swizzled
+  static constexpr int DQ = DS + BK * BQ * 2;      // one 64 x 64 float32 partial a warpgroup
+  static constexpr int LD = DQ + 2 * 64 * 64 * 4;  // lse2 then delta, BQ floats each, two stages
+  static constexpr int BAR = LD + 2 * 2 * BQ * 4;  // kv_full, full[2]
+  static constexpr int BYTES = BAR + 3 * 8 + 1024;  // + 1024 to align
+  static constexpr int Q_BYTES = BQ * DH * 2, KV_BYTES = BK * DH * 2;
+  static_assert(2 * BK * DH * 4 <= DS, "dK and dV (float32) fit over K, V, Q and dO");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `parity`; a wait of ~10 s (a lost arrival)
+// traps, so a fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// dst[i] += src[i] (float32) for `bytes` bytes, shared -> global.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the source of every bulk reduce this thread issued has been read.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory made visible to wgmma and bulk copies.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses to registers across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define WG_ACC32(d)                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_REGS32                                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+// d (+)= A B for a 64 x 64 tile, k 16, both operands in shared memory:
+// K-major (tnsp 0) or MN-major (tnsp 1), the same for A and B.
+template <int TNSP>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32 "}, "
+      "%32, %33, p, 1, 1, %35, %35;\n}\n"
+      : WG_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSP));
+}
+
+// d += A B for a 64 x 64 tile, k 16: A in registers, B in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_m64n64_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for a 64 x 128 tile, k 16: A in registers, B in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_m64n128_mn(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void rs_product(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void rs_product<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n64_mn(d, a, db);
+}
+template <>
+__device__ __forceinline__ void rs_product<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n128_mn(d, a, db);
+}
+
+// Extra operands of the wgmma route (the common Params carry the rest).
+struct Extra {
+  float* lse2;    // (B, H, Sq_pad): lse * log2(e), 0 past Sq
+  float* dpad;    // (B, H, Sq_pad): delta, 0 past Sq
+  float* dq_acc;  // (B, H, Sq_pad / 64, DH / 64, 64, 64) float32, each 64 x 64 tile swizzled
+  int sq_pad;
+  int drop_rank;  // a planted fault: the group sum leaves out this rank (-1 in real runs)
+};
+
+// Element (r, c) of a 64 x 64 float32 dQ tile: 8-column groups XOR-swizzled
+// by the row, so that a warp's float2 stores of the accumulator layout spread
+// over the banks (the epilogue launch undoes it).
+__device__ __forceinline__ int dq_swz(int r, int c) { return r * 64 + (c ^ ((r & 7) << 3)); }
+
+// prologue: one warp a row (b, h, i), i < Sq_pad.
+template <typename T>
+__global__ void __launch_bounds__(256) bwd_prep(Params p, Extra x, int dh) {
+  const long long rows = (long long)p.B * p.H * x.sq_pad;
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);  // (b * H + h) * sq_pad + i
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int i = (int)(row % x.sq_pad);
+  const long long bh = row / x.sq_pad;
+  const int h = (int)(bh % p.H), b = (int)(bh / p.H);
+  float acc = 0.f;
+  if (i < p.Sq) {
+    const long long off = (((long long)b * p.Sq + i) * p.H + h) * dh;
+    const T* o = static_cast<const T*>(p.o) + off;
+    const T* d = static_cast<const T*>(p.dout) + off;
+    for (int c = lane; c < dh; c += 32) acc = fmaf(to_f(o[c]), to_f(d[c]), acc);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  }
+  float4* z = reinterpret_cast<float4*>(x.dq_acc + row * dh);
+  for (int c = lane; c < dh / 4; c += 32) z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (lane == 0) {
+    x.dpad[row] = acc;
+    x.lse2[row] = i < p.Sq ? p.lse[bh * p.Sq + i] * kLog2e : 0.f;
+  }
+}
+
+// epilogue: dQ = scale * accumulator in bf16; one thread 8 columns of a row.
+template <int DH>
+__global__ void __launch_bounds__(256) bwd_dq_convert(Params p, Extra x) {
+  const long long n = (long long)p.B * p.Sq * p.H * (DH / 8);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c8 = (int)(i % (DH / 8)) * 8;
+  const long long row = i / (DH / 8);  // (b * Sq + q) * H + h
+  const int h = (int)(row % p.H);
+  const long long bq = row / p.H;
+  const int q = (int)(bq % p.Sq), b = (int)(bq / p.Sq);
+  const long long tile = ((((long long)b * p.H + h) * (x.sq_pad / 64) + q / 64) * (DH / 64) +
+                          c8 / 64) * 4096;
+  const float* src = x.dq_acc + tile + dq_swz(q % 64, c8 % 64);
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 c = reinterpret_cast<const float4*>(src)[1];
+  __nv_bfloat162 out[4] = {__floats2bfloat162_rn(a.x * p.scale, a.y * p.scale),
+                           __floats2bfloat162_rn(a.z * p.scale, a.w * p.scale),
+                           __floats2bfloat162_rn(c.x * p.scale, c.y * p.scale),
+                           __floats2bfloat162_rn(c.z * p.scale, c.w * p.scale)};
+  *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.dq) + row * DH + c8) =
+      *reinterpret_cast<uint4*>(out);
+}
+
+// Whether a (BK keys at k0) x (BQ queries at q0) tile needs the per-element mask.
+__device__ __forceinline__ bool tile_masked(const Params& p, int k0, int q0) {
+  const int first = q0 + p.q_offset, last = q0 + BQ - 1 + p.q_offset;
+  return q0 + BQ > p.Sq || k0 + BK > p.Skv || k0 < p.skip_keys ||
+         (p.causal && k0 + BK - 1 > first) || (p.window > 0 && k0 <= last - p.window);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_wgmma(const Params p, const Extra x, const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do) {
+  using L = Smem<DH>;
+  constexpr int COLS = DH / kBox;
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024
+  unsigned char* gbase = wg_smem + (base - raw);  // the same, as a generic pointer
+  const uint32_t sK = base + L::K, sV = base + L::V, sQ = base + L::Q, sDO = base + L::DO;
+  const uint32_t sDS = base + L::DS, sDQ = base + L::DQ, sLD = base + L::LD;
+  const uint32_t kv_full = base + L::BAR, full0 = kv_full + 8;
+
+  const int h = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / p.G, rank = h % p.G;
+  const int k0 = kt * BK;
+  const int tid = threadIdx.x, w = tid >> 7, ct = tid & 127;
+  const int warp = ct >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  int lo, hi;
+  query_tiles(p, k0, BK, BQ, lo, hi);
+  const int n_it = hi - lo + 1;
+  const long long lrow = ((long long)b * p.H + h) * x.sq_pad;  // this head's lse2 / delta row
+
+  const CUtensorMap* mq = &tm_q;
+  const CUtensorMap* mdo = &tm_do;
+  auto issue_q = [&](int it) {  // Q, dO, lse2 and delta of query tile lo + it
+    const int st = it & 1, q0 = (lo + it) * BQ;
+    const uint32_t bar = full0 + 8 * st;
+    mbar_expect_tx(bar, 2 * L::Q_BYTES + 2 * BQ * 4);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      tma_load_4d(sQ + st * L::Q_BYTES + c * BQ * 128, mq, bar, c * kBox, h, q0, b);
+      tma_load_4d(sDO + st * L::Q_BYTES + c * BQ * 128, mdo, bar, c * kBox, h, q0, b);
+    }
+    bulk_load(sLD + st * 2 * BQ * 4, x.lse2 + lrow + q0, BQ * 4, bar);
+    bulk_load(sLD + st * 2 * BQ * 4 + BQ * 4, x.dpad + lrow + q0, BQ * 4, bar);
+  };
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full0, 1);
+    mbar_init(full0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n_it > 0) {
+      mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        tma_load_4d(sK + c * BK * 128, &tm_k, kv_full, c * kBox, kvh, k0, b);
+        tma_load_4d(sV + c * BK * 128, &tm_v, kv_full, c * kBox, kvh, k0, b);
+      }
+      issue_q(0);
+      if (n_it > 1) issue_q(1);
+    }
+  }
+  __syncthreads();
+
+  // This thread's accumulator rows: keys 64 w + 16 warp + g (+ 8) of the
+  // tile (S^T, dP^T, dK, dV); queries 16 warp + g (+ 8) of the q tile (dQ).
+  const int kr = 64 * w + 16 * warp + g;
+  const int kpos[2] = {k0 + kr, k0 + kr + 8};
+  const float sl2 = p.scale * kLog2e;
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t sK_rows = sK + w * 64 * 128, sV_rows = sV + w * 64 * 128;
+  // dQ: at Dh 128 warpgroup w takes Dh columns [64 w, 64 w + 64) over all BK
+  // keys; at Dh 64 all 64 columns over its own 64 keys.
+  constexpr int DQ_STEPS = DH == 128 ? BK / 16 : 64 / 16;
+  const uint32_t dq_a = DH == 128 ? sDS : sDS + w * 64 * 128;
+  const uint32_t dq_b = DH == 128 ? sK + w * BK * 128 : sK + w * 64 * 128;
+  const int dq_half = DH == 128 ? w : 0;
+  float* dq_tiles = x.dq_acc + ((long long)b * p.H + h) * (x.sq_pad / 64) * (DH / 64) * 4096;
+  float* sdq = reinterpret_cast<float*>(gbase + L::DQ) + w * 4096;
+  const bool leader = ct == 0;  // issues this warpgroup's bulk reduces
+
+  if (n_it > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1, qt = lo + it, q0 = qt * BQ;
+    mbar_wait(full0 + 8 * st, (it >> 1) & 1);
+    const uint32_t q_tile = sQ + st * L::Q_BYTES, do_tile = sDO + st * L::Q_BYTES;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries a warpgroup
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BK * 128 + (kk & 3) * 32;
+      const uint32_t qoff = (kk >> 2) * BQ * 128 + (kk & 3) * 32;
+      wgmma_ss_m64n64<0>(s, desc(sK_rows + off, 16, 1024), desc(q_tile + qoff, 16, 1024), kk > 0);
+      wgmma_ss_m64n64<0>(dp, desc(sV_rows + off, 16, 1024), desc(do_tile + qoff, 16, 1024),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T; dS^T also to shared memory for dQ
+    const float* lse2 = reinterpret_cast<const float*>(gbase + L::LD) + st * 2 * BQ;
+    const float* dl = lse2 + BQ;
+    const bool masked = tile_masked(p, k0, q0);
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qc = 8 * j + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + qc);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + qc);
+      float e[4], d[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int qi = q0 + qc + (r & 1);
+        const bool ok = !masked || (qi < p.Sq && allowed(p, qi + p.q_offset, kpos[r >> 1]));
+        e[r] = ok ? ex2(s[4 * j + r] * sl2 - ((r & 1) ? l2.y : l2.x)) : 0.f;
+        d[r] = e[r] * (dp[4 * j + r] - ((r & 1) ? d2.y : d2.x));
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(e[0], e[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(e[2], e[3]);
+      da[j >> 1][(j & 1) * 2] = pack_bf16(d[0], d[1]);
+      da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = kr + 8 * r;
+        *reinterpret_cast<uint32_t*>(gbase + L::DS + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t) =
+            da[j >> 1][(j & 1) * 2 + r];
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q (dO and Q MN-major: Dh boxes BQ rows apart)
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      rs_product<DH>(dv, pa[kk], desc(do_tile + kk * 16 * 128, BQ * 128, 1024));
+      rs_product<DH>(dk, da[kk], desc(q_tile + kk * 16 * 128, BQ * 128, 1024));
+    }
+    wgmma_commit();
+
+    // dQ partial = dS K: dS^T from shared memory (MN-major A), K MN-major
+    fence_async_smem();
+    named_barrier(1, kThreads);  // both warpgroups' dS^T written
+    float dq[32];
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_STEPS; ++kk)
+      wgmma_ss_m64n64<1>(dq, desc(dq_a + kk * 16 * 128, 64 * 128, 1024),
+                         desc(dq_b + kk * 16 * 128, BK * 128, 1024), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(da);
+
+    if (leader) bulk_wait_read();  // the previous partial has left shared memory
+    named_barrier(2 + w, 128);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + g + 8 * r;
+        *reinterpret_cast<float2*>(sdq + dq_swz(row, 8 * j + 2 * t)) =
+            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+      }
+    fence_async_smem();
+    named_barrier(2 + w, 128);
+    if (leader)
+      bulk_reduce_add(dq_tiles + ((long long)qt * (DH / 64) + dq_half) * 4096, sDQ + w * 16384,
+                      16384);
+
+    __syncthreads();  // stage st and dS^T are free
+    if (tid == 0 && it + 2 < n_it) issue_q(it + 2);
+  }
+  if (leader) bulk_wait_all();
+
+  // dK and dV of the group: each block's float32 share over K, V, Q and dO,
+  // then block `rank` sums slice `rank` of all G in rank order.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(gbase);  // dK (BK, DH) then dV (BK, DH)
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = kr + 8 * r, col = 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(red + row * DH + col) = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(red + (BK + row) * DH + col) =
+          make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int CHUNKS = 2 * BK * DH / 4;  // float4s
+  const int per = (CHUNKS + p.G - 1) / p.G;
+  const int first = rank * per, end = min(CHUNKS, first + per);
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv);
+  for (int i = first + tid; i < end; i += kThreads) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < p.G; ++r) {
+      if (r == x.drop_rank) continue;
+      const float4 v = cluster.map_shared_rank(reinterpret_cast<float4*>(red), r)[i];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    const int e = 4 * i, which = e / (BK * DH), rem = e % (BK * DH);
+    const int row = rem / DH, col = rem % DH;
+    if (k0 + row >= p.Skv) continue;
+    const float sc = which == 0 ? p.scale : 1.f;
+    __nv_bfloat162 out[2] = {__floats2bfloat162_rn(acc.x * sc, acc.y * sc),
+                             __floats2bfloat162_rn(acc.z * sc, acc.w * sc)};
+    __nv_bfloat16* dst = (which == 0 ? dkg : dvg) +
+                         (((long long)b * p.Skv + k0 + row) * p.KVH + kvh) * DH + col;
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<uint2*>(out);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// ---------------------------------------------------- host: tensor maps
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up at run time through the CUDA runtime, so
+// the library needs no -lcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (B, S, heads, dh) bf16 tensor as a 4-D map over (dh, heads, S, B): boxes
+// of (64, 1, rows, 1), 128-byte swizzled; rows past S read as zeros.
+int encode(CUtensorMap* map, const void* ptr, int dh, int heads, int seq, int batch, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t e = 2;
+  const cuuint64_t rows_total = seq > 0 ? seq : 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, rows_total, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {dh * e, (cuuint64_t)heads * dh * e, rows_total * heads * dh * e};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+int launch(const Params& p, const Extra& x, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.H * x.sq_pad;
+  bwd_prep<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, x, DH);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (p.Skv > 0) {
+    CUtensorMap tq, tk, tv, tdo;
+    int err = encode(&tq, p.q, DH, p.H, p.Sq, p.B, BQ);
+    if (!err) err = encode(&tdo, p.dout, DH, p.H, p.Sq, p.B, BQ);
+    if (!err) err = encode(&tk, p.k, DH, p.KVH, p.Skv, p.B, BK);
+    if (!err) err = encode(&tv, p.v, DH, p.KVH, p.Skv, p.B, BK);
+    if (err) return err;
+    e = cudaFuncSetAttribute(bwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<DH>::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)p.H, (unsigned)((p.Skv + BK - 1) / BK), (unsigned)p.B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Smem<DH>::BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)p.G;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, bwd_wgmma<DH>, p, x, tq, tk, tv, tdo);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long n = (long long)p.B * p.Sq * p.H * (DH / 8);
+  bwd_dq_convert<DH><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p, x);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q, out, dout, dq (B, Sq, H, Dh); k, v, dk, dv (B, Skv, KVH, Dh), all
@@ -796,4 +1396,38 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     return (int)cudaGetLastError();
   }
   return (int)(bf16 ? launch_all<__nv_bfloat16>(Dh, p, s) : launch_all<float>(Dh, p, s));
+}
+
+// The wgmma route: bf16 q, k, v, out, dout, dq, dk, dv as above, at Dh 64 or
+// 128 and a group G = H / KVH of at most 8 (a portable cluster); lse (B, H, Sq)
+// float32.  Scratch, float32: lse2 and delta (B, H, sq_pad) and the dQ
+// accumulator (B, H, sq_pad, Dh), sq_pad = Sq rounded up to 64.
+// skip_key_tiles: 0 (a planted fault masks the first this-many 64-key
+// tiles); drop_rank: -1 (a planted fault leaves that query head of each
+// group out of dK and dV).
+extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                         const void* out, const void* lse, const void* dout,
+                                         void* dq, void* dk, void* dv, void* scratch, int B,
+                                         int Sq, int Skv, int H, int KVH, int Dh, int q_offset,
+                                         int causal, int window, int skip_key_tiles,
+                                         int drop_rank, float scale, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (KVH == 0 || H % KVH || H / KVH > 8 || (Dh != 64 && Dh != 128))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (Sq == 0) {  // no query: dK and dV are zero
+    const size_t bytes = (size_t)B * Skv * KVH * Dh * sizeof(__nv_bfloat16);
+    cudaMemsetAsync(dk, 0, bytes, s);
+    cudaMemsetAsync(dv, 0, bytes, s);
+    return (int)cudaGetLastError();
+  }
+  const Params p{q, k, v, out, dout, static_cast<const float*>(lse), dq, dk, dv,
+                 nullptr, nullptr, nullptr,
+                 B, Sq, Skv, H, KVH, H / KVH, q_offset, causal, window, 64 * skip_key_tiles,
+                 scale};
+  const int sq_pad = (Sq + 63) / 64 * 64;
+  float* f = static_cast<float*>(scratch);
+  const long long rows = (long long)B * H * sq_pad;
+  const wg::Extra x{f, f + rows, f + 2 * rows, sq_pad, drop_rank};
+  return Dh == 64 ? wg::launch<64>(p, x, s) : wg::launch<128>(p, x, s);
 }

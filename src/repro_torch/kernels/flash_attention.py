@@ -13,7 +13,14 @@
   (`csrc/flash_attention_bwd.cu`).  The reference has no TPU kernel for it:
   its gradient is the jnp `custom_vjp` `_ca_bwd`
   (src/repro/kernels/ops.py:105), which recomputes each score block from the
-  saved log-sum-exp and never builds an (S, S) tensor.
+  saved log-sum-exp and never builds an (S, S) tensor.  Its route depends on
+  dtype, head dim and group alone (`backward_route`): bf16 at Dh 64 and 128
+  with G = H / KVH <= 8 runs one wgmma + TMA kernel with the five products
+  (a cluster of the G query heads of a kv head sums dK and dV in shared
+  memory; dQ is added across key tiles into a float32 accumulator, so it is
+  not bit-reproducible), between a prologue (delta) and an epilogue (dQ in
+  bf16) launch; the rest runs the first design's mma.sync / float32 FMA
+  kernels.
 * `FlashAttention` is the `torch.autograd.Function` of the two (the port of
   `_chunked_attention`'s `custom_vjp`), which `kernels.ops.attention` takes
   when an input needs a gradient.
@@ -53,7 +60,9 @@ _ARGTYPES = {
 }
 _BWD_ARGTYPES = {
     "flash_attention_bwd": [_P] * 12 + [_i] * 11 + [ctypes.c_float, _P],
+    "flash_attention_bwd_wgmma": [_P] * 10 + [_i] * 11 + [ctypes.c_float, _P],
 }
+BWD_MAX_GROUP = 8  # the wgmma route's cluster of G blocks (portable cluster size)
 EMPTY_ROW_LSE = math.log(1e-37)  # the reference's log-sum-exp of a row with no key
 
 
@@ -176,41 +185,89 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=None, q_offset=0, wi
 
 flash_attention.launches = 0
 
-# Planted fault for chip_smoke.py's checks: K4b skips this many key tiles
-# at the start of every row (0 in every real run).
+# Planted faults for chip_smoke.py's checks (0 and -1 in every real run):
+# K4b skips this many 64-key tiles at the start of every row; the wgmma
+# route leaves this rank's query head out of each group's dK and dV.
 _BWD_SKIP_KEY_TILES = 0
+_BWD_DROP_GROUP_RANK = -1
+
+
+def backward_route(dtype: torch.dtype, head_dim: int, group: int) -> str:
+    """Which K4b kernels a CUDA call runs: "wgmma_tma" for bf16 at head dim
+    64 and 128 with a group of at most BWD_MAX_GROUP query heads a kv head,
+    "mma_sync" for the other bf16 calls, "fma_f32" for float32."""
+    if dtype == torch.bfloat16:
+        return "wgmma_tma" if head_dim % 64 == 0 and group <= BWD_MAX_GROUP else "mma_sync"
+    return "fma_f32"
+
+
+_BWD_CHECKED: dict = {}  # operand signatures already validated (shapes, strides, dtypes, devices)
+
+
+def _bwd_signature(q, k, v, out, lse, do, sliding_window):
+    return tuple((t.shape, t.stride(), t.dtype, t.device) for t in (q, k, v, out, lse, do)) + (
+        sliding_window,)
+
+
+def _check_bwd(name, q, k, v, out, lse, do, sliding_window):
+    """Raise unless the backward's operands are what K4b takes; returns the dtype.
+    Shapes, strides and dtypes are checked once a signature, alignment every call."""
+    key = _bwd_signature(q, k, v, out, lse, do, sliding_window)
+    dtype = _BWD_CHECKED.get(key)
+    if dtype is None:
+        dtype = _check_attention(name, q, k, v, sliding_window, out=out, do=do)
+        B, Sq, H, Dh = q.shape
+        if out.shape != q.shape or do.shape != q.shape:
+            raise ValueError(f"{name}: out {tuple(out.shape)} and do {tuple(do.shape)} must be "
+                             f"shaped like q {tuple(q.shape)}")
+        if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq) or not lse.is_contiguous()
+                or lse.device != q.device):
+            raise ValueError(f"{name}: lse must be a contiguous float32 ({B}, {H}, {Sq}) tensor "
+                             f"on {q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+        if len(_BWD_CHECKED) >= 64:
+            _BWD_CHECKED.clear()
+        _BWD_CHECKED[key] = dtype
+    else:
+        _build.check_aligned(name, q=q, k=k, v=v, out=out, do=do)
+    return dtype
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, sliding_window=None, q_offset=0):
     """The gradients ``(dq, dk, dv)`` of `flash_attention` at ``(q, k, v)``
     for the output gradient ``do``, from the forward's ``out`` and ``lse``:
-    one call of K4b (a row-sum launch, the dK/dV and dQ kernels and a
-    reduction over the query-head group)."""
+    one call of K4b (see `backward_route`)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                          sliding_window=sliding_window, q_offset=q_offset)
     name = "flash_attention_bwd"
-    dtype = _check_attention(name, q, k, v, sliding_window, out=out, do=do)
+    dtype = _check_bwd(name, q, k, v, out, lse, do, sliding_window)
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
-    if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"{name}: out {tuple(out.shape)} and do {tuple(do.shape)} must be "
-                         f"shaped like q {tuple(q.shape)}")
-    if (lse.dtype != torch.float32 or lse.shape != (B, H, Sq) or not lse.is_contiguous()
-            or lse.device != q.device):
-        raise ValueError(f"{name}: lse must be a contiguous float32 ({B}, {H}, {Sq}) tensor "
-                         f"on {q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, H, Sq), **f32)
-    # dK and dV of every query head before the sum over its kv head's group
-    dk_h, dv_h = torch.empty((B, Skv, H, Dh), **f32), torch.empty((B, Skv, H, Dh), **f32)
-    fn = _build.load("flash_attention_bwd", _BWD_ARGTYPES).flash_attention_bwd
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
-                int(dtype == torch.bfloat16), B, Sq, Skv, H, KVH, Dh, int(q_offset), int(causal),
-                int(sliding_window or 0), _BWD_SKIP_KEY_TILES, Dh**-0.5, _build.stream_of(q))
+    dq = torch.empty_like(q)
+    dkv = torch.empty((2, *k.shape), dtype=k.dtype, device=k.device)
+    dk, dv = dkv[0], dkv[1]
+    fns = _build.load("flash_attention_bwd", _BWD_ARGTYPES)
+    window = int(sliding_window or 0)
+    if backward_route(dtype, Dh, H // KVH) == "wgmma_tma":
+        sq_pad = -(-Sq // 64) * 64
+        # lse2 and delta (B, H, sq_pad), then the dQ accumulator (B, H, sq_pad, Dh)
+        scratch = torch.empty(B * H * sq_pad * (2 + Dh), dtype=torch.float32, device=q.device)
+        status = fns.flash_attention_bwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            B, Sq, Skv, H, KVH, Dh, int(q_offset), int(causal), window, _BWD_SKIP_KEY_TILES,
+            _BWD_DROP_GROUP_RANK, Dh**-0.5, _build.stream_of(q))
+    else:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        delta = torch.empty((B, H, Sq), **f32)
+        # dK and dV of every query head before the sum over its kv head's group
+        dk_h, dv_h = torch.empty((B, Skv, H, Dh), **f32), torch.empty((B, Skv, H, Dh), **f32)
+        status = fns.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+            int(dtype == torch.bfloat16), B, Sq, Skv, H, KVH, Dh, int(q_offset), int(causal),
+            window, _BWD_SKIP_KEY_TILES, Dh**-0.5, _build.stream_of(q))
     _build.check_status(name, status)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

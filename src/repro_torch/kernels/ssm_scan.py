@@ -1,15 +1,20 @@
 """Mamba-2 selective state-space scan (scalar decay per head): K6.
 
 * `ssm_scan` (K6) ports the TPU kernel `repro.kernels.ssm_scan.ssm_scan`
-  (src/repro/kernels/ssm_scan.py:68) as a CUDA C++ kernel for Hopper
-  (`csrc/ssm_scan.cu`: one block per (head, batch row) looping over
-  64-step chunks, the state in shared memory, float32 FMA; built by
-  `kernels._build`).  It is the scan of every Mamba-2 layer's full-sequence
-  forward (`models.ssm.mamba_apply`), and so of every prefill of the hybrid
+  (src/repro/kernels/ssm_scan.py:68) as CUDA C++ kernels for Hopper
+  (`csrc/ssm_scan.cu`, built by `kernels._build`), each walking 64-step
+  chunks in order.  The route depends on dtype and (P, N) alone
+  (`scan_route`): bf16 at P = N = 64 (Zamba2's) runs on tensor cores, a
+  block per (head, batch row), three to an SM, every float32 operand of a
+  product split into bf16 high and low parts; float32 and P 128 / N 16 run
+  the float32 FMA kernel, a block per (head, batch row).
+  It is the scan of every Mamba-2 layer's full-sequence forward (`models.ssm.mamba_apply`), and so of every prefill of the hybrid
   family; decode runs its own one-step recurrence (`mamba_decode_step`).
 * `ssm_scan_plain` is its plain version, the port of the reference's
   chunked jnp form `ssm_scan_chunked` (src/repro/kernels/_ssm_chunked.py:18),
   which is what `repro.kernels.ops.ssm_scan` runs off the TPU.
+* `ssm_scan_split_plain` models the tensor-core route's arithmetic in
+  plain PyTorch (64-step chunks, the split operands), for the tests.
 * `ssm_scan_ref` is the sequential recurrence of the reference's oracle
   `ref.ssm_scan` (src/repro/kernels/ref.py:89), for the tests.
 
@@ -40,11 +45,24 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 PLAIN_CHUNK = 128  # the reference's chunk (`ssm_scan_chunked`); K6 chunks at 64 steps
+K6_CHUNK = 64  # csrc/ssm_scan.cu kQ
 SHAPES = ((64, 64), (128, 16))  # (P, N) built: Zamba2's and its reduced variant's
+TENSOR_CORE_SHAPE = (64, 64)
 _P = ctypes.c_void_p
 _i = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = {"ssm_scan_fwd": [_P] * 9 + [_i] * 6 + [_L] * 13 + [_P]}
+_ARGTYPES = {"ssm_scan_fwd": [_P] * 9 + [_i] * 6 + [_L] * 13 + [_i, _P]}
+
+# Planted fault for chip_smoke.py's checks: the tensor-core route leaves out
+# the low bf16 parts of its split operands (False in every real run).
+_DROP_LOW_HALF = False
+
+
+def scan_route(dtype: torch.dtype, P: int, N: int) -> str:
+    """Which K6 kernel a CUDA call runs (`ssm_scan_fwd` in csrc/ssm_scan.cu
+    chooses by the same rule): "tensor_core" for bf16 at (P, N) = (64, 64),
+    "fma_f32" otherwise."""
+    return "tensor_core" if dtype == torch.bfloat16 and (P, N) == TENSOR_CORE_SHAPE else "fma_f32"
 
 
 def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, state0=None):
@@ -82,6 +100,51 @@ def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, state0=None):
         w_out = torch.exp(tot - cum) * dtq  # (B, Q, H)
         h = (torch.exp(tot[:, 0])[:, :, None, None] * h
              + torch.einsum("bshp,bsn->bhpn", w_out[..., None] * xq, Bq))
+    return torch.cat(ys, dim=1)[:, :T].to(x.dtype), h
+
+
+def _split(v, drop_low=False):
+    """v as bf16 high part + bf16 low part (float32 values): what the
+    tensor-core route feeds its products for a float32 operand."""
+    hi = v.to(torch.bfloat16).float()
+    return hi if drop_low else hi + (v - hi).to(torch.bfloat16).float()
+
+
+def ssm_scan_split_plain(x, dt, A, B_mat, C_mat, D, state0=None, *, drop_low=False):
+    """The tensor-core route's arithmetic in plain PyTorch: 64-step chunks;
+    C B^T from the operands as given; G = L o (C B^T) o dt, the state h and
+    ws o x each replaced by its bf16 high + low split before the product
+    that takes it (with ``drop_low``, by the high part alone: the route's
+    planted fault); every product and sum in float32."""
+    Bb, T, H, P = x.shape
+    N = B_mat.shape[-1]
+    f32 = torch.float32
+    Q = K6_CHUNK
+    pad = (-T) % Q
+    xf, dtf, Bm, Cm = x.to(f32), dt.to(f32), B_mat.to(f32), C_mat.to(f32)
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+    A_, D_ = A.to(f32), D.to(f32)
+    h = (torch.zeros((Bb, H, P, N), dtype=f32, device=x.device) if state0 is None
+         else state0.to(f32))
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    ys = []
+    for c0 in range(0, T + pad, Q):
+        xq, dtq = xf[:, c0:c0 + Q], dtf[:, c0:c0 + Q]
+        Bq, Cq = Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
+        cum = torch.cumsum(A_ * dtq, dim=1)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        CB = torch.einsum("btn,bsn->bts", Cq, Bq)
+        G = _split(CB[..., None] * L * dtq[:, None, :, :], drop_low)  # (B, t, s, H)
+        y = torch.einsum("bhpn,btn->bthp", _split(h, drop_low), Cq) * torch.exp(cum)[..., None]
+        y = y + torch.einsum("btsh,bshp->bthp", G, xq)
+        ys.append(y + D_[None, None, :, None] * xq)
+        tot = cum[:, -1:, :]
+        wx = _split((torch.exp(tot - cum) * dtq)[..., None] * xq, drop_low)  # (B, s, H, P)
+        h = torch.exp(tot[:, 0])[:, :, None, None] * h + torch.einsum("bshp,bsn->bhpn", wx, Bq)
     return torch.cat(ys, dim=1)[:, :T].to(x.dtype), h
 
 
@@ -158,7 +221,7 @@ def ssm_scan(x, dt, A, B_mat, C_mat, D, state0=None):
                 D.data_ptr(), None if state0 is None else state0.data_ptr(), y.data_ptr(),
                 h_out.data_ptr(), int(x.dtype == torch.bfloat16), Bb, T, H, P, N,
                 *x.stride(), *dt.stride(), *B_mat.stride(), *C_mat.stride(),
-                _build.stream_of(x))
+                int(_DROP_LOW_HALF), _build.stream_of(x))
     _build.check_status(name, status)
     ssm_scan.launches += 1
     return y, h_out

@@ -64,6 +64,7 @@ from repro_torch.kernels.prox_update import (  # noqa: E402
     quadratic_prox_gd_batched_plain,
 )
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssm_module  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref  # noqa: E402
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
@@ -513,6 +514,11 @@ def test_prox_update_tree_refuses_what_it_does_not_take(cuda):
 BWD_CASES = FLASH_CASES + [
     (2, 256, 256, 12, 2, 128, True, None, 0),  # qwen2's group of 6
     (1, 130, 130, 6, 1, 80, True, 50, 0),  # Dh 80, window, group 6
+    # bf16 takes the wgmma + TMA route at Dh 64 and 128 and G <= 8 (a cluster of G blocks):
+    (2, 300, 300, 12, 2, 64, True, 64, 0),  # group 6, Dh 64, window, ragged
+    (1, 100, 356, 12, 2, 128, True, None, 256),  # group 6, q_offset, Sq != Skv
+    (1, 40, 40, 6, 1, 128, True, 8, 100),  # group 6, rows with no key (dq exactly 0)
+    (1, 130, 130, 12, 1, 64, True, None, 0),  # group 12 > 8: the mma.sync route
 ]
 
 
@@ -567,17 +573,25 @@ def test_flash_attention_lse_matches_plain(cuda, case, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "x".join(map(str, c)))
-def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
+def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, case, dtype):
     """K4b against the plain backward on the same (q, k, v, out, lse, do);
-    rows that see no key get dq = 0 without NaN."""
+    rows that see no key get dq = 0 without NaN.  The kernel that ran is the
+    one `backward_route` names: only the wgmma route honours the planted
+    dropped-rank fault."""
     q, k, v, do, kw = _bwd_inputs(case, dtype, cuda)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
     got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == 1
-    _check_grads(got, flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), dtype)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    _check_grads(got, want, dtype)
     unseen = ~_seen_rows(case, cuda)
     assert bool((got[0][:, unseen] == 0).all())
+    route = fa_module.backward_route(dtype, q.shape[-1], q.shape[2] // k.shape[2])
+    monkeypatch.setattr(fa_module, "_BWD_DROP_GROUP_RANK", 0)
+    dk_rank0_dropped = flash_attention_bwd(q, k, v, out, lse, do, **kw)[1]
+    if bool((want[1] != 0).any()):
+        assert (not torch.equal(dk_rank0_dropped, got[1])) == (route == "wgmma_tma"), route
 
 
 @pytest.mark.gpu
@@ -594,6 +608,62 @@ def test_flash_attention_rejects_a_skipped_last_tile(cuda, monkeypatch, dh):
     with pytest.raises(AssertionError):
         torch.testing.assert_close(flash_attention(q, k, v, **kw), want,
                                    **K4_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 256, 256, 12, 2, 128, True, None, 0),
+                                  (2, 300, 300, 12, 2, 64, True, 64, 0)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_bwd_rejects_a_dropped_group_rank(cuda, monkeypatch, case):
+    """The wgmma route's planted fault: one query head of each group of 6
+    left out of dK and dV fails the bf16 check (dq alone still passes)."""
+    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda)
+    out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    _check_grads(flash_attention_bwd(q, k, v, out, lse, do, **kw), want, torch.bfloat16)
+    monkeypatch.setattr(fa_module, "_BWD_DROP_GROUP_RANK", 3)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    _check_grads(got[:1] + want[1:], want, torch.bfloat16)
+    with pytest.raises(AssertionError):
+        _check_grads(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_wgmma_launches_agree(cuda):
+    """Two launches of the wgmma route: dK and dV (summed over the group in
+    rank order) bit for bit; dQ (bulk reduce-adds across key tiles, in no
+    fixed order) within K4B_BF16_REL of each other in relative L2."""
+    case = (2, 512, 512, 12, 2, 128, True, None, 0)
+    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda)
+    out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    a = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    b = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    spread = (torch.linalg.vector_norm(a[0].float() - b[0].float())
+              / torch.linalg.vector_norm(b[0].float())).item()
+    assert spread <= K4B_BF16_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_flash_attention_bwd_without_queries(cuda, dtype, dh):
+    """No query (Sq = 0) against 100 keys: dK and dV are exactly 0 on every
+    route, though the wrapper allocates them uninitialised (the freed block
+    they reuse is filled with NaN first)."""
+    B, Skv, H, KVH = 2, 100, 12, 2
+    gen = torch.Generator().manual_seed(9)
+    q = _randn(gen, (B, 0, H, dh), dtype, cuda)
+    k, v = (_randn(gen, (B, Skv, KVH, dh), dtype, cuda) for _ in range(2))
+    lse = torch.empty((B, H, 0), dtype=torch.float32, device=cuda)
+    del_me = torch.full((2, B, Skv, KVH, dh), float("nan"), dtype=dtype, device=cuda)
+    del del_me
+    dq, dk, dv = flash_attention_bwd(q, k, v, torch.empty_like(q), lse, torch.empty_like(q))
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == 1
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert bool((dk == 0).all()) and bool((dv == 0).all())
 
 
 @pytest.mark.gpu
@@ -666,6 +736,8 @@ SSM_CASES = [  # (B, T, H, P, N), strong decay, state0
     ((2, 64, 2, 64, 64), True, True),
     ((1, 129, 3, 128, 16), False, True),
     ((2, 1, 2, 128, 16), False, False),
+    ((2, 200, 80, 64, 64), False, True),  # Zamba2's heads on the tensor-core route
+    ((1, 65, 1, 64, 64), True, False),  # one head, one step past a chunk
 ]
 
 
@@ -691,6 +763,61 @@ def test_ssm_scan_kernel_matches_plain(cuda, case, dtype):
         y_r, h_r = ssm_scan_ref(x, dt, A, Bm, Cm, D, s0)
         torch.testing.assert_close(y, y_r, **K6_TOL[dtype])
         torch.testing.assert_close(h, h_r, **K6_STATE_TOL)
+
+
+def _ssm_strided(x, Bm, Cm):
+    """x, B and C with an inner stride of 2 (not 16-byte runs): the
+    tensor-core route stages them by plain loads instead of cp.async."""
+    Bb, T, H, P = x.shape
+    N = Bm.shape[-1]
+    wide = torch.zeros((Bb, T, 2 * (H * P + 2 * N)), dtype=x.dtype, device=x.device)
+    wide[..., 0::2] = torch.cat([x.reshape(Bb, T, H * P), Bm, Cm], dim=-1)
+    return (wide[..., 0:2 * H * P:2].unflatten(-1, (H, P)),
+            wide[..., 2 * H * P:2 * (H * P + N):2], wide[..., 2 * (H * P + N)::2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "strided", "contiguous"])
+@pytest.mark.parametrize("case", [((2, 300, 6, 64, 64), False, True),
+                                  ((1, 200, 3, 64, 64), True, True),
+                                  ((2, 1, 4, 64, 64), False, False)],
+                         ids=lambda c: "x".join(map(str, c[0])) + ("_strong" if c[1] else ""))
+def test_ssm_scan_tensor_core_route_matches_plain(cuda, case, layout):
+    """The bf16 tensor-core route at the model's column views ("packed"), at
+    an inner stride of 2 (staged by plain loads) and contiguous; within the
+    bf16 tolerance of the plain version and of the recurrence, the state
+    within 1e-3."""
+    shape, strong, with_state = case
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs(shape, torch.bfloat16, cuda, strong=strong,
+                                          with_state=with_state)
+    if layout == "strided":
+        x, Bm, Cm = _ssm_strided(x, Bm, Cm)
+        assert x.stride(-1) == 2
+    elif layout == "contiguous":
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    assert ssm_module.scan_route(x.dtype, shape[3], shape[4]) == "tensor_core"
+    y, h = ssm_scan(x, dt, A, Bm, Cm, D, s0)
+    torch.cuda.synchronize()
+    y_p, h_p = ssm_scan_plain(x, dt, A, Bm, Cm, D, s0)
+    torch.testing.assert_close(y, y_p, **K6_TOL[torch.bfloat16])
+    torch.testing.assert_close(h, h_p, **K6_STATE_TOL)
+    y_r, h_r = ssm_scan_ref(x, dt, A, Bm, Cm, D, s0)
+    torch.testing.assert_close(y, y_r, **K6_TOL[torch.bfloat16])
+    torch.testing.assert_close(h, h_r, **K6_STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_rejects_a_dropped_low_half(cuda, monkeypatch):
+    """The tensor-core route's planted fault: the low bf16 parts of its
+    split operands left out moves the state by ~2^-9 relative, beyond the
+    1e-3 state tolerance (y, rounded to bf16, barely moves)."""
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs((2, 512, 8, 64, 64), torch.bfloat16, cuda,
+                                          with_state=True)
+    _, h_p = ssm_scan_plain(x, dt, A, Bm, Cm, D, s0)
+    torch.testing.assert_close(ssm_scan(x, dt, A, Bm, Cm, D, s0)[1], h_p, **K6_STATE_TOL)
+    monkeypatch.setattr(ssm_module, "_DROP_LOW_HALF", True)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(ssm_scan(x, dt, A, Bm, Cm, D, s0)[1], h_p, **K6_STATE_TOL)
 
 
 @pytest.mark.gpu

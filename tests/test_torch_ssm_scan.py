@@ -11,6 +11,14 @@ reference's (tests/test_kernels_scans.py:53-59): y float32 rtol = atol =
 inputs are the same float32 numbers rounded to bfloat16 by each framework
 (round to nearest even in both).  The CUDA kernel is held against these
 plain versions on the card by tests/test_torch_gpu.py and chip_smoke.py.
+
+`ssm_scan_split_plain` models the arithmetic of K6's bf16 tensor-core route
+(64-step chunks; each float32 operand of a product, the state, G and
+ws o x, fed as a bf16 high part plus a bf16 low part): it is held to the
+same reference tolerances, and to within 2e-5 in relative L2 of the plain
+version's state, the size the split leaves (~2^-16 a product, summed);
+without the low parts (the route's planted fault) the state moves by ~2^-9
+relative and leaves the 1e-3 state tolerance.
 """
 import numpy as np
 import pytest
@@ -23,7 +31,12 @@ from repro.kernels import ref  # noqa: E402
 from repro.kernels._ssm_chunked import ssm_scan_chunked  # noqa: E402
 from repro.kernels.ssm_scan import ssm_scan as pallas_ssm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ssm_scan,
+    ssm_scan_plain,
+    ssm_scan_ref,
+    ssm_scan_split_plain,
+)
 
 Y_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -127,3 +140,50 @@ def test_plain_reads_strided_operands():
     got = ssm_scan_plain(xs.view(B, T, H, P), dt, A, Bs, Cs, D)
     want = ssm_scan_plain(x, dt, A, Bm, Cm, D)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+SPLIT_CASES = CASES + [(1, 150, 2, 64, 64)]  # the route's own (P, N), off the 64-step chunk
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero_state", "state0"])
+@pytest.mark.parametrize("shape", SPLIT_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_split_model_matches_reference(shape, with_state):
+    """The tensor-core route's model (bf16 operands, as the route takes them)
+    against the oracle, the Pallas kernel in interpret mode and
+    `ssm_scan_chunked`, at the reference's bf16 and state tolerances."""
+    *arrays, s0 = _inputs(shape, seed=3)
+    (jx, *jrest), (tx, *trest) = _both(arrays, "bfloat16")
+    js0, ts0 = (jnp.asarray(s0), torch.from_numpy(s0)) if with_state else (None, None)
+    y, h = ssm_scan_split_plain(tx, *trest, ts0)
+    assert y.shape == tx.shape and y.dtype == tx.dtype and h.dtype == torch.float32
+    for wy, wh, against in ((*ref.ssm_scan(jx, *jrest, state0=js0), "ref.ssm_scan"),
+                            (*pallas_ssm(jx, *jrest, state0=js0, block_t=32, interpret=True),
+                             "the Pallas kernel"),
+                            (*ssm_scan_chunked(jx, *jrest, state0=js0), "ssm_scan_chunked")):
+        msg = f"ssm_scan_split_plain against {against}"
+        np.testing.assert_allclose(_np(y), _np(wy), **Y_TOL["bfloat16"], err_msg=msg)
+        np.testing.assert_allclose(h.numpy(), np.asarray(wh), **STATE_TOL, err_msg=msg)
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["init_decay", "strong_decay"])
+def test_split_model_keeps_float32_accuracy(strong):
+    """The split leaves the state within 2e-5 of the plain version's (relative
+    L2) and finite under strong decay; dropping the low parts (the route's
+    planted fault) moves it past the 1e-3 state tolerance."""
+    *arrays, s0 = _inputs((1, 256, 4, 64, 64), strong=strong, seed=4)
+    _, t = _both(arrays, "bfloat16")
+    ts0 = torch.from_numpy(s0)
+    y_p, h_p = ssm_scan_plain(*t, ts0)
+    y, h = ssm_scan_split_plain(*t, ts0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    assert _rel(h, h_p) <= 2e-5
+    torch.testing.assert_close(h, h_p, **STATE_TOL)
+    _, h_fault = ssm_scan_split_plain(*t, ts0, drop_low=True)
+    assert _rel(h_fault, h_p) > 1e-4
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(h_fault, h_p, **STATE_TOL)
