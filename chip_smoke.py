@@ -5,8 +5,9 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives five paths of the port: the paper's fused sweep (K1, K2),
-dense-transformer serving on Llama-3.2-3B (K4, K5), hybrid serving on
+It drives six paths of the port: the paper's fused sweep (K1, K2), the
+engine's registry and sequential substrates (no kernel), dense-transformer
+serving on Llama-3.2-3B (K4, K5), hybrid serving on
 Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7) and DeepSVRP
 training on Qwen2-1.5B (K3, K4, K4b).
 Phases, each printed as one JSON line:
@@ -40,7 +41,23 @@ Phases, each printed as one JSON line:
    within rtol 1e-9;
 4. profile — the first 20 rounds of each sweep again under torch.profiler:
    host wall time, device busy time and idle share, the top kernels;
-5. attention parity — K4 (flash attention) and K5 (decode attention) against
+5. engine — the registry and sequential substrates, which launch none of
+   the sweep kernels (counted: every count must stay 0): the quickstart
+   twin (examples/quickstart_torch.py) at its full horizons (SVRP 4000,
+   SVRG and SGD 40,000 rounds; SVRP's final dist_sq <= 1e-28 and SVRG's
+   comm to 1e-10 more than 10x SVRP's); `run_batch(fused=False)` with 8
+   seeds for every ported algorithm on the Figure-1 quadratic (sppm, svrp,
+   minibatch and Catalyst with the exact, spectral and gd solvers; sgd,
+   svrg, scaffold; dane and acc_extragradient over 8 values of theta, being
+   deterministic) and svrp with newton on the Figure-2 logistic, each
+   timed (rounds/s); each sweep's first 20 rounds replayed on the CPU with
+   the same draws (comm equal, dist_sq within rtol 1e-9); `run_sequential`
+   against the lane batch for the exact-solver and baseline sweeps
+   (ENGINE_PATH_TOL); the fused path (K1's loop form, 400 launches)
+   against the registry gd path for svrp (ENGINE_FUSED_RTOL); a planted
+   fault, a refresh that keeps the stale anchor gradient, which the CPU
+   replay check must reject; and svrp (exact, newton) under the profiler;
+6. attention parity — K4 (flash attention) and K5 (decode attention) against
    their plain versions at the serving path's shapes (K4: Llama prefill,
    bf16 and float32, causal; and small sliding-window, non-causal and head
    dim 80 / 64 cases, each with the route it took: wgmma + TMA for bf16 at
@@ -51,7 +68,7 @@ Phases, each printed as one JSON line:
    faults must fail), timed with CUDA events beside the bound, the plain
    version and one `scaled_dot_product_attention` call (the yardstick; the
    port never calls it);
-6. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
+7. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
    0 on the card: `make_prefill_step` on 4 x 2048 tokens and
    `BatchServer(max_batch=8, cache_len=1024).generate` on 8 ragged prompts
    (128-512 tokens) with 64 greedy tokens each.  The K4 / K5 counts are
@@ -60,9 +77,9 @@ Phases, each printed as one JSON line:
    with the plain attention on the card (the decode teacher-forced on the
    served tokens) and every step's logits compared (SERVE_REL_TOL), and with
    a planted attention fault, which must exceed that limit;
-7. serving profile — one prefill call and 16 decode steps under
+8. serving profile — one prefill call and 16 decode steps under
    torch.profiler;
-8. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
+9. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
    prefill shape (B 4, T 2048, 80 heads, P 64, N 64; x, B and C as column
    views of one tensor, as the model hands them) in bf16 (the tensor-core
    route) and float32 (the FMA route), timed beside its bound and the plain
@@ -76,7 +93,7 @@ Phases, each printed as one JSON line:
    a float64 recurrence (see k6_verdict); two planted faults must fail: the
    state not carried across chunks, and (bf16) the tensor-core route
    leaving out the low bf16 parts of its split operands;
-9. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
+10. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
    seed 0 on the card with LoRA b, conv_b and D randomised (zeros and ones at
    init hide a wrong wiring): `make_prefill_step` on 4 x 2048 tokens (K6 45
    times and K4 9 times a call) and `BatchServer(max_batch=8,
@@ -87,15 +104,15 @@ Phases, each printed as one JSON line:
    same weights in float32 (HYBRID_F32_REL_TOL), where the fault must
    exceed the limit; the decode is replayed teacher-forced with the plain
    attention, and with a planted K5 fault;
-10. hybrid profile — one prefill call and 16 decode steps under
+11. hybrid profile — one prefill call and 16 decode steps under
    torch.profiler;
-11. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
+12. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
    against teacher-forced decode (K5) at the last of 200 tokens
    (RECURRENT_PATHS_REL_TOL), and the planted K6 fault beyond it.  Phases
    9-11 and 13-15 run the same functions (phase_recurrent_serving,
    phase_serving_profile, phase_recurrent_paths) on each family's record
    (HYBRID_FAMILY, RWKV_FAMILY);
-12. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
+13. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
    rwkv6-1.6b's prefill shape (B 4, T 2048, 32 heads, K = V = 64) and decode
    shape (B 8, T 1, the state written over state0 as decode runs it) in
    bf16 and float32, timed beside the bound and the plain version (at
@@ -107,7 +124,7 @@ Phases, each printed as one JSON line:
    and a float64 recurrence (see k7_verdict).  Three planted faults must
    fail: the state not carried across tiles, the bonus u dropped, state0
    ignored;
-13. rwkv serving — rwkv6-1.6b at full width and depth in bf16
+14. rwkv serving — rwkv6-1.6b at full width and depth in bf16
    (1,583,941,632 parameters), weights from seed 0 on the card with w0,
    w_b and u randomised (at init the decay is nearly one constant):
    `make_prefill_step` on 4 x 2048 tokens (K7 24 times a call) and
@@ -119,12 +136,12 @@ Phases, each printed as one JSON line:
    the same weights in float32 (RWKV_F32_REL_TOL); the fault must exceed
    both limits; the decode is replayed teacher-forced with the plain scan,
    and with K7 ignoring state0, which must exceed SERVE_REL_TOL;
-14. rwkv profile — one prefill call and 16 decode steps under
+15. rwkv profile — one prefill call and 16 decode steps under
    torch.profiler;
-15. rwkv paths — the reduced rwkv6 in float32: the prefill step against
+16. rwkv paths — the reduced rwkv6 in float32: the prefill step against
    teacher-forced decode at the last of 200 tokens (RECURRENT_PATHS_REL_TOL),
    and the planted no-carry fault beyond it;
-16. train parity — K3 (the DeepSVRP tree step) over the whole bf16
+17. train parity — K3 (the DeepSVRP tree step) over the whole bf16
    Qwen2-1.5B tree in one launch and over small f32 / f64 trees; K4's output
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
@@ -136,24 +153,24 @@ Phases, each printed as one JSON line:
    for bit, dQ's spread in relative L2); two planted K4b faults must fail
    the check: the first 64-key tile skipped, and one query head of each
    group left out of dK and dV (the wgmma route's group sum);
-17. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
+18. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
    bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
    from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
    K = 4, eta 1.0, local_lr 0.1, 3 rounds with the coins [1, 0, 1]; the
    counts are zeroed before and read after: K3 C K a round, K4 and K4b one
    a layer in each of the round's C (1 + K) + C refresh forward and
    backward passes; the loss finite;
-18. train replay — round 1 again from the same state with the plain K3 and
+19. train replay — round 1 again from the same state with the plain K3 and
    the plain attention forward and backward on the card, compared with the
    kernels' run where both runs share a point: the cohort-mean gradient at
    x0 and the loss there (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL) and the
    round's update x' - x0 (TRAIN_UPDATE_REL_TOL); two planted faults (K4b
    skipping its first key tile, K3 with inv_eta 0) must exceed them;
-19. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
+20. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
-20. train profile — one plain round under torch.profiler;
-21. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
+21. train profile — one plain round under torch.profiler;
+22. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
    the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
@@ -198,6 +215,21 @@ K5_BF16_SCALED = 2.0**-7
 K5_STREAM_ROWS, K5_STREAMS = 4, 16
 CPU_REPLAY_ROUNDS = 20
 CPU_REPLAY_RTOL = 1e-9
+# The engine path (run_batch(fused=False), run_sequential): 8 trials a
+# sweep; the quickstart twin's gates (examples/quickstart.py's claim: SVRP
+# at machine precision, SVRG's comm to 1e-10 over 10x SVRP's);
+# run_sequential against the lane batch
+# at the CPU tests' per-solver tolerances (tests/test_torch_registry.py);
+# the fused path (K1's loop form) against the registry gd path; the planted
+# stale-refresh fault's refresh probability (p = 1/M would rarely refresh in
+# CPU_REPLAY_ROUNDS rounds).
+ENGINE_SEEDS = 8
+QUICKSTART_SVRP_MAX = 1e-28
+QUICKSTART_RATIO = 10.0
+ENGINE_PATH_TOL = {"exact": dict(rtol=1e-6, atol=1e-24), "gd": dict(rtol=1e-6, atol=1e-24),
+                   "spectral": dict(rtol=1e-4, atol=1e-20), "newton": dict(rtol=1e-4, atol=1e-20)}
+ENGINE_FUSED_RTOL = 1e-9
+ENGINE_FAULT_P = 0.25
 # Serving: kernel run against the plain-attention replay, per step, as
 # ||logits - plain||_2 / ||plain||_2.  Both runs are bf16 and differ only in
 # the attention arithmetic (K4 rounds P to bf16 before P V; K5 sums in
@@ -374,7 +406,7 @@ TRAIN_KERNELS = ("prox_update", "flash_attention", "flash_attention_bwd")
 HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
 SWEEP_KERNELS = ("quadratic_prox_gd_batched", "prox_update_batched", "logistic_prox_gd_batched")
-PATHS = ("sweep", "serving", "hybrid", "ssm", "training")
+PATHS = ("sweep", "engine", "serving", "hybrid", "ssm", "training")
 
 
 def _wrapper(name):
@@ -437,17 +469,22 @@ def sweeps(qprob, lprob, l_star):
 
 
 def sweep_draws(kw, M: int):
-    """Native draws for a sweep (seed-major trials, as `with_seeds` orders them)."""
+    """Native draws for a sweep (seed-major trials, as `with_seeds` orders
+    them); None for a deterministic algorithm."""
     import numpy as np
 
     from repro_torch.core import draw_schedule
+    from repro_torch.experiments import ALGOS
     from repro_torch.experiments.grid import grid_size
 
+    if ALGOS[kw["algo"]].deterministic:
+        return None
     seeds = np.repeat(np.arange(kw["seeds"]), grid_size(kw["grid"]))
     p = kw["grid"].get("p")
     if kw["algo"] == "catalyzed_svrp":
         return draw_schedule(seeds, M, kw["inner_steps"], p, num_outer=kw["num_outer"])
-    return draw_schedule(seeds, M, kw["num_steps"], p, batch_clients=kw.get("batch_clients"))
+    rounds = kw["num_steps"] if "num_steps" in kw else kw["num_rounds"]
+    return draw_schedule(seeds, M, rounds, p, batch_clients=kw.get("batch_clients"))
 
 
 def replay_head(kw, draws):
@@ -459,7 +496,9 @@ def replay_head(kw, draws):
     if kw["algo"] == "catalyzed_svrp":
         kw.update(num_outer=1, inner_steps=k)
         return kw, Draws(draws.clients[:1, :k].cpu(), draws.coins[:1, :k].cpu())
-    kw["num_steps"] = k
+    kw["num_steps" if "num_steps" in kw else "num_rounds"] = k
+    if draws is None:
+        return kw, None
     coins = None if draws.coins is None else draws.coins[:k].cpu()
     return kw, Draws(draws.clients[:k].cpu(), coins)
 
@@ -783,6 +822,245 @@ def phase_cpu_replay(runs, cpu_problems) -> None:
         emit({"phase": "cpu_replay", "sweep": label, "rounds": k, "comm_equal": True,
               "dist_sq_max_rel_diff": rel, "rtol": CPU_REPLAY_RTOL,
               "cpu_s": time.perf_counter() - t0})
+
+
+# ---------------------------------------------- engine (registry, sequential)
+def engine_sweeps(qprob, lprob, l_star):
+    """The engine path's sweeps, ``run_batch(fused=False)``: every ported
+    algorithm on the Figure-1 quadratic (the rounds-defined ones and Catalyst
+    with the exact, spectral and gd solvers), svrp with newton on the
+    Figure-2 logistic.  (label, problem kind, solver, run_batch kwargs)."""
+    from repro_torch.core import theorem2_stepsize, theorem3_gamma
+
+    M = qprob.num_clients
+    mu, delta = float(qprob.strong_convexity()), float(qprob.similarity())
+    dmax, L = float(qprob.similarity_max()), float(qprob.smoothness_max())
+    eta = theorem2_stepsize(mu, delta)
+    gamma = max(theorem3_gamma(mu, delta, M), 1.0)
+    eta_in = theorem2_stepsize(mu + gamma, delta)
+    seeds = dict(seeds=ENGINE_SEEDS)
+    plan = []
+    for solver in ("exact", "spectral", "gd"):
+        gd = solver == "gd"
+        sk = dict(prox_solver=solver, **(dict(prox_steps=200) if gd else {}))
+        smooth = {"smoothness": L} if gd else {}
+        rounds = dict(
+            sppm=dict(grid={"eta": [eta, eta / 2], **smooth}, num_steps=200),
+            svrp=dict(grid={"eta": [eta, eta / 2], "p": 1.0 / M, **smooth}, num_steps=400),
+            svrp_minibatch=dict(grid={"eta": [eta, eta / 2], "p": 1.0 / M, **smooth},
+                                num_steps=150, batch_clients=4),
+            catalyzed_svrp=dict(grid={"mu": mu, "gamma": gamma, "eta": eta_in, "p": 1.0 / M,
+                                      **({"smoothness": L + gamma} if gd else {})},
+                                num_outer=3, inner_steps=60),
+        )
+        for algo, kw in rounds.items():
+            plan.append((f"{algo}/{solver}/fig1_quadratic", "quadratic", solver,
+                         dict(algo=algo, **kw, **sk, **seeds)))
+    # The baselines at the quickstart's stepsizes; dane and acc_extragradient
+    # are deterministic (one seed), so their 8 trials are 8 values of theta.
+    thetas = [dmax * f for f in (1.0, 1.25, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0)]
+    for algo, kw in (
+        ("sgd", dict(grid={"stepsize": 1 / (2 * L)}, num_steps=2000, **seeds)),
+        ("svrg", dict(grid={"stepsize": 1 / (6 * L), "p": 1.0 / M}, num_steps=2000, **seeds)),
+        ("scaffold", dict(grid={"local_lr": 1 / (4 * L)}, num_rounds=2000, local_steps=4,
+                          **seeds)),
+        ("dane", dict(grid={"theta": thetas}, num_rounds=40)),
+        ("acc_extragradient", dict(grid={"theta": thetas, "mu": mu}, num_rounds=40)),
+    ):
+        plan.append((f"{algo}/fig1_quadratic", "quadratic", "exact", dict(algo=algo, **kw)))
+    lmu = float(lprob.strong_convexity())
+    leta = theorem2_stepsize(lmu, float(lprob.similarity_at(l_star)))
+    plan.append(("svrp/newton/fig2_logistic", "logistic", "newton", dict(
+        algo="svrp", grid={"eta": [leta, leta / 2], "p": 1.0 / lprob.num_clients},
+        num_steps=100, prox_solver="newton", **seeds)))
+    return plan
+
+
+def _run(entry, problem, kw, draws, x_star, **extra):
+    """One engine run, timed on the host clock ending in a synchronise."""
+    return _timed(lambda: entry(kw["algo"], problem, x_star=x_star, draws=draws, **extra,
+                                **{k: v for k, v in kw.items() if k != "algo"}))
+
+
+def traj_gap(a, b, tol, k: int | None = None) -> tuple[bool, float]:
+    """(comm equal and dist_sq within ``tol``, the largest relative gap of
+    dist_sq above tol's floor) between two runs' (B, K) trajectories, over
+    their first ``k`` rounds when given."""
+    import numpy as np
+
+    k = a.dist_sq.shape[1] if k is None else k
+    ca, cb = a.comm[:, :k].cpu().numpy(), b.comm[:, :k].cpu().numpy()
+    da, db = a.dist_sq[:, :k].cpu().numpy(), b.dist_sq[:, :k].cpu().numpy()
+    rel = float(np.max(np.abs(da - db) / np.maximum(np.abs(db), tol["atol"])))
+    ok = (ca.dtype == cb.dtype and np.array_equal(ca, cb)
+          and np.allclose(da, db, rtol=tol["rtol"], atol=tol["atol"]))
+    return ok, rel
+
+
+def phase_engine(qprob, lprob, l_star, cpu_problems) -> None:
+    """The engine path: the quickstart at full horizon, every ported
+    algorithm's ``run_batch(fused=False)`` sweep, each against a CPU run of
+    the first rounds and against `run_sequential`, the registry against the
+    fused path for svrp/gd, and a planted stale-refresh fault."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import rounds as rounds_mod
+    from repro_torch.experiments import run_batch, run_sequential
+
+    # 1. The quickstart twin (examples/quickstart_torch.py) at its full
+    # horizons, each driver timed alone; no sweep kernel may launch.
+    qs = _load_example("quickstart_torch")
+    zero_launch_counts(SWEEP_KERNELS)
+    res = {}
+    for name, fn in qs.drivers(qs.make_problem("cuda")).items():
+        res[name], secs = _timed(fn)
+        horizon = qs.HORIZONS[name]
+        emit({"phase": "engine_rate", "run": f"quickstart {name}", "substrate": "sequential",
+              "trials": 1, "rounds": horizon, "wall_s": secs, "rounds_per_s": horizon / secs})
+    c2a = {name: float(r.comm_to_accuracy(qs.EPS)) for name, r in res.items()}
+    final = {name: float(r.dist_sq[-1]) for name, r in res.items()}
+    launched = launch_counts(SWEEP_KERNELS)
+    emit({"phase": "engine_quickstart", "horizons": qs.HORIZONS, "final_dist_sq": final,
+          "comm_to_1e-10": c2a, "launches": launched})
+    check(not any(launched.values()), f"quickstart launched sweep kernels: {launched}")
+    check(final["SVRP"] <= QUICKSTART_SVRP_MAX,
+          f"quickstart: SVRP's final dist_sq {final['SVRP']} > {QUICKSTART_SVRP_MAX}")
+    check(np.isfinite(c2a["SVRP"]) and c2a["SVRG"] > QUICKSTART_RATIO * c2a["SVRP"],
+          f"quickstart: SVRG's comm to 1e-10 {c2a['SVRG']} is not > {QUICKSTART_RATIO} x "
+          f"SVRP's {c2a['SVRP']}")
+
+    # 2. Every ported algorithm's registry sweep; no sweep kernel may launch.
+    plan = engine_sweeps(qprob, lprob, l_star)
+    problems = {"quadratic": qprob, "logistic": lprob}
+    stars = {"quadratic": qprob.minimizer(), "logistic": l_star}
+    runs = {}
+    zero_launch_counts(SWEEP_KERNELS)
+    for label, kind, solver, kw in plan:
+        problem, x_star = problems[kind], stars[kind]
+        draws = sweep_draws(kw, problem.num_clients)
+        res, wall = _run(run_batch, problem, kw, draws, x_star)
+        d2 = res.dist_sq.cpu().numpy()
+        K = d2.shape[1]
+        r0 = float((x_star ** 2).sum())
+        check(np.isfinite(d2).all() and res.x_final.shape == (d2.shape[0], problem.dim),
+              f"{label}: non-finite dist_sq or wrong shapes")
+        # SPPM and SGD at a constant stepsize converge to a neighbourhood of
+        # x_* (Theorem 1; SGD's noise ball), here wider than ||x0 - x_*||^2.
+        check(kw["algo"] in ("sppm", "sgd") or float(np.median(d2[:, -1])) < r0,
+              f"{label}: the median trial did not descend")
+        runs[label] = (kind, solver, kw, draws, x_star, res)
+        emit({"phase": "engine_rate", "run": label, "substrate": "registry",
+              "trials": res.num_trials, "rounds": K, "wall_s": wall, "rounds_per_s": K / wall,
+              "trial_rounds_per_s": K * res.num_trials / wall,
+              "dist_sq_final_median": float(np.median(d2[:, -1])), "dist_sq_initial": r0})
+    registry_launches = launch_counts(SWEEP_KERNELS)
+    check(not any(registry_launches.values()),
+          f"the registry path launched sweep kernels: {registry_launches}")
+
+    # 3. Each sweep's first rounds on the CPU (plain PyTorch), the same draws.
+    for label, (kind, solver, kw, draws, x_star, res) in runs.items():
+        kw_c, draws_c = replay_head(kw, draws)
+        t0 = time.perf_counter()
+        res_c = run_batch(kw_c["algo"], cpu_problems[kind], x_star=x_star.cpu(), draws=draws_c,
+                          device="cpu", **{k: v for k, v in kw_c.items() if k != "algo"})
+        k = res_c.dist_sq.shape[1]
+        ok, rel = traj_gap(res, res_c, dict(rtol=CPU_REPLAY_RTOL, atol=0.0), k)
+        emit({"phase": "engine_cpu_replay", "run": label, "rounds": k, "comm_equal": ok,
+              "dist_sq_max_rel_diff": rel, "rtol": CPU_REPLAY_RTOL,
+              "cpu_s": time.perf_counter() - t0})
+        check(ok, f"{label}: the card's first {k} rounds differ from the CPU run "
+                  f"(comm or dist_sq beyond rtol {CPU_REPLAY_RTOL}: {rel})")
+
+    # 4. run_sequential, one driver call a trial, against the lane batch.
+    for label, (kind, solver, kw, draws, x_star, res) in runs.items():
+        if solver != "exact" or kind != "quadratic":
+            continue
+        seq, wall = _run(run_sequential, problems[kind], kw, draws, x_star)
+        ok, rel = traj_gap(seq, res, ENGINE_PATH_TOL[solver])
+        K = seq.dist_sq.shape[1]
+        emit({"phase": "engine_rate", "run": label, "substrate": "sequential",
+              "trials": seq.num_trials, "rounds": K, "wall_s": wall,
+              "rounds_per_s": K * seq.num_trials / wall,
+              "vs_registry_ok": ok, "vs_registry_max_rel_diff": rel,
+              "tol": ENGINE_PATH_TOL[solver]})
+        check(ok, f"{label}: run_sequential differs from run_batch (rel {rel})")
+
+    # 5. The fused path (K1's loop form) against the registry gd path, svrp.
+    label = "svrp/gd/fig1_quadratic"
+    kind, solver, kw, draws, x_star, res = runs[label]
+    zero_launch_counts(SWEEP_KERNELS)
+    fused, wall = _run(run_batch, qprob, kw, draws, x_star, fused=True)
+    ok, rel = traj_gap(fused, res, dict(rtol=ENGINE_FUSED_RTOL, atol=0.0))
+    head = dict(zip(("ok", "rel"), traj_gap(fused, res, dict(rtol=ENGINE_FUSED_RTOL, atol=0.0),
+                                            CPU_REPLAY_ROUNDS)))
+    K = fused.dist_sq.shape[1]
+    emit({"phase": "engine_rate", "run": label, "substrate": "fused", "trials": fused.num_trials,
+          "rounds": K, "wall_s": wall, "rounds_per_s": K / wall,
+          "vs_registry_ok": ok, "vs_registry_max_rel_diff": rel, "rtol": ENGINE_FUSED_RTOL,
+          "head_vs_registry": head, "launches": launch_counts(SWEEP_KERNELS)})
+    check(launch_counts(SWEEP_KERNELS)["quadratic_prox_gd_batched"] == K,
+          f"{label}: the fused run launched {launch_counts(SWEEP_KERNELS)}")
+    check(ok, f"{label}: the fused path differs from the registry path (rel {rel})")
+
+    # 6. Planted fault: a refresh that keeps the stale anchor gradient.
+    label = "svrp/exact/fig1_quadratic"
+    kind, solver, kw, draws, x_star, res = runs[label]
+    kw_f, draws_f = replay_head({**kw, "grid": {**kw["grid"], "p": ENGINE_FAULT_P}}, None)
+    draws_f = sweep_draws(kw_f, qprob.num_clients)
+    check(bool(draws_f.refresh.any()), "planted fault: its draws never refresh")
+    good = run_batch("svrp", cpu_problems["quadratic"], x_star=x_star.cpu(), device="cpu",
+                     draws=draws_f, **{k: v for k, v in kw_f.items() if k != "algo"})
+    refresh = rounds_mod.RoundOps.refresh_grad
+    rounds_mod.RoundOps.refresh_grad = lambda self, k, c, w_next, gbar: gbar
+    try:
+        stale, _ = _run(run_batch, qprob, kw_f, draws_f.to("cuda"), x_star)
+    finally:
+        rounds_mod.RoundOps.refresh_grad = refresh
+    ok, rel = traj_gap(stale, good, dict(rtol=CPU_REPLAY_RTOL, atol=0.0))
+    emit({"phase": "engine_fault", "run": f"{label}, p {ENGINE_FAULT_P}, {CPU_REPLAY_ROUNDS} "
+          "rounds, stale anchor gradient", "refresh_rounds": int(draws_f.refresh.sum()),
+          "rejected": not ok, "dist_sq_max_rel_diff": rel})
+    check(not ok, f"planted fault (stale refresh) passed the CPU-replay check: rel {rel}")
+
+    # 7. Where a round's time goes: registry svrp (exact, and newton on Figure 2).
+    for label in ("svrp/exact/fig1_quadratic", "svrp/newton/fig2_logistic"):
+        kind, solver, kw, draws, x_star, _ = runs[label]
+        kw_h, draws_h = replay_head(kw, draws)
+        draws_h = draws_h.to("cuda")
+
+        def run():
+            return run_batch(kw_h["algo"], problems[kind], x_star=x_star, draws=draws_h,
+                             **{k: v for k, v in kw_h.items() if k != "algo"})
+
+        wall_ms, kernels = profiled(run, 1)
+        busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        emit({"phase": "engine_profile", "run": label, "rounds": CPU_REPLAY_ROUNDS,
+              "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+              "kernel_launches": sum(c for _, c in kernels.values()),
+              "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
+                              for name, (t, c) in top]})
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # ------------------------------------------------------- attention (K4, K5)
@@ -2377,7 +2655,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "five and prints the kernels line")
+                         "six and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2409,6 +2687,12 @@ def main(argv=None) -> int:
             phase_cpu_replay(runs, {"quadratic": fig1_quadratic("cpu"),
                                     "logistic": fig2_logistic("cpu")})
             del qprob, lprob, runs
+        if run["engine"]:
+            qprob, lprob = fig1_quadratic("cuda"), fig2_logistic("cuda")
+            phase_engine(qprob, lprob, lprob.minimizer(),
+                         {"quadratic": fig1_quadratic("cpu"), "logistic": fig2_logistic("cpu")})
+            del qprob, lprob
+            torch.cuda.empty_cache()
         if run["serving"]:
             attention = phase_attention_parity()
             cfg, params, tokens, serve_launches = phase_serving()

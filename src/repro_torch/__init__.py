@@ -2,8 +2,12 @@
 
 The JAX package `repro` stays the reference; this package grows beside it,
 slice by slice, with every TPU kernel on a slice's path rewritten by hand for
-Hopper.  This slice runs the paper's fused sweep — SPPM, SVRP, minibatch SVRP
-and Catalyzed SVRP on the federated quadratic and logistic problems:
+Hopper.  It runs the paper's sweeps — SPPM, SVRP, minibatch SVRP, Catalyzed
+SVRP and the baselines — on the federated quadratic and logistic problems
+(`run_batch`: the fused path through the kernels, or by default the registry
+path with any prox solver; `run_sequential` and the ``run_*`` drivers one
+trial at a time); `repro_torch.launch` serves and trains the model zoo's
+ported families.  A fused sweep:
 
     from repro_torch.experiments import run_batch
     from repro_torch.problems import make_synthetic_quadratic

@@ -1,14 +1,21 @@
 """Algorithm 3: Catalyst acceleration wrapped around SVRP (Catalyzed SVRP).
 
-Port of `repro.core.catalyst` (params, recurrence and Theorem-3 helpers).
-Each outer step t approximately minimizes
+Port of `repro.core.catalyst`.  Each outer step t approximately minimizes
 
     h_t(x) = f(x) + gamma/2 ||x - y_{t-1}||^2
 
 with SVRP as the inner solver, then extrapolates.  Theorem 3: gamma =
-delta/sqrt(M) - mu when delta/mu >= sqrt(M), else 0.  The fused sweep runs
-the outer recurrence in `rounds._catalyzed_batched_scan`; the per-trial
-nested-scan driver waits for the sequential substrate.
+delta/sqrt(M) - mu when delta/mu >= sqrt(M), else 0.
+
+* `catalyzed_svrp_scan` — the whole method over the lanes of its draws (one
+  trial or a sweep): the outer recurrence `rounds.catalyst_stages` with each
+  stage's inner SVRP rounds on the per-lane shifted subproblem
+  (``problem.shifted_lanes``) through the registry prox solver;
+  `run_catalyzed_svrp` runs it for one trial with the proof's parameters.
+* `run_catalyst` — the generic host-side outer loop over ANY inner solver;
+  `run_catalyzed_svrp_host` runs it with `run_svrp` inside.
+
+The fused sweep runs the same recurrence in `rounds._catalyzed_batched_scan`.
 """
 from __future__ import annotations
 
@@ -16,6 +23,12 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.draws import Draws, trial_draws
+from repro_torch.core.rounds import catalyst_stages, make_registry_ops
+from repro_torch.core.svrp import SVRPParams, run_svrp, theorem2_stepsize
+from repro_torch.core.types import RunResult, scalar_hparam
+from repro_torch.device import problem_device
 
 
 class CatalyzedSVRPParams(NamedTuple):
@@ -53,3 +66,153 @@ def catalyst_inner_iterations(mu: float, delta: float, M: int, safety: float = 3
     s = (gamma + mu) ** 2
     tau = 0.5 * min(s / (delta**2 + s), 1.0 / M)
     return int(math.ceil(safety / tau))
+
+
+def catalyzed_svrp_scan(
+    problem,
+    x0: torch.Tensor,
+    x_star: torch.Tensor,
+    draws: Draws,
+    hp: CatalyzedSVRPParams,
+    *,
+    num_outer: int,
+    inner_steps: int,
+    prox_solver: str = "exact",
+    prox_steps: int = 50,
+    prox_tol: float = 1e-10,
+    channel: str | None = None,
+) -> RunResult:
+    """Catalyzed SVRP over the lanes of ``draws`` (``(T, K)`` for one trial,
+    ``(T, K, B)`` for a sweep).  Stage t solves lane s's subproblem
+    f + gamma_s/2 ||x - y_s||^2 by ``inner_steps`` SVRP rounds; distances are
+    measured to the ORIGINAL optimum.  The spectral solver's factors are the
+    base problem's, computed once here and shifted by gamma per lane."""
+    from repro_torch.core.prox import get_prox_solver
+
+    get_prox_solver(prox_solver, problem)
+    base_factors = problem.prox_factors() if prox_solver == "spectral" else None
+    lanes = draws.lanes
+    gamma = torch.as_tensor(hp.gamma, dtype=x0.dtype, device=x0.device).broadcast_to(lanes)
+    inner_hp = SVRPParams(eta=hp.eta, p=hp.p, smoothness=hp.smoothness)
+
+    def stage_ops(y_prev, stage_draws):
+        return make_registry_ops(
+            "svrp", problem.shifted_lanes(gamma, y_prev), x0, x_star, inner_hp, stage_draws,
+            prox_solver=prox_solver, prox_steps=prox_steps, prox_tol=prox_tol,
+            prox_factors=base_factors, channel=channel,
+        )
+
+    return catalyst_stages(stage_ops, x0, hp, draws, num_outer=num_outer,
+                           num_steps=inner_steps)
+
+
+def run_catalyst(
+    problem,
+    solver,
+    x0: torch.Tensor,
+    x_star: torch.Tensor,
+    *,
+    mu: float,
+    gamma: float,
+    num_outer: int,
+    draws: Draws,
+) -> RunResult:
+    """Generic Catalyst outer loop (Algorithm 3) over any inner solver.
+
+    ``solver(h_t, x_init, x_star, stage_draws) -> RunResult`` must
+    approximately minimize the shifted problem ``h_t``; stage t gets
+    ``draws.stage(t)``.  The outer loop runs on the host in floats (T is
+    small); trajectories are concatenated with cumulative comm offsets."""
+    q = mu / (mu + gamma)
+    x_prev = y_prev = x0
+    alpha_prev = math.sqrt(q)
+    comm_offset = 0
+    d2_chunks, comm_chunks = [], []
+    for t in range(num_outer):
+        h_t = problem.shifted(gamma, y_prev)
+        # Distances are always measured to the ORIGINAL optimum.
+        res = solver(h_t, x_prev, x_star, draws.stage(t))
+        x_t = res.x_final
+
+        # alpha_t solves alpha^2 = (1 - alpha) alpha_{t-1}^2 + q alpha.
+        ap2 = alpha_prev**2
+        alpha_t = 0.5 * ((q - ap2) + math.sqrt((q - ap2) ** 2 + 4.0 * ap2))
+        beta_t = alpha_prev * (1.0 - alpha_prev) / (ap2 + alpha_t)
+        y_t = x_t + beta_t * (x_t - x_prev)
+
+        d2_chunks.append(res.dist_sq)
+        comm_chunks.append(res.comm + comm_offset)
+        comm_offset = int(comm_chunks[-1][-1])
+        x_prev, y_prev, alpha_prev = x_t, y_t, alpha_t
+
+    return RunResult(dist_sq=torch.cat(d2_chunks), comm=torch.cat(comm_chunks), x_final=x_prev)
+
+
+def _proof_params(problem, mu, delta, gamma, inner_steps, p):
+    """Theorem 3's choices where the caller gave none: gamma, T_A, p = 1/M."""
+    M = problem.num_clients
+    gamma = theorem3_gamma(mu, delta, M) if gamma is None else gamma
+    inner_steps = catalyst_inner_iterations(mu, delta, M) if inner_steps is None else inner_steps
+    return gamma, inner_steps, 1.0 / M if p is None else p
+
+
+def run_catalyzed_svrp(
+    problem,
+    x0: torch.Tensor,
+    x_star: torch.Tensor,
+    *,
+    mu: float,
+    delta: float,
+    num_outer: int,
+    seed: int | None = None,
+    draws: Draws | None = None,
+    gamma: float | None = None,
+    inner_steps: int | None = None,
+    p: float | None = None,
+    device=None,
+) -> RunResult:
+    """Catalyzed SVRP — Theorem 3's method, with the proof's parameter choices:
+    gamma = delta/sqrt(M) - mu (case a) or 0 (case b), inner eta =
+    (mu+gamma)/(2 delta^2), p = 1/M, and T_A inner iterations per outer step;
+    on ``device`` (default CUDA) with a ``(T, K)`` record or ``seed``."""
+    dev = problem_device(problem, device)
+    gamma, inner_steps, p = _proof_params(problem, mu, delta, gamma, inner_steps, p)
+    eta_inner = theorem2_stepsize(mu + gamma, delta)  # eta = (mu+gamma)/(2 delta^2)
+    hp = CatalyzedSVRPParams(mu=scalar_hparam(mu, dev), gamma=scalar_hparam(gamma, dev),
+                             eta=scalar_hparam(eta_inner, dev), p=scalar_hparam(p, dev),
+                             smoothness=scalar_hparam(0.0, dev))
+    draws = trial_draws(draws, seed, problem.num_clients, inner_steps, p,
+                        num_outer=num_outer, device=dev)
+    return catalyzed_svrp_scan(problem, x0, x_star, draws, hp, num_outer=num_outer,
+                               inner_steps=inner_steps)
+
+
+def run_catalyzed_svrp_host(
+    problem,
+    x0: torch.Tensor,
+    x_star: torch.Tensor,
+    *,
+    mu: float,
+    delta: float,
+    num_outer: int,
+    seed: int | None = None,
+    draws: Draws | None = None,
+    gamma: float | None = None,
+    inner_steps: int | None = None,
+    p: float | None = None,
+    device=None,
+) -> RunResult:
+    """The host-loop implementation (`run_catalyst` over `run_svrp`), kept
+    for equivalence testing against `catalyzed_svrp_scan`."""
+    dev = problem_device(problem, device)
+    gamma, inner_steps, p = _proof_params(problem, mu, delta, gamma, inner_steps, p)
+    eta_inner = theorem2_stepsize(mu + gamma, delta)
+    draws = trial_draws(draws, seed, problem.num_clients, inner_steps, p,
+                        num_outer=num_outer, device=dev)
+
+    def solver(h_t, x_init, x_star_, stage_draws):
+        return run_svrp(h_t, x_init, x_star_, eta=eta_inner, p=p, num_steps=inner_steps,
+                        draws=stage_draws, device=dev)
+
+    return run_catalyst(problem, solver, x0, x_star, mu=mu, gamma=gamma,
+                        num_outer=num_outer, draws=draws)

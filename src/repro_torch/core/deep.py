@@ -102,13 +102,13 @@ def deep_svrp_round(loss_fn: Callable[[PyTree, Any], torch.Tensor], state: DeepS
 
 
 def deep_svrp_scan(*args, **kwargs):
-    raise NotImplementedError("deep_svrp_scan is not ported yet: it needs the registry "
-                              "substrate (ROADMAP §1)")
+    raise NotImplementedError("deep_svrp_scan is not ported yet: it needs problems/fed_lm.py "
+                              "and the deep_svrp round (ROADMAP §1 item 2)")
 
 
 def run_deep_svrp(*args, **kwargs):
-    raise NotImplementedError("run_deep_svrp is not ported yet: it needs the registry "
-                              "substrate (ROADMAP §1)")
+    raise NotImplementedError("run_deep_svrp is not ported yet: it needs problems/fed_lm.py "
+                              "and the deep_svrp round (ROADMAP §1 item 2)")
 
 
 # ----------------------------------------------------------------- baselines

@@ -12,6 +12,13 @@ round layer reads the same decisions from a `Draws` record instead:
 * ``coins``: ``(K, B)`` (or ``(T, K, B)``) bool anchor-refresh coins, None for
   sppm, which never refreshes.
 
+The baselines follow the same two patterns: sgd and scaffold draw one client a
+round (as sppm), svrg a client and a coin (as svrp); dane and
+acc_extragradient draw nothing.  One trial's record (``batched=False``) has
+no trial axis: ``(K,)`` clients and coins, ``(K, b)`` cohorts, ``(T, K)`` for
+Catalyst; the per-trial drivers take one, or a batched record of one trial,
+or a seed (`trial_draws`).
+
 A record replayed from the reference's keys (the tests build one) makes the
 port's ``comm`` integer-equal to the reference's.  `draw_schedule` draws one
 natively: one `torch.Generator` per trial, seeded with the trial's seed, so
@@ -34,24 +41,39 @@ class Draws:
     coins: torch.Tensor | None = None  # (K, B) bool; Catalyst (T, K, B); None for sppm
     # Host (K,) / (T, K) mask: does any trial refresh its anchor at that round?
     refresh: np.ndarray | None = None
+    batched: bool = True  # False: one trial's record, without the trial axis
 
     def __post_init__(self):
         if self.coins is not None and self.refresh is None:
-            object.__setattr__(self, "refresh", self.coins.any(dim=-1).cpu().numpy())
+            mask = self.coins.any(dim=-1) if self.batched else self.coins
+            object.__setattr__(self, "refresh", mask.cpu().numpy())
 
     @property
     def num_trials(self) -> int:
+        if not self.batched:
+            return 1
         return (self.coins if self.coins is not None else self.clients).shape[-1]
+
+    @property
+    def lanes(self) -> tuple:
+        """The state's trial axes: ``(B,)`` for a batched record, ``()`` for one trial."""
+        return (self.num_trials,) if self.batched else ()
 
     def to(self, device) -> "Draws":
         coins = None if self.coins is None else self.coins.to(device)
-        return Draws(self.clients.to(device), coins, self.refresh)
+        return Draws(self.clients.to(device), coins, self.refresh, self.batched)
 
     def stage(self, t: int) -> "Draws":
-        """Catalyst's outer stage t as a plain ``(K, B)`` record."""
+        """Catalyst's outer stage t as a plain ``(K, B)`` (or ``(K,)``) record."""
         coins = None if self.coins is None else self.coins[t]
         refresh = None if self.refresh is None else self.refresh[t]
-        return Draws(self.clients[t], coins, refresh)
+        return Draws(self.clients[t], coins, refresh, self.batched)
+
+    def trial(self, i: int) -> "Draws":
+        """Trial ``i`` of a batched record, as one trial's record."""
+        axis = (self.coins if self.coins is not None else self.clients).ndim - 1
+        coins = None if self.coins is None else self.coins.select(axis, i)
+        return Draws(self.clients.select(axis, i), coins, batched=False)
 
 
 def draw_schedule(
@@ -88,4 +110,50 @@ def draw_schedule(
         torch.stack(clients, dim=axis),
         None if probs is None else torch.stack(coins, dim=axis),
     )
+    return draws if device is None else draws.to(device)
+
+
+def trial_draws(
+    draws: Draws | None,
+    seed: int | None,
+    num_clients: int,
+    num_steps: int,
+    p=None,
+    *,
+    batch_clients: int | None = None,
+    num_outer: int | None = None,
+    device=None,
+) -> Draws:
+    """One trial's record for a per-trial driver, on ``device``.
+
+    ``draws`` may hold one trial's shapes — ``(K,)`` clients (``(K, b)``
+    cohorts; Catalyst ``(T, K)``) and coins of the lead shape — or a batched
+    record of one trial; when it is None, `draw_schedule` draws the record
+    from ``seed``.  Client indices are checked against ``[0, num_clients)``
+    here, once, on the host."""
+    lead = (num_steps,) if num_outer is None else (num_outer, num_steps)
+    cohort = () if batch_clients is None else (batch_clients,)
+    if draws is None:
+        if seed is None:
+            raise ValueError("pass draws= (a per-trial record) or seed= to draw one")
+        draws = draw_schedule([seed], num_clients, num_steps, p,
+                              batch_clients=batch_clients, num_outer=num_outer).trial(0)
+    elif draws.batched and tuple(draws.clients.shape) == lead + (1,) + cohort:
+        draws = draws.trial(0)
+    elif tuple(draws.clients.shape) == lead + cohort:
+        if draws.batched:
+            draws = Draws(draws.clients, draws.coins, batched=False)
+    else:
+        raise ValueError(
+            f"the draws have clients {tuple(draws.clients.shape)}; this run needs "
+            f"{lead + cohort} (or {lead + (1,) + cohort})"
+        )
+    coins_shape = None if draws.coins is None else tuple(draws.coins.shape)
+    if coins_shape != (None if p is None else lead):
+        raise ValueError(f"the draws have coins {coins_shape}; this run needs "
+                         f"{None if p is None else lead}")
+    if draws.clients.numel():
+        lo, hi = (int(v) for v in torch.aminmax(draws.clients))
+        if lo < 0 or hi >= num_clients:
+            raise ValueError(f"the draws' clients span [{lo}, {hi}], outside [0, {num_clients})")
     return draws if device is None else draws.to(device)

@@ -26,7 +26,7 @@ spectral    ``.prox_spectral``       hoisted eigendecomposition; QUADRATIC-ONLY
 gd          ``.grad`` + smoothness   Algorithm 7 at stepsize 1/(L + 1/eta)
 newton      ``.hessian``             damped Newton + backtracking + early exit
 newton-cg   ``.grad``                inexact Newton, CG on Hessian-vector
-                                     products from `torch.func.linearize`
+                                     products by `torch.func.jvp`
 ==========  =======================  ==========================================
 """
 from __future__ import annotations
@@ -67,12 +67,19 @@ def prox_gd(
     y0: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Algorithm 7: gradient descent on  phi(y) = h(y) + ||y - z||^2 / (2 eta)
-    at the theory stepsize beta = 1/(L + 1/eta), for a static step count."""
-    beta = 1.0 / (L + 1.0 / eta)
+    at the theory stepsize beta = 1/(L + 1/eta), for a static step count.
+    ``eta`` and ``L`` are floats or per-lane ``S`` tensors for ``S + (d,)`` rows."""
+    beta = _lane_of(1.0 / (L + 1.0 / eta))
+    eta = _lane_of(eta)
     y = z if y0 is None else y0
     for _ in range(num_steps):
         y = y - beta * (grad_fn(y) + (y - z) / eta)
     return y
+
+
+def _lane_of(v):
+    """A float stays; a per-lane tensor becomes a multiplier for rows."""
+    return _lane(v) if isinstance(v, torch.Tensor) else v
 
 
 def gd_row_scalars(z: torch.Tensor, eta, L) -> tuple[torch.Tensor, torch.Tensor]:
@@ -217,10 +224,12 @@ def prox_newton_cg(
     """Inexact Newton on phi via CG over Hessian-VECTOR products.
 
     The Newton system (H_h + I/eta) d = -g is solved by CG to the
-    Eisenstat–Walker forcing tolerance min(0.5, sqrt(||g||)) ||g||, with hvps
-    from `torch.func.linearize(grad_fn, y)` (the primal is linearized once
-    per outer step, so each CG iteration is one jvp).  Each outer step passes
-    the same backtracking guard as `prox_newton`."""
+    Eisenstat–Walker forcing tolerance min(0.5, sqrt(||g||)) ||g||, with each
+    hvp one forward-mode `torch.func.jvp` of grad_fn at y (the reference
+    linearizes once per outer step; `torch.func.linearize` traces grad_fn
+    anew on every call, which costs far more than the primal each jvp
+    repeats).  Each outer step passes the same backtracking guard as
+    `prox_newton`."""
     y = z if y0 is None else y0
     inv_eta = 1.0 / torch.as_tensor(eta, dtype=z.dtype, device=z.device)
 
@@ -228,10 +237,8 @@ def prox_newton_cg(
         return grad_fn(v) + (v - z) * _lane(inv_eta)
 
     def cg_solve(y, g, gnorm):
-        _, jvp_fn = torch.func.linearize(grad_fn, y)
-
         def hvp(v):
-            return jvp_fn(v) + v * _lane(inv_eta)
+            return torch.func.jvp(grad_fn, (y,), (v,))[1] + v * _lane(inv_eta)
 
         target = torch.clamp(torch.sqrt(gnorm), max=0.5) * gnorm
         d = torch.zeros_like(g)

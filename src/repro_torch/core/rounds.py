@@ -1,7 +1,7 @@
-"""Round-step substrate layer: every algorithm defined ONCE, run on the fused substrate.
+"""Round-step substrate layer: every algorithm defined ONCE, run on three substrates.
 
-Port of `repro.core.rounds`, fused substrate only.  Each algorithm of the
-SPPM/SVRP family is one ``RoundDef``:
+Port of `repro.core.rounds`.  Each algorithm of the SPPM/SVRP family is one
+``RoundDef``:
 
 * ``init(ops, x0) -> state``          — round-0 state (iterate, anchor,
   cached anchor gradient, communication counter, channel state);
@@ -9,21 +9,43 @@ SPPM/SVRP family is one ``RoundDef``:
   ``k``, written against the sampling / prox-oracle / anchor interface
   ``RoundOps``.
 
-``RoundOps`` here is the reference's BATCHED substrate: ``(B, d)`` state for a
-whole sweep, with the Algorithm-7 local solves routed through the batched
-Hopper kernels (`kernels.quadratic_prox_gd_batched` for quadratic problems,
-`kernels.logistic_prox_gd_indexed` for logistic ones, each a whole solve in
-one launch, and `kernels.prox_update_batched` a launch per GD step for
-Catalyst).  Where the
-reference draws from PRNG keys inside the round, the port reads round ``k``
-of a `core.draws.Draws` record.
+``RoundOps`` works over LANES: state is ``S + (d,)`` with ``S = ()`` for one
+trial (the reference's ``batched=False``) or ``S = (B,)`` for a sweep, and
+the same round code serves both.  Where the reference draws from PRNG keys
+inside the round, the port reads round ``k`` of a `core.draws.Draws` record
+(one trial's record for ``S = ()``).  Three substrates bind it:
+
+==========  ================================================================
+substrate   execution
+==========  ================================================================
+sequential  one trial, ``S = ()``: the ``*_scan`` drivers of
+            ``core/sppm.py``, ``core/svrp.py`` and ``core/minibatch.py``
+            through `make_registry_ops` and the registry prox solver.
+registry    the engine's default (``run_batch(fused=False)``): the same
+            binding over ``S = (B,)`` lanes (`registry_batched_scan`); every
+            registry solver (exact, spectral, gd, newton, newton-cg) takes
+            per-lane ``eta`` and smoothness.
+fused       ``(B, d)`` lanes with the Algorithm-7 local solves through the
+            batched Hopper kernels (`kernels.quadratic_prox_gd_batched` for
+            quadratic problems, `kernels.logistic_prox_gd_indexed` for
+            logistic ones, each a whole solve in one launch, and
+            `kernels.prox_update_batched` a launch per GD step for
+            Catalyst): `batched_scan`.
+==========  ================================================================
+
+Catalyst's outer recurrence (`_catalyst_stages`) runs the shared svrp round
+on each stage's shifted oracles, on any substrate: the fused one overrides
+the gradients and solves through the elementwise kernel; the sequential and
+registry ones solve on the problem's per-lane shifted subproblem
+(``problem.shifted_lanes``).
 
 Batch-aware anchor refresh: the reference gates the full-gradient recompute
-behind one ``lax.cond(jnp.any(c))`` per round.  Here the coins are known
-before the first round, so the host already holds the per-round "any trial
-refreshes" mask (`Draws.refresh`) and skips the recompute on rounds where no
-trial refreshes, without waiting on the device; the per-trial selection
-``where(c, full_grad(w'), gbar)`` is unchanged.
+behind one ``lax.cond(jnp.any(c))`` per round (``lax.cond(c)`` for one
+trial).  Here the coins are known before the first round, so the host
+already holds the per-round "any trial refreshes" mask (`Draws.refresh`) and
+skips the recompute on rounds where no trial refreshes, without waiting on
+the device; the per-trial selection ``where(c, full_grad(w'), gbar)`` is
+unchanged.
 
 Communication accounting follows Section 4.2: one vector exchange
 server<->client = 1 step; the initial anchor setup = 3M; a refresh re-runs
@@ -35,9 +57,8 @@ increment fixes their counter to int32).
 loop the DeepSVRP round (`core.deep`) and the train step
 (`launch.steps.make_svrp_train_step`) run on every cohort.
 
-Not ported yet: the sequential and registry-batched substrates, the convex
-deep_svrp round definition, the client-sharded substrate and the
-incremental step definitions.
+Not ported yet: the convex deep_svrp round definition (ROADMAP §1 item 2),
+the client-sharded substrate (item 6) and the incremental sessions (item 7).
 """
 from __future__ import annotations
 
@@ -47,7 +68,7 @@ import torch
 
 from repro_torch.core.channel import get_channel
 from repro_torch.core.draws import Draws
-from repro_torch.core.types import RunResult
+from repro_torch.core.types import RunResult, StepDef, scan_step_def
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.tree import tree_zeros_like
 
@@ -61,12 +82,13 @@ class RoundDef(NamedTuple):
 
 
 class RoundOps:
-    """Substrate primitives of one ``(B,)`` sweep binding.
+    """Substrate primitives of one binding over lanes ``S``.
 
-    The local prox solve is injected by the caller: ``prox(m, z)`` for
-    single-client rounds (sppm/svrp), ``cohort_prox(ms, z)`` for minibatch
-    cohorts.  ``grad``/``full_grad`` overrides replace the problem's oracles
-    (Catalyst's per-trial shifted gradients)."""
+    ``S`` is ``(B,)`` for a batched `Draws` record of B trials and ``()``
+    for one trial's record.  The local prox solve is injected by the caller:
+    ``prox(m, z)`` for single-client rounds (sppm/svrp), ``cohort_prox(ms,
+    z)`` for minibatch cohorts.  ``grad``/``full_grad`` overrides replace the
+    problem's oracles (the fused Catalyst's per-trial shifted gradients)."""
 
     def __init__(
         self,
@@ -75,7 +97,6 @@ class RoundOps:
         x_star: torch.Tensor,
         dtype: torch.dtype,
         *,
-        num_trials: int,
         draws: Draws,
         prox: Callable | None = None,
         cohort_prox: Callable | None = None,
@@ -89,7 +110,7 @@ class RoundOps:
         self.x_star = x_star
         self.dtype = dtype
         self.device = x_star.device
-        self.B = num_trials
+        self.lanes = draws.lanes
         self.M = problem.num_clients
         self.draws = draws
         self.channel = get_channel(channel)
@@ -123,12 +144,12 @@ class RoundOps:
         return self._full_grad(w)
 
     def cohort_grad(self, ms, y):
-        """Per-cohort-client gradients at the shared iterate: (B, b, d)."""
+        """Per-cohort-client gradients at the shared iterate: S + (b, d)."""
         if self.oracle_overridden:
             raise NotImplementedError(
                 "cohort_grad does not support substrate-level oracle overrides"
             )
-        return self._grad(ms, y[:, None, :].expand(ms.shape + y.shape[-1:]))
+        return self._grad(ms, y[..., None, :].expand(ms.shape + y.shape[-1:]))
 
     def init_full_grad(self, x0):
         """Round-0 anchor gradient for a trial-SHARED ``x0``, computed once and
@@ -140,34 +161,34 @@ class RoundOps:
         where some trial refreshes (host mask), selected per trial."""
         if not self.draws.refresh[k]:
             return gbar
-        return torch.where(c[:, None], self.full_grad(w_next), gbar)
+        return torch.where(c.unsqueeze(-1), self.full_grad(w_next), gbar)
 
     # ------------------------------------------------------- shape algebra
     def tile(self, v):
-        """Trial-shared array -> per-trial state (a contiguous copy per trial)."""
-        return v.expand((self.B,) + v.shape).contiguous()
+        """Trial-shared array -> per-trial state (a contiguous copy per lane)."""
+        return v.expand(self.lanes + v.shape).contiguous()
 
     def vec(self, h):
-        """Per-trial scalar hparam as a multiplier for (B, d) state."""
+        """Per-trial scalar hparam as a multiplier for ``S + (d,)`` state."""
         h = torch.as_tensor(h, dtype=self.dtype, device=self.device)
-        return h.broadcast_to((self.B,))[:, None]
+        return h.broadcast_to(self.lanes).unsqueeze(-1)
 
     def cvec(self, h):
-        """Like ``vec`` but broadcasting against (B, b, d) cohort arrays."""
-        return self.vec(h)[:, :, None]
+        """Like ``vec`` but broadcasting against ``S + (b, d)`` cohort arrays."""
+        return self.vec(h).unsqueeze(-1)
 
     def expand(self, v):
-        """Add the cohort axis: (B, d) -> (B, 1, d)."""
-        return v[:, None, :]
+        """Add the cohort axis: S + (d,) -> S + (1, d)."""
+        return v[..., None, :]
 
     def where_vec(self, c, a, b):
-        return torch.where(c[:, None], a, b)
+        return torch.where(c.unsqueeze(-1), a, b)
 
     def as_count(self, c):
         return c.to(torch.int32)
 
     def comm0(self, n: int, dtype: torch.dtype = torch.int64):
-        return torch.full((self.B,), n, dtype=dtype, device=self.device)
+        return torch.full(self.lanes, n, dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------- channel
     def chan_init(self, xB):
@@ -186,20 +207,16 @@ class RoundOps:
         return ((x - self.x_star) ** 2).sum(-1)
 
 
-def _run_rounds(ops: RoundOps, round_fn: Callable, state, num_steps: int):
-    """``num_steps`` rounds from ``state``: (final state, (B, K) dist_sq, (B, K) comm)."""
-    d2s, comms = [], []
-    for k in range(num_steps):
-        state, (d2, comm) = round_fn(ops, state, k)
-        d2s.append(d2)
-        comms.append(comm)
-    return state, torch.stack(d2s, dim=1), torch.stack(comms, dim=1)
-
-
 def scan_rounds(rdef: RoundDef, ops: RoundOps, x0, num_steps: int) -> RunResult:
     """Execute ``num_steps`` rounds of one definition on one binding."""
-    final, d2s, comms = _run_rounds(ops, rdef.round, rdef.init(ops, x0), num_steps)
-    return RunResult(dist_sq=d2s, comm=comms, x_final=final[0])
+    return _scan_from(ops, rdef.round, rdef.init(ops, x0), num_steps)
+
+
+def _scan_from(ops: RoundOps, round_fn: Callable, state0, num_steps: int) -> RunResult:
+    """``num_steps`` rounds of ``round_fn`` from ``state0``: S + (K,) trajectories."""
+    sd = StepDef(init=lambda: state0, step=lambda s, k: round_fn(ops, s, k),
+                 final=lambda s: s[0])
+    return scan_step_def(sd, num_steps)
 
 
 # ============================================================ round definitions
@@ -266,6 +283,71 @@ ROUND_DEFS: dict[str, RoundDef] = {
     "svrp": RoundDef("svrp", _svrp_init, _svrp_round),
     "svrp_minibatch": RoundDef("svrp_minibatch", _svrp_init, _svrp_minibatch_round),
 }
+
+
+# ========================================== sequential and registry substrates
+#
+# One binding for both: the registry prox solver over the record's lanes —
+# one trial (``S = ()``, the ``*_scan`` drivers) or a ``(B,)`` sweep (the
+# engine's default, `registry_batched_scan`).  Each solver takes per-lane
+# eta and smoothness; ``newton`` and ``newton-cg`` test their lanes on the
+# host once per iteration (a device sync each Newton step on the card).
+
+
+def make_registry_ops(
+    algo: str, problem, x0, x_star, hp, draws: Draws, *,
+    prox_solver: str = "exact", prox_steps: int = 50, prox_tol: float = 1e-10,
+    batch_clients: int | None = None, prox_factors=None, channel=None,
+) -> RoundOps:
+    """Bind one rounds-defined algorithm to its registry prox solver over the
+    lanes of ``draws``; ``hp`` fields are per-lane (or shared) scalars.
+
+    ``prox_factors`` passes pre-hoisted solver state (Catalyst's spectral
+    factors, hoisted once for every stage); otherwise the solver's own
+    ``prepare`` runs here, once, before the first round."""
+    from repro_torch.core.prox import get_prox_solver
+
+    if algo == "deep_svrp":
+        raise NotImplementedError(
+            "the convex deep_svrp round (make_registry_ops('deep_svrp', ...)) is not "
+            "ported to repro_torch yet: ROADMAP §1 item 2"
+        )
+    solver = get_prox_solver(prox_solver, problem)
+    factors = prox_factors if prox_factors is not None else solver.prepare(problem)
+    dtype, dev = x0.dtype, x0.device
+    lanes = draws.lanes
+    eta = torch.as_tensor(hp.eta, dtype=dtype, device=dev).broadcast_to(lanes)
+    L = torch.as_tensor(getattr(hp, "smoothness", 0.0), dtype=dtype,
+                        device=dev).broadcast_to(lanes)
+
+    def solve(m, z, e, s):
+        return solver.solve(problem, factors, m, z, e,
+                            smoothness=s, steps=prox_steps, tol=prox_tol)
+
+    kw: dict[str, Any] = {"channel": channel}
+    if algo == "svrp_minibatch":
+        cohort = lanes + (batch_clients,)
+        eta_c, L_c = eta.unsqueeze(-1).expand(cohort), L.unsqueeze(-1).expand(cohort)
+        kw["cohort_prox"] = lambda ms, z: solve(ms, z, eta_c, L_c)
+        kw["cohort_size"] = batch_clients
+    else:
+        kw["prox"] = lambda m, z: solve(m, z, eta, L)
+    return RoundOps(problem, hp, x_star, dtype, draws=draws, **kw)
+
+
+def registry_batched_scan(
+    algo: str, problem, x0, x_star, draws: Draws, hp, *,
+    num_steps: int, prox_solver: str = "exact", prox_steps: int = 50,
+    prox_tol: float = 1e-10, batch_clients: int | None = None, channel=None,
+) -> RunResult:
+    """Run one rounds-defined algorithm over the ``(B,)`` lanes of ``draws``
+    with its registry prox solver (per-trial eta/smoothness per lane)."""
+    ops = make_registry_ops(
+        algo, problem, x0, x_star, hp, draws, prox_solver=prox_solver,
+        prox_steps=prox_steps, prox_tol=prox_tol, batch_clients=batch_clients,
+        channel=channel,
+    )
+    return scan_rounds(ROUND_DEFS[algo], ops, x0, num_steps)
 
 
 # ============================================================ fused substrate
@@ -346,7 +428,7 @@ def _fused_ops(algo: str, problem, hp, x_star, x0, draws: Draws, *,
     else:
         raise ValueError(f"no fused substrate for algo {algo!r}")
 
-    return RoundOps(problem, hp, x_star, dtype, num_trials=B, draws=draws, **kw)
+    return RoundOps(problem, hp, x_star, dtype, draws=draws, **kw)
 
 
 def batched_scan(
@@ -382,17 +464,12 @@ def _catalyzed_batched_scan(
     with the prox-GD update through the elementwise kernel
     (`prox_gd_batched`) on the shifted ``problem.grad``, for quadratic and
     logistic problems alike — the reference's form, so trajectories agree."""
-    from repro_torch.core.catalyst import catalyst_extrapolate
     from repro_torch.core.prox import prox_gd_batched
 
     fused_oracle_kind(problem)
     B = draws.num_trials
     dtype, dev = x0.dtype, x0.device
-    mu, gamma, eta, L = (
-        _per_trial(h, B, dtype, dev) for h in (hp.mu, hp.gamma, hp.eta, hp.smoothness)
-    )
-    q = mu / (mu + gamma)
-    M = problem.num_clients
+    gamma, eta, L = (_per_trial(h, B, dtype, dev) for h in (hp.gamma, hp.eta, hp.smoothness))
 
     def stage_ops(y_prev, stage_draws):
         def grad_sh(m, y):
@@ -407,33 +484,52 @@ def _catalyzed_batched_scan(
             )
 
         return RoundOps(
-            problem, hp, x_star, dtype, num_trials=B, draws=stage_draws,
+            problem, hp, x_star, dtype, draws=stage_draws,
             prox=prox, grad=grad_sh, full_grad=full_grad_sh, channel=channel,
         )
 
-    x_prev = y_prev = x0.expand(B, x0.shape[-1]).contiguous()
+    return catalyst_stages(stage_ops, x0, hp, draws, num_outer=num_outer, num_steps=num_steps)
+
+
+def catalyst_stages(stage_ops: Callable, x0, hp, draws: Draws, *,
+                    num_outer: int, num_steps: int) -> RunResult:
+    """Catalyst's outer recurrence over lanes (Algorithm 3), on any substrate.
+
+    Stage t runs ``num_steps`` rounds of the shared svrp round on
+    ``stage_ops(y_prev, draws.stage(t))`` — a binding whose oracles are the
+    stage's shifted subproblem — from x_{t-1}, then extrapolates
+    y_t = x_t + beta_t (x_t - x_{t-1}).  Each stage re-pays the 3M anchor
+    setup on top of the carried int32 comm offset, and its channel state
+    starts afresh, as the reference's inner svrp_scan re-runs _svrp_init.
+    Trajectories of all stages are concatenated on the round axis."""
+    from repro_torch.core.catalyst import catalyst_extrapolate
+
+    lanes = draws.lanes
+    dtype, dev = x0.dtype, x0.device
+    mu, gamma = (torch.as_tensor(h, dtype=dtype, device=dev).broadcast_to(lanes)
+                 for h in (hp.mu, hp.gamma))
+    q = mu / (mu + gamma)
+    x_prev = y_prev = x0.expand(lanes + x0.shape).contiguous()
     alpha_prev = torch.sqrt(q)
-    comm0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+    comm0 = torch.zeros(lanes, dtype=torch.int32, device=dev)
     d2_stages, comm_stages = [], []
     for t in range(num_outer):
         ops = stage_ops(y_prev, draws.stage(t))
-        # Channel state re-initializes per stage, like the reference's inner
-        # svrp_scan re-running _svrp_init each stage.
         state0 = (
             x_prev, x_prev, ops.full_grad(x_prev),
-            ops.comm0(3 * M, torch.int32), ops.chan_init(x_prev),
+            ops.comm0(3 * ops.M, torch.int32), ops.chan_init(x_prev),
         )
-        final, d2s, comms = _run_rounds(ops, _svrp_round, state0, num_steps)
-        x_t = final[0]
+        res = _scan_from(ops, _svrp_round, state0, num_steps)
+        x_t, d2s, comms = res.x_final, res.dist_sq, res.comm
         alpha_prev, beta_t = catalyst_extrapolate(alpha_prev, q)
-        y_prev = x_t + beta_t[:, None] * (x_t - x_prev)
+        y_prev = x_t + beta_t.unsqueeze(-1) * (x_t - x_prev)
         x_prev = x_t
-        comm = comms + comm0[:, None]
-        comm0 = comm[:, -1]
+        comm = comms + comm0.unsqueeze(-1)
+        comm0 = comm[..., -1]
         d2_stages.append(d2s)
         comm_stages.append(comm)
     return RunResult(
-        dist_sq=torch.cat(d2_stages, dim=1), comm=torch.cat(comm_stages, dim=1),
+        dist_sq=torch.cat(d2_stages, dim=-1), comm=torch.cat(comm_stages, dim=-1),
         x_final=x_prev,
     )
 

@@ -1,7 +1,7 @@
-"""Result type of the port's algorithm layer (mirrors `repro.core.types`)."""
+"""Result and step types of the port's algorithm layer (mirrors `repro.core.types`)."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -13,6 +13,26 @@ def _first_hit(dist_sq: torch.Tensor, counts, eps: float) -> torch.Tensor:
     counts = torch.as_tensor(counts, device=dist_sq.device)
     inf = torch.tensor(float("inf"), dtype=torch.float64, device=dist_sq.device)
     return torch.where(hit.any(), counts[idx].to(torch.float64), inf)
+
+
+class StepDef(NamedTuple):
+    """One algorithm as an incrementally steppable unit on one binding.
+
+    * ``init() -> state``                       — round-0 state;
+    * ``step(state, k) -> (state, (dist_sq, comm))`` — communication round
+      ``k``, reading round ``k`` of the draws the unit was bound to
+      (deterministic algorithms ignore ``k``);
+    * ``final(state) -> x``                     — current iterate.
+
+    The reference's ``schedule`` (a key layout) has no counterpart: the
+    port's draws are a record bound at construction.  `scan_step_def` runs
+    ``num_steps`` rounds of one, as the reference's
+    ``lax.scan(sd.step, sd.init(), keys)`` does.
+    """
+
+    init: Callable[[], Any]
+    step: Callable[[Any, int], tuple]
+    final: Callable[[Any], Any]
 
 
 class RunResult(NamedTuple):
@@ -43,3 +63,20 @@ class RunResult(NamedTuple):
                 "run_batch, which attaches comm_bytes"
             )
         return _first_hit(self.dist_sq, self.comm_bytes, eps)
+
+
+def scan_step_def(sd: StepDef, num_steps: int) -> RunResult:
+    """``num_steps`` rounds of ``sd``, the per-round outputs stacked on a last
+    (round) axis: ``(K,)`` for one trial, ``(B, K)`` for a lane batch."""
+    state = sd.init()
+    d2s, comms = [], []
+    for k in range(num_steps):
+        state, (d2, comm) = sd.step(state, k)
+        d2s.append(d2)
+        comms.append(comm)
+    return RunResult(torch.stack(d2s, dim=-1), torch.stack(comms, dim=-1), sd.final(state))
+
+
+def scalar_hparam(v, device) -> torch.Tensor:
+    """A driver's float hparam as a 0-d float64 tensor (the reference's x64 scalar)."""
+    return torch.as_tensor(v, dtype=torch.float64, device=device)

@@ -1,7 +1,8 @@
 """Where the port runs: the GPU unless the caller names another device.
 
 Every entry point of `repro_torch` (the problem generators, `run_batch`,
-`convert.problem_from_arrays`) resolves its `device=` argument here.  `None`
+`run_sequential`, the ``run_*`` drivers, `convert.problem_from_arrays`)
+resolves its `device=` argument here.  `None`
 means CUDA; with no card present that raises instead of quietly running the
 plain PyTorch path on the CPU.  Tests and CPU references pass `device="cpu"`.
 """
@@ -21,6 +22,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         if dev.index is None:  # "cuda" names the current card, as tensors report it
             dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def problem_device(problem, device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point that takes a built problem runs on: `device`
+    resolved as `resolve_device` does, which must be where `problem` lives."""
+    dev = resolve_device(device)
+    if problem.device != dev:
+        raise ValueError(
+            f"problem lives on {problem.device} but this run is on {dev}; "
+            "build the problem with device=..."
+        )
     return dev
 
 

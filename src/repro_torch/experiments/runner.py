@@ -1,29 +1,40 @@
-"""Batched multi-trial experiment engine: the fused sweep on the GPU.
+"""Batched multi-trial experiment engine: every sweep of the paper on the GPU.
 
-Port of `repro.experiments.runner`, fused substrate only.  Every figure of
-the paper averages SPPM/SVRP/Catalyzed-SVRP over many seeds and sweeps
-stepsizes/cohorts; `run_batch(..., fused=True, prox_solver="gd")` runs the
-whole ``seeds x grid`` sweep as one hand-batched loop over ``(B, d)`` state,
-its Algorithm-7 local solves through the batched Hopper kernels:
+Port of `repro.experiments.runner`.  Every figure of the paper averages
+SPPM/SVRP/Catalyzed-SVRP (and the baselines) over many seeds and sweeps
+stepsizes/cohorts; `run_batch` runs the whole ``seeds x grid`` sweep as one
+loop over ``(B, d)`` lanes:
 
     from repro_torch.experiments import run_batch
 
     res = run_batch(
         "svrp", problem,
-        grid={"eta": [1e-3, 3e-3], "p": 1 / M, "smoothness": L},
-        seeds=8, fused=True, num_steps=400, prox_solver="gd", prox_steps=20,
+        grid={"eta": [1e-3, 3e-3], "p": 1 / M},
+        seeds=8, num_steps=400,
     )
     res.dist_sq            # (16, 400) per-trial trajectories
     res.summary()          # median/IQR over the batch axis
 
-The random draws come from a `core.draws.Draws` record: by default
-`draw_schedule` draws them natively from the trial seeds; ``draws=`` injects
-a record (the tests replay the reference's PRNG keys into one, which makes
-``comm`` integer-equal to `repro`'s).  `run_batch` runs on CUDA unless
-``device=`` names another device, and never falls back to the CPU.
+Substrates (`repro_torch.core.rounds`): by default (``fused=False``) the
+rounds-defined algorithms (sppm, svrp, svrp_minibatch) run
+`rounds.registry_batched_scan`, their registry prox solver over the lanes,
+and catalyzed_svrp and the baselines run their ``scan_fn`` over the same
+``(B,)`` lanes (the counterpart of the reference's vmap of the per-trial
+scan).  ``fused=True`` with ``prox_solver="gd"`` runs the fused substrate,
+the Algorithm-7 solves through the batched Hopper kernels.  `run_sequential`
+runs the same trials one driver call per trial.
 
-Not ported yet (each raises `NotImplementedError`): ``fused=False`` (the
-registry-batched substrate), ``shard=``, ``stop_eps=`` and `run_sequential`.
+The random draws come from a `core.draws.Draws` record: by default
+`draw_schedule` draws them natively from the trial seeds (trial s draws the
+same numbers in `run_batch` and `run_sequential`); ``draws=`` injects a
+record (the tests replay the reference's PRNG keys into one, which makes
+``comm`` integer-equal to `repro`'s).  Deterministic algorithms (dane,
+acc_extragradient) draw nothing.  Both entry points run on CUDA unless
+``device=`` names another device, and never fall back to the CPU.
+
+Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
+``shard=`` (item 6), ``stop_eps=`` (item 7), the composite (item 3) and
+deep_svrp (item 2) algorithms.
 """
 from __future__ import annotations
 
@@ -34,17 +45,21 @@ import torch
 
 from repro_torch.core.channel import wire_vector_bytes
 from repro_torch.core.draws import Draws, draw_schedule
-from repro_torch.core.rounds import batched_scan, fused_oracle_kind
+from repro_torch.core.rounds import (
+    ROUND_DEFS,
+    batched_scan,
+    fused_oracle_kind,
+    registry_batched_scan,
+)
 from repro_torch.core.types import RunResult
-from repro_torch.device import full_precision_matmul, resolve_device
+from repro_torch.device import full_precision_matmul, problem_device
 from repro_torch.experiments.grid import trial_labels
-from repro_torch.experiments.spec import ALGOS, RunSpec, as_runspec
+from repro_torch.experiments.spec import ALGOS, AlgoSpec, RunSpec, as_runspec, horizon_rounds
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; this slice runs "
-        "run_batch(..., fused=True, prox_solver='gd') — use repro for the rest"
+        f"{what} is not ported to repro_torch yet (ROADMAP §1 {item}); use repro for it"
     )
 
 
@@ -127,13 +142,13 @@ def ledger_bytes(cfg: Mapping[str, Any], x0: torch.Tensor, comm) -> np.ndarray:
 
 def _expected_draws(algo: str, cfg: Mapping[str, Any], B: int) -> tuple[tuple, tuple | None]:
     """The (clients, coins) shapes a sweep consumes."""
+    lead = (horizon_rounds(cfg), B)
     if algo == "catalyzed_svrp":
-        lead = (cfg["num_outer"], cfg["inner_steps"], B)
+        lead = (cfg["num_outer"],) + lead
         return lead, lead
-    lead = (cfg["num_steps"], B)
     if algo == "svrp_minibatch":
         return lead + (cfg["batch_clients"],), lead
-    return lead, (None if algo == "sppm" else lead)
+    return lead, (lead if algo in ("svrp", "svrg") else None)
 
 
 def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int, M: int) -> None:
@@ -150,6 +165,23 @@ def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int, M: int
         lo, hi = (int(v) for v in torch.aminmax(draws.clients))
         if lo < 0 or hi >= M:
             raise ValueError(f"{algo}: the draws' clients span [{lo}, {hi}], outside [0, {M})")
+
+
+def _sweep_draws(spec: AlgoSpec, algo: str, cfg, hparams, seeds: np.ndarray, M: int,
+                 draws: Draws | None) -> Draws | None:
+    """The sweep's draws on the host: ``draws`` checked, or drawn natively
+    from the trial seeds; None for a deterministic algorithm."""
+    if spec.deterministic:
+        if draws is not None:
+            raise ValueError(f"{algo} is deterministic: it takes no draws")
+        return None
+    if draws is None:
+        draws = draw_schedule(
+            seeds, M, horizon_rounds(cfg), hparams.get("p"),
+            batch_clients=cfg.get("batch_clients"), num_outer=cfg.get("num_outer"),
+        )
+    _check_draws(draws, algo, cfg, seeds.shape[0], M)
+    return draws
 
 
 def _fused_body(algo: str, static_items: tuple) -> Callable:
@@ -169,6 +201,29 @@ def _fused_body(algo: str, static_items: tuple) -> Callable:
         )
 
     return run
+
+
+def _prepare(spec_: RunSpec, problem, device, shard, stop_eps):
+    """Shared by both entry points: the device, the unported options, the
+    resolved run."""
+    dev = problem_device(problem, device)
+    full_precision_matmul()
+    if stop_eps is not None:
+        raise _not_ported("stop_eps= (the incremental session substrate)", "item 7")
+    if shard is not None:
+        raise _not_ported(f"shard={shard!r} (the client-sharded substrate)", "item 6")
+    return dev, spec_.resolve(problem)
+
+
+def _result(rr, res: RunResult) -> BatchResult:
+    return BatchResult(
+        dist_sq=res.dist_sq,
+        comm=res.comm,
+        x_final=res.x_final,
+        hparams=rr.hparams,
+        seeds=rr.seeds,
+        comm_bytes=ledger_bytes(rr.cfg, rr.x0, res.comm),
+    )
 
 
 def run_batch(
@@ -193,58 +248,69 @@ def run_batch(
 
     Arguments follow the reference's `run_batch`: `grid` maps hparam names to
     scalars or sequences (crossed cartesian-style, then with the seed axis,
-    seed-major); the remaining kwargs are the algo's static config.  The
-    port runs only ``fused=True`` with ``prox_solver="gd"``.  `device`
-    (default CUDA) must be the device `problem` lives on; `draws` injects the
-    sweep's client indices and refresh coins (default: `draw_schedule`).
+    seed-major); the remaining kwargs are the algo's static config.
+    `stepsize="theory"` resolves the grid from the theorem table
+    (`core.theory.theory_grid`).  `fused=True` (fusable algos with
+    prox_solver="gd") runs the fused substrate.  `device` (default CUDA)
+    must be the device `problem` lives on; `draws` injects the sweep's client
+    indices and refresh coins (default: `draw_schedule`).
     """
-    dev = resolve_device(device)
-    full_precision_matmul()
-    if problem.device != dev:
-        raise ValueError(
-            f"problem lives on {problem.device} but run_batch runs on {dev}; "
-            "build the problem with device=..."
-        )
     spec_ = as_runspec(algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
                        stepsize=stepsize, target_eps=target_eps,
                        theory_constants=theory_constants, static=static)
-    if stop_eps is not None:
-        raise _not_ported("stop_eps= (the incremental session substrate)")
-    if shard is not None:
-        raise _not_ported(f"shard={shard!r}")
-    if not fused:
-        raise _not_ported("fused=False (the registry-batched substrate)")
-    rr = spec_.resolve(problem)
-    algo, spec = rr.algo, rr.aspec
-    hparams, seed_arr, cfg, x0, x_star = rr.hparams, rr.seeds, rr.cfg, rr.x0, rr.x_star
-
-    if not (spec.fusable and cfg.get("prox_solver", "gd") == "gd"):
-        raise ValueError(
-            f"{algo}: fused=True requires a fusable algo with prox_solver='gd'"
-        )
-    fused_oracle_kind(problem)
-    B = seed_arr.shape[0]
-    if draws is None:
-        draws = draw_schedule(
-            seed_arr, problem.num_clients, cfg[spec.fused_round_steps],
-            hparams.get("p"), batch_clients=cfg.get("batch_clients"),
-            num_outer=cfg.get("num_outer"),
-        )
-    _check_draws(draws, algo, cfg, B, problem.num_clients)
+    dev, rr = _prepare(spec_, problem, device, shard, stop_eps)
+    algo, spec, cfg = rr.algo, rr.aspec, rr.cfg
+    if fused:
+        if not (spec.fusable and cfg.get("prox_solver", "gd") == "gd"):
+            raise ValueError(
+                f"{algo}: fused=True requires a fusable algo with prox_solver='gd'"
+            )
+        fused_oracle_kind(problem)
+    draws = _sweep_draws(spec, algo, cfg, rr.hparams, rr.seeds, problem.num_clients, draws)
+    draws = None if draws is None else draws.to(dev)
     hp = rr.device_hparams(dev)
-    res = _fused_body(algo, tuple(sorted(cfg.items())))(
-        problem, x0, x_star, draws.to(dev), hp
-    )
-    return BatchResult(
-        dist_sq=res.dist_sq,
-        comm=res.comm,
-        x_final=res.x_final,
-        hparams=hparams,
-        seeds=seed_arr,
-        comm_bytes=ledger_bytes(cfg, x0, res.comm),
-    )
+    if fused:
+        res = _fused_body(algo, tuple(sorted(cfg.items())))(problem, rr.x0, rr.x_star, draws, hp)
+    elif algo in ROUND_DEFS:
+        res = registry_batched_scan(algo, problem, rr.x0, rr.x_star, draws, hp, **cfg)
+    else:
+        res = spec.scan_fn(problem, rr.x0, rr.x_star, draws, hp, **cfg)
+    return _result(rr, res)
 
 
-def run_sequential(algo, problem, *args, **kwargs) -> BatchResult:
-    """The per-trial loop of the reference; not ported yet."""
-    raise _not_ported("run_sequential (the sequential substrate)")
+def run_sequential(
+    algo: str | RunSpec,
+    problem,
+    grid: Mapping[str, Any] | None = None,
+    seeds: int | Sequence[int] = 1,
+    *,
+    x0: torch.Tensor | None = None,
+    x_star: torch.Tensor | None = None,
+    stepsize: str | None = None,
+    target_eps: float = 1e-6,
+    theory_constants=None,
+    draws: Draws | None = None,
+    device: str | torch.device | None = None,
+    **static,
+) -> BatchResult:
+    """The per-trial loop `run_batch` replaces: the same trials, one driver
+    call (`AlgoSpec.scan_fn` over one trial's lane) per trial, each reading
+    its own trial of the sweep's draws (``draws=``, or drawn natively from
+    the seeds as `run_batch` draws them)."""
+    spec_ = as_runspec(algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
+                       stepsize=stepsize, target_eps=target_eps,
+                       theory_constants=theory_constants, static=static)
+    dev, rr = _prepare(spec_, problem, device, None, None)
+    spec = rr.aspec
+    draws = _sweep_draws(spec, rr.algo, rr.cfg, rr.hparams, rr.seeds, problem.num_clients, draws)
+    hp_all = rr.device_hparams(dev)
+    results = []
+    for i in range(rr.seeds.shape[0]):
+        hp = spec.params_cls(*(h[i] for h in hp_all))
+        trial = None if draws is None else draws.trial(i).to(dev)
+        results.append(spec.scan_fn(problem, rr.x0, rr.x_star, trial, hp, **rr.cfg))
+    return _result(rr, RunResult(
+        dist_sq=torch.stack([r.dist_sq for r in results]),
+        comm=torch.stack([r.comm for r in results]),
+        x_final=torch.stack([r.x_final for r in results]),
+    ))

@@ -1,25 +1,38 @@
 """What to run: the algorithm registry and the shared `RunSpec`.
 
-Port of `repro.experiments.spec`, restricted to the four algorithms the fused
-substrate runs (sppm, svrp, svrp_minibatch, catalyzed_svrp).  Resolution,
-trial table, static config and every validation error text are the
+Port of `repro.experiments.spec`: every `ALGOS` entry of the reference but
+composite (ROADMAP §1 item 3) and deep_svrp (item 2), whose names raise "not
+ported".  Resolution, trial table, static config, theory-stepsize resolution
+(`core.theory.theory_grid`) and every validation error text are the
 reference's, so a sweep that `repro` rejects fails here with the same message.
-`stepsize="theory"` raises until `core/theory.py` is ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping, NamedTuple, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.catalyst import CatalyzedSVRPParams
+from repro_torch.core.baselines import (
+    AccEGParams,
+    DANEParams,
+    ScaffoldParams,
+    SGDParams,
+    SVRGParams,
+    acc_extragradient_scan,
+    dane_scan,
+    scaffold_scan,
+    sgd_scan,
+    svrg_scan,
+)
+from repro_torch.core.catalyst import CatalyzedSVRPParams, catalyzed_svrp_scan
 from repro_torch.core.channel import get_channel
-from repro_torch.core.minibatch import MinibatchParams
+from repro_torch.core.minibatch import MinibatchParams, svrp_minibatch_scan
 from repro_torch.core.prox import get_prox_solver
-from repro_torch.core.sppm import SPPMParams
-from repro_torch.core.svrp import SVRPParams
+from repro_torch.core.sppm import SPPMParams, sppm_scan
+from repro_torch.core.svrp import SVRPParams, svrp_scan
+from repro_torch.core.types import RunResult
 from repro_torch.experiments.grid import expand_grid, with_seeds
 
 _REQUIRED = object()
@@ -31,10 +44,13 @@ class AlgoSpec:
 
     `defaults` maps every hparam field of `params_cls` to its default value
     (`_REQUIRED` = the caller's grid must provide it); `static` maps every
-    static-config key likewise.
+    static-config kwarg of `scan_fn` likewise.  `scan_fn(problem, x0,
+    x_star, draws, hp, **static)` runs the algorithm over the lanes of its
+    hparams: one trial (`run_sequential`) or a ``(B,)`` batch (`run_batch`).
     """
 
     params_cls: type
+    scan_fn: Callable[..., RunResult]
     defaults: Mapping[str, Any]
     static: Mapping[str, Any]
     fusable: bool = False  # runs on the fused substrate (rounds.batched_scan)
@@ -43,6 +59,7 @@ class AlgoSpec:
     # ("inner_steps" for Catalyst's nested stages).
     fused_inner_steps: str | None = None
     fused_round_steps: str = "num_steps"
+    deterministic: bool = False  # draws nothing; run_batch rejects multi-seed sweeps
 
 
 _PROX_STATIC = {
@@ -55,23 +72,23 @@ _PROX_STATIC = {
 
 ALGOS: dict[str, AlgoSpec] = {
     "sppm": AlgoSpec(
-        SPPMParams,
+        SPPMParams, sppm_scan,
         defaults={"eta": _REQUIRED, "smoothness": 0.0},
         static=_PROX_STATIC, fusable=True, fused_inner_steps="prox_steps",
     ),
     "svrp": AlgoSpec(
-        SVRPParams,
+        SVRPParams, svrp_scan,
         defaults={"eta": _REQUIRED, "p": _REQUIRED, "smoothness": 0.0},
         static=_PROX_STATIC, fusable=True, fused_inner_steps="prox_steps",
     ),
     "svrp_minibatch": AlgoSpec(
-        MinibatchParams,
+        MinibatchParams, svrp_minibatch_scan,
         defaults={"eta": _REQUIRED, "p": _REQUIRED, "smoothness": 0.0},
         static={**_PROX_STATIC, "batch_clients": _REQUIRED},
         fusable=True, fused_inner_steps="prox_steps",
     ),
     "catalyzed_svrp": AlgoSpec(
-        CatalyzedSVRPParams,
+        CatalyzedSVRPParams, catalyzed_svrp_scan,
         defaults={
             "mu": _REQUIRED, "gamma": _REQUIRED, "eta": _REQUIRED,
             "p": _REQUIRED, "smoothness": 0.0,
@@ -84,7 +101,47 @@ ALGOS: dict[str, AlgoSpec] = {
         fusable=True, fused_inner_steps="prox_steps",
         fused_round_steps="inner_steps",  # per-stage round count (nested loop)
     ),
+    "sgd": AlgoSpec(
+        SGDParams, sgd_scan,
+        defaults={"stepsize": _REQUIRED},
+        static={"num_steps": _REQUIRED},
+    ),
+    "svrg": AlgoSpec(
+        SVRGParams, svrg_scan,
+        defaults={"stepsize": _REQUIRED, "p": _REQUIRED},
+        static={"num_steps": _REQUIRED},
+    ),
+    "scaffold": AlgoSpec(
+        ScaffoldParams, scaffold_scan,
+        defaults={"local_lr": _REQUIRED, "global_lr": 1.0},
+        static={"num_rounds": _REQUIRED, "local_steps": _REQUIRED},
+    ),
+    "dane": AlgoSpec(
+        DANEParams, dane_scan,
+        defaults={"theta": _REQUIRED},
+        static={"num_rounds": _REQUIRED, "surrogate_client": 0},
+        deterministic=True,
+    ),
+    "acc_extragradient": AlgoSpec(
+        AccEGParams, acc_extragradient_scan,
+        defaults={"theta": _REQUIRED, "mu": _REQUIRED},
+        static={"num_rounds": _REQUIRED, "surrogate_client": 0},
+        deterministic=True,
+    ),
 }
+
+# The reference's entries this port does not carry yet, with the ROADMAP
+# item that ports each.
+NOT_PORTED_ALGOS = {"composite": "ROADMAP §1 item 3", "deep_svrp": "ROADMAP §1 item 2"}
+
+
+def horizon_rounds(cfg: Mapping[str, Any]) -> int:
+    """The rounds a resolved static config runs, per Catalyst stage for
+    Catalyst: the length of the draws' round axis."""
+    for key in ("inner_steps", "num_steps", "num_rounds"):
+        if key in cfg:
+            return int(cfg[key])
+    raise KeyError("static config names no round count")
 
 
 # ---------------------------------------------------------------- substrates
@@ -151,12 +208,20 @@ class RunSpec:
                     f"unknown stepsize mode {self.stepsize!r}; supported: 'theory' "
                     "(or pass explicit values in the grid)"
                 )
-            raise NotImplementedError(
-                "stepsize='theory' needs core/theory.py, which is not ported to "
-                "repro_torch yet; pass explicit values in the grid"
-            )
+            from repro_torch.core.theory import theory_grid
+
+            # The caller's grid entries override the theorem-prescribed ones;
+            # theory_constants (a measured ProblemConstants) skips the measurement.
+            grid = {**theory_grid(algo, problem, eps=self.target_eps, x0=x0,
+                                  x_star=x_star, constants=self.theory_constants),
+                    **(grid or {})}
         hparams, seed_arr = _build_trials(aspec, algo, grid, self.seeds)
         cfg = _static_config(aspec, algo, self.static)
+        if aspec.deterministic and np.unique(seed_arr).size > 1:
+            raise ValueError(
+                f"{algo} ignores the PRNG key; a multi-seed axis would run "
+                "bit-identical duplicate trials. Pass seeds=1 (default)."
+            )
         if "prox_solver" in cfg:
             get_prox_solver(cfg["prox_solver"], problem)
         if "channel" in cfg:
@@ -219,6 +284,11 @@ def as_runspec(
 
 
 def resolve_algo(algo: str) -> AlgoSpec:
+    if algo in NOT_PORTED_ALGOS:
+        raise NotImplementedError(
+            f"algo {algo!r} is not ported to repro_torch yet ({NOT_PORTED_ALGOS[algo]}); "
+            "use repro for it"
+        )
     if algo not in ALGOS:
         raise KeyError(f"unknown algo {algo!r}; available: {sorted(ALGOS)}")
     return ALGOS[algo]

@@ -108,8 +108,12 @@ class LogisticProblem:
         grad_fn, hess_fn = self.local_oracle(m)
         return prox_newton(grad_fn, hess_fn, z, eta, max_steps=newton_steps, tol=tol)
 
-    def shifted(self, gamma: float, y_anchor: torch.Tensor) -> "ShiftedLogisticProblem":
+    def shifted(self, gamma, y_anchor: torch.Tensor) -> "ShiftedLogisticProblem":
+        """Catalyst subproblem; ``gamma`` a float, or per lane (``S``) with
+        ``y_anchor`` ``S + (d,)``."""
         return ShiftedLogisticProblem(base=self, gamma=gamma, anchor=y_anchor)
+
+    shifted_lanes = shifted
 
     # --- measured constants (the paper reports measured L, delta) -----------------
     def smoothness(self) -> torch.Tensor:
@@ -159,11 +163,17 @@ class LogisticProblem:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShiftedLogisticProblem:
-    """Catalyst subproblem h_t: adds gamma/2 ||x - anchor||^2 to every client."""
+    """Catalyst subproblem h_t: adds gamma/2 ||x - anchor||^2 to every client.
+    ``gamma`` is a float, or a per-lane ``S`` tensor (anchor ``S + (d,)``)
+    whose lane s shifts rows ``S + (d,)`` of lane s."""
 
     base: LogisticProblem
-    gamma: float
+    gamma: float | torch.Tensor
     anchor: torch.Tensor
+
+    def _gamma(self, trailing: int):
+        g = self.gamma
+        return g.reshape(g.shape + (1,) * trailing) if isinstance(g, torch.Tensor) else g
 
     @property
     def num_clients(self):
@@ -173,21 +183,25 @@ class ShiftedLogisticProblem:
     def dim(self):
         return self.base.dim
 
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
     def grad(self, m, x):
-        return self.base.grad(m, x) + self.gamma * (x - self.anchor)
+        return self.base.grad(m, x) + self._gamma(1) * (x - self.anchor)
 
     def full_grad(self, x):
-        return self.base.full_grad(x) + self.gamma * (x - self.anchor)
+        return self.base.full_grad(x) + self._gamma(1) * (x - self.anchor)
 
     def hessian(self, m, x):
-        return self.base.hessian(m, x) + self.gamma * self.base._eye()
+        return self.base.hessian(m, x) + self._gamma(2) * self.base._eye()
 
     def local_oracle(self, m):
         grad0, hess0 = self.base.local_oracle(m)
-        shift_eye = self.gamma * self.base._eye()
+        shift_eye = self._gamma(2) * self.base._eye()
 
         def grad_fn(x):
-            return grad0(x) + self.gamma * (x - self.anchor)
+            return grad0(x) + self._gamma(1) * (x - self.anchor)
 
         def hess_fn(x):
             return hess0(x) + shift_eye

@@ -90,10 +90,14 @@ class QuadraticProblem:
         return (lambda x: _mv(A_m, x) - b_m), (lambda x: A_m)
 
     def prox(self, m: torch.Tensor, z: torch.Tensor, eta) -> torch.Tensor:
-        """Exact prox_{eta f_m}(z) = (I + eta A_m)^{-1}(z + eta b_m)."""
+        """Exact prox_{eta f_m}(z) = (I + eta A_m)^{-1}(z + eta b_m).
+
+        `solve_ex` leaves out `solve`'s singularity check, which waits on the
+        device every call (I + eta A_m is positive definite; the reference's
+        jnp solve checks nothing either)."""
         e = _per_lane(eta, z)
         H = torch.eye(self.dim, dtype=z.dtype, device=z.device) + e.unsqueeze(-1) * self.A[m]
-        return torch.linalg.solve(H, z + e * self.b[m])
+        return torch.linalg.solve_ex(H, z + e * self.b[m])[0]
 
     def prox_factors(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-client eigendecompositions A_m = Q_m diag(lam_m) Q_m^T, once."""
@@ -112,6 +116,11 @@ class QuadraticProblem:
         """Catalyst subproblem  h_t,m(x) = f_m(x) + gamma/2 ||x - y||^2."""
         eye = torch.eye(self.dim, dtype=self.A.dtype, device=self.A.device)
         return QuadraticProblem(A=self.A + gamma * eye, b=self.b + gamma * y)
+
+    def shifted_lanes(self, gamma: torch.Tensor, y: torch.Tensor) -> "ShiftedQuadraticProblem":
+        """The Catalyst subproblem of each lane: per-lane ``gamma`` ``S`` and
+        centre ``y`` ``S + (d,)``, without copying the clients' data."""
+        return ShiftedQuadraticProblem(self, gamma, y)
 
     # --- exact constants ---------------------------------------------------------
     def minimizer(self) -> torch.Tensor:
@@ -144,6 +153,80 @@ class QuadraticProblem:
         """sigma_*^2 = E_m ||grad f_m(x_*)||^2 (Theorem 1's noise constant)."""
         g = _mv(self.A, self.minimizer()) - self.b
         return (g * g).sum(-1).mean()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShiftedQuadraticProblem:
+    """Catalyst's subproblem over lanes: lane s minimises
+
+        h_m(x) = f_m(x) + gamma_s/2 ||x - y_s||^2,
+
+    i.e. the quadratic (A_m + gamma_s I, b_m + gamma_s y_s).  Oracles take
+    ``m`` of the lane shape ``S`` and rows ``S + (d,)``; each forms the
+    shifted (A_m, b_m) of the clients it reads as `QuadraticProblem.shifted`
+    forms all of them, so per lane it rounds as the reference's shifted
+    problem does (the mean Hessian of `full_grad` is A_bar + gamma I).  The
+    spectral prox takes the base problem's factors and shifts the
+    eigenvalues by gamma_s."""
+
+    base: QuadraticProblem
+    gamma: torch.Tensor  # S
+    anchor: torch.Tensor  # S + (d,)
+
+    @property
+    def num_clients(self) -> int:
+        return self.base.num_clients
+
+    @property
+    def dim(self) -> int:
+        return self.base.dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    def _gamma(self, trailing: int) -> torch.Tensor:
+        return self.gamma.reshape(self.gamma.shape + (1,) * trailing)
+
+    def _eye(self) -> torch.Tensor:
+        return torch.eye(self.dim, dtype=self.base.A.dtype, device=self.base.A.device)
+
+    def _A(self, m) -> torch.Tensor:
+        return self.base.A[m] + self._gamma(2) * self._eye()
+
+    def _b(self, m) -> torch.Tensor:
+        return self.base.b[m] + self._gamma(1) * self.anchor
+
+    def grad(self, m, x):
+        return _mv(self._A(m), x) - self._b(m)
+
+    def full_grad(self, x):
+        return (_mv(self.base.A_bar + self._gamma(2) * self._eye(), x)
+                - (self.base.b_bar + self._gamma(1) * self.anchor))
+
+    def hessian(self, m, x):
+        del x
+        return self._A(m)
+
+    def local_oracle(self, m):
+        A_m, b_m = self._A(m), self._b(m)
+        return (lambda x: _mv(A_m, x) - b_m), (lambda x: A_m)
+
+    def prox(self, m, z, eta):
+        e = _per_lane(eta, z)
+        H = self._eye() + e.unsqueeze(-1) * self._A(m)
+        return torch.linalg.solve_ex(H, z + e * self._b(m))[0]
+
+    def prox_factors(self):
+        """The base problem's eigendecompositions (`prox_spectral` shifts them)."""
+        return self.base.prox_factors()
+
+    def prox_spectral(self, m, z, eta, factors):
+        lam, Q = factors
+        Q_m = Q[m]
+        e = _per_lane(eta, z)
+        rhs = z + e * self._b(m)
+        return _mv(Q_m, _mv(Q_m.transpose(-1, -2), rhs) / (1.0 + e * (lam[m] + self._gamma(1))))
 
 
 def _random_orthogonal(rng: np.random.Generator, d: int) -> np.ndarray:

@@ -1,12 +1,15 @@
 """Bridge helpers for the port's tests: replay `repro`'s PRNG draws as numpy.
 
 `repro` draws its client indices and refresh coins from threefry keys inside
-the round (`repro.core.rounds.RoundOps`); `repro_torch` reads them from a
-`Draws` record.  `replay_draws` makes the reference's exact draws for a sweep
-— per trial b: ``key(seed_b)`` -> ``split(key, K)`` -> per round ``split`` ->
-``randint`` / ``choice(replace=False)`` / ``bernoulli`` (sppm: ``randint`` on
-the round key itself; Catalyst first splits ``(key, num_outer)``) — so both
-packages run the same trajectories and ``comm`` agrees integer-exactly.
+the round (`repro.core.rounds.RoundOps`, `repro.core.baselines`);
+`repro_torch` reads them from a `Draws` record.  `replay_draws` makes the
+reference's exact draws for a sweep — per trial b: ``key(seed_b)`` ->
+``split(key, K)`` -> per round ``split`` -> ``randint`` /
+``choice(replace=False)`` / ``bernoulli`` (sppm, sgd and scaffold:
+``randint`` on the round key itself; Catalyst first splits ``(key,
+num_outer)``) — so both packages run the same trajectories and ``comm``
+agrees integer-exactly; `replay_trial` gives one trial's record for the
+per-trial drivers.
 
 For the DeepSVRP training tests: `deep_coins` replays the refresh coins the
 reference flips from ``fold_in(rng, step)``, `mixed_coin_prob` picks an
@@ -55,12 +58,18 @@ def _round_draws(keys, algo: str, M: int, num_steps: int, p, batch_clients):
     return np.asarray(clients), np.asarray(coins)
 
 
+# The baselines draw as the rounds they mirror: sgd and scaffold one client
+# from each round key (`repro.core.baselines` randint on the key), svrg a
+# client and a coin from its split.
+_PATTERN = {"sgd": "sppm", "scaffold": "sppm", "svrg": "svrp"}
+
+
 def replay_draws(algo: str, seeds, M: int, cfg: dict, p=None, dtype=jnp.float64):
-    """The reference's draws for a fused sweep, as numpy ``(clients, coins)``.
+    """The reference's draws for a sweep, as numpy ``(clients, coins)``.
 
     ``seeds`` is the per-trial seed array, ``cfg`` the static config
-    (num_steps / batch_clients, or num_outer / inner_steps for Catalyst) and
-    ``p`` the per-trial refresh probability."""
+    (num_steps / num_rounds / batch_clients, or num_outer / inner_steps for
+    Catalyst) and ``p`` the per-trial refresh probability."""
     keys = jax.vmap(jax.random.key)(jnp.asarray(np.asarray(seeds), dtype=jnp.uint32))
     p = None if p is None else jnp.asarray(np.asarray(p), dtype)
     if algo == "catalyzed_svrp":
@@ -68,14 +77,23 @@ def replay_draws(algo: str, seeds, M: int, cfg: dict, p=None, dtype=jnp.float64)
         stage_keys = jnp.swapaxes(jax.vmap(lambda k: jax.random.split(k, T))(keys), 0, 1)
         stages = [_round_draws(stage_keys[t], "svrp", M, K, p, None) for t in range(T)]
         return np.stack([c for c, _ in stages]), np.stack([c for _, c in stages])
-    return _round_draws(keys, algo, M, cfg["num_steps"], p, cfg.get("batch_clients"))
+    K = cfg["num_steps"] if "num_steps" in cfg else cfg["num_rounds"]
+    return _round_draws(keys, _PATTERN.get(algo, algo), M, K, p, cfg.get("batch_clients"))
 
 
-def draws_from_numpy(clients, coins, device="cpu") -> Draws:
+def draws_from_numpy(clients, coins, device="cpu", batched=True) -> Draws:
     return Draws(
         torch.tensor(np.array(clients, dtype=np.int64), device=device),
         None if coins is None else torch.tensor(np.array(coins, dtype=bool), device=device),
+        batched=batched,
     )
+
+
+def replay_trial(algo: str, seed: int, M: int, cfg: dict, p=None) -> Draws:
+    """One trial's record (no trial axis) of the reference's draws from
+    ``jax.random.key(seed)``, for the per-trial ``run_*`` drivers."""
+    clients, coins = replay_draws(algo, [seed], M, cfg, None if p is None else [p])
+    return draws_from_numpy(clients, coins).trial(0)
 
 
 # ------------------------------------------------------- DeepSVRP training

@@ -195,21 +195,33 @@ def test_unknown_substrate_error_text_matches(problems):
 @pytest.mark.parametrize("what", ["fused_false", "shard", "stop_eps", "theory", "sequential",
                                   "quant8"])
 def test_unported_paths_raise(problems, what):
+    """The paths the first slice left out: those still not ported raise
+    "not ported" and name their ROADMAP item; those ported since (the
+    registry substrate ``fused=False``, ``stepsize="theory"`` and
+    `run_sequential`) return a sweep of the expected shape that agrees with
+    the fused one's comm."""
     _, port_p = problems["quadratic"]
     kw = dict(grid={"eta": 0.1, "p": 0.1, "smoothness": 1.0}, num_steps=4, device="cpu", **GD)
-    if what == "sequential":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_sequential("svrp", port_p, **kw)
-        return
     if what == "quant8":
         with pytest.raises(ValueError, match="not ported"):
             run_batch("svrp", port_p, fused=True, channel="quant8", **kw)
         return
-    extra = {"fused_false": dict(fused=False), "shard": dict(fused=True, shard="data"),
-             "stop_eps": dict(fused=True, stop_eps=1e-6),
-             "theory": dict(fused=True, stepsize="theory")}[what]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_batch("svrp", port_p, **extra, **kw)
+    if what in ("shard", "stop_eps"):
+        extra = {"shard": dict(shard="data"), "stop_eps": dict(stop_eps=1e-6)}[what]
+        item = {"shard": "item 6", "stop_eps": "item 7"}[what]
+        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
+            run_batch("svrp", port_p, fused=True, **extra, **kw)
+        return
+    fused = run_batch("svrp", port_p, fused=True, **kw)
+    if what == "theory":
+        kw["grid"] = {"smoothness": 1.0}
+        res = run_batch("svrp", port_p, fused=True, stepsize="theory", **kw)
+        assert set(res.hparams) == {"eta", "p", "smoothness"}
+    else:
+        entry = run_sequential if what == "sequential" else run_batch
+        res = entry("svrp", port_p, **kw)
+        np.testing.assert_array_equal(res.comm.numpy(), fused.comm.numpy())
+    assert res.dist_sq.shape == (1, 4) and np.isfinite(res.dist_sq.numpy()).all()
 
 
 def test_injected_draws_of_wrong_shape_raise(problems):

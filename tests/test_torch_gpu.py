@@ -327,6 +327,70 @@ def test_main_path_goes_through_the_kernels(cuda):
     assert logistic_prox_gd_batched.launches == 30
 
 
+# The registry substrate (run_batch(fused=False)) and the sequential drivers
+# on the card against the same runs on the CPU with the same draws: comm
+# equal, dist_sq within rtol 1e-9 over ENGINE_ROUNDS rounds, where the
+# trajectories are still far above the float64 floor (chip_smoke's CPU
+# replay).  These paths launch none of the sweep kernels.
+ENGINE_ROUNDS = 20
+ENGINE_CASES = {
+    "svrp": (dict(grid={"eta": [0.05, 0.1], "p": 0.2}, num_steps=ENGINE_ROUNDS),
+             dict(eta=0.05, p=0.2, num_steps=ENGINE_ROUNDS)),
+    "catalyzed_svrp": (dict(grid={"mu": 1.0, "gamma": 0.5, "eta": 0.05, "p": 0.2}, num_outer=2,
+                            inner_steps=ENGINE_ROUNDS // 2),
+                       dict(mu=1.0, delta=4.0, gamma=0.5, p=0.2, num_outer=2,
+                            inner_steps=ENGINE_ROUNDS // 2)),
+    "svrg": (dict(grid={"stepsize": [1 / 240, 1 / 480], "p": 0.2}, num_steps=ENGINE_ROUNDS),
+             dict(stepsize=1 / 240, p=0.2, num_steps=ENGINE_ROUNDS)),
+}
+
+
+def _engine_problem(dev):
+    from repro_torch.problems import make_synthetic_quadratic
+
+    return make_synthetic_quadratic(10, 6, L=80.0, delta=4.0, seed=1, device=dev)
+
+
+def _same_run(got, want):
+    assert torch.equal(got.comm.cpu(), want.comm.cpu())
+    assert got.comm.dtype == want.comm.dtype
+    torch.testing.assert_close(got.dist_sq.cpu(), want.dist_sq.cpu(), rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", sorted(ENGINE_CASES))
+def test_registry_path_on_the_card_matches_the_cpu(cuda, algo):
+    """`run_batch(fused=False)` and `run_sequential` on the card against
+    `run_batch(fused=False)` on the CPU, with the same native draws."""
+    from repro_torch.experiments import run_batch, run_sequential
+
+    kw = dict(ENGINE_CASES[algo][0], seeds=2)
+    cpu = run_batch(algo, _engine_problem("cpu"), device="cpu", **kw)
+    gpu = run_batch(algo, _engine_problem("cuda"), **kw)
+    seq = run_sequential(algo, _engine_problem("cuda"), **kw)
+    _same_run(gpu, cpu)
+    _same_run(seq, cpu)
+    assert quadratic_prox_gd_batched.launches == prox_update_batched.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", sorted(ENGINE_CASES))
+def test_sequential_driver_on_the_card_matches_the_cpu(cuda, algo):
+    """The per-trial ``run_*`` driver on the card against the CPU, one record."""
+    import repro_torch.core as core
+
+    kw = ENGINE_CASES[algo][1]
+    name = {"svrp": "run_svrp", "catalyzed_svrp": "run_catalyzed_svrp", "svrg": "run_svrg"}[algo]
+    runs = []
+    for dev in ("cpu", "cuda"):
+        prob = _engine_problem(dev)
+        x_star = prob.minimizer()
+        runs.append(getattr(core, name)(prob, torch.zeros_like(x_star), x_star, seed=3,
+                                        device=dev, **kw))
+    _same_run(runs[1], runs[0])
+    torch.testing.assert_close(runs[1].x_final.cpu(), runs[0].x_final, rtol=1e-9, atol=1e-15)
+
+
 FLASH_CASES = [
     # (B, Sq, Skv, H, KVH, Dh, causal, window, q_offset)
     (2, 256, 256, 8, 2, 128, True, None, 0),  # GQA, causal, whole tiles
