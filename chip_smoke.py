@@ -5,8 +5,10 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives six paths of the port: the paper's fused sweep (K1, K2), the
-engine's registry and sequential substrates (no kernel), dense-transformer
+It drives seven paths of the port: the paper's fused sweep (K1, K2), the
+engine's registry and sequential substrates with composite SVRP, the lossy
+channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
+federated transformer through the engine (K1, K4, K4b), dense-transformer
 serving on Llama-3.2-3B (K4, K5), hybrid serving on
 Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7) and DeepSVRP
 training on Qwen2-1.5B (K3, K4, K4b).
@@ -27,7 +29,9 @@ Phases, each printed as one JSON line:
    reference's entry on the gathered signed rows; one cluster rank's
    partial gradient dropped (a planted fault) must fail its check; in
    float64 the design's other options are timed beside it (every step
-   reading A from L2; clusters of 8 and of 16 blocks);
+   reading A from L2; clusters of 8 and of 16 blocks); and K2 as the DP-ERM
+   fold runs it (the target shifted by eta s, the start y0 = z) against its
+   plain version at K2_TOL;
 3. main path — `run_batch(..., fused=True, prox_solver="gd")` in float64 on
    the paper's Figure-1 quadratic (M = 1000, d = 40, L = 3330, delta = 10):
    svrp, catalyzed_svrp, svrp_minibatch; and on the Figure-2 a9a-like logistic
@@ -57,7 +61,37 @@ Phases, each printed as one JSON line:
    against the registry gd path for svrp (ENGINE_FUSED_RTOL); a planted
    fault, a refresh that keeps the stale anchor gradient, which the CPU
    replay check must reject; and svrp (exact, newton) under the profiler;
-6. attention parity — K4 (flash attention) and K5 (decode attention) against
+6. engine, this slice's — composite SVRP (Algorithm 4, FISTA's joint prox;
+   no kernel) with the l1, box and l2-ball regularizers on Figure 1, each
+   binding at its solution (20,000 proximal-gradient steps), 8 seeds, 200
+   rounds; svrp through the quant8, cast and cast16 channels on Figure 1,
+   registry (exact) and fused (K1's loop form, once a round), 400 rounds;
+   svrp on the DP-ERM a9a problem (Figure 2's shape, sigma 1, clip 1),
+   fused (K2 with the noise folded into its target and y0 = z, once a
+   round) and registry gd, 100 rounds, the two within ENGINE_FUSED_RTOL.
+   Every sweep timed, its first 20 rounds replayed on the CPU (comm and
+   comm_bytes equal, dist_sq rtol 1e-9); the planted fault, K2 without the
+   noise fold, must fail that replay;
+7. deep — K1 at the 20m sweep's rows (8 x 15,733,632 float32, bit for bit
+   its plain version), K4 and K4b in float32 at Dh 64 at each preset's
+   attention shape against their plain versions (K4b's skipped-tile fault
+   must fail), each timed beside its bound; then DeepSVRP on the federated
+   transformer (examples/fed_transformer_torch.py's presets and
+   hyperparameters: eta 1, local_lr 0.2, 2 local steps, anchor_prob 0.25;
+   4 clients, 2 trials), at full width and depth in float32.  20m (15,733,632 parameters, 6 layers,
+   6/2 heads of Dh 64, vocab 8192, 2 x 128 tokens a client): 8 rounds of
+   `run_batch("deep_svrp")` fused and registry, on identity and quant8;
+   each sweep's K1 (one launch a local step), K4 and K4b launches counted
+   and held to the formula derived from the round (`deep_expected`,
+   printed beside the count), its seconds a round and peak memory; fused
+   and registry bit for bit; the loss falling on both channels; quant8's
+   bytes <= 0.27x float32's; the first 2 rounds replayed on the CPU (plain
+   K1, K4, K4b; ROUND_TOL); the planted fault (the local loop starting from
+   z) must fail that replay; one round under the profiler.  100m
+   (124,668,672 parameters, 12 layers, 12/4 heads, vocab 32000, 4 x 256
+   tokens a client): 3 rounds fused, then 2 rounds fused and registry, bit
+   for bit, each timed and counted;
+8. attention parity — K4 (flash attention) and K5 (decode attention) against
    their plain versions at the serving path's shapes (K4: Llama prefill,
    bf16 and float32, causal; and small sliding-window, non-causal and head
    dim 80 / 64 cases, each with the route it took: wgmma + TMA for bf16 at
@@ -68,7 +102,7 @@ Phases, each printed as one JSON line:
    faults must fail), timed with CUDA events beside the bound, the plain
    version and one `scaled_dot_product_attention` call (the yardstick; the
    port never calls it);
-7. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
+9. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
    0 on the card: `make_prefill_step` on 4 x 2048 tokens and
    `BatchServer(max_batch=8, cache_len=1024).generate` on 8 ragged prompts
    (128-512 tokens) with 64 greedy tokens each.  The K4 / K5 counts are
@@ -77,9 +111,9 @@ Phases, each printed as one JSON line:
    with the plain attention on the card (the decode teacher-forced on the
    served tokens) and every step's logits compared (SERVE_REL_TOL), and with
    a planted attention fault, which must exceed that limit;
-8. serving profile — one prefill call and 16 decode steps under
+10. serving profile — one prefill call and 16 decode steps under
    torch.profiler;
-9. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
+11. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
    prefill shape (B 4, T 2048, 80 heads, P 64, N 64; x, B and C as column
    views of one tensor, as the model hands them) in bf16 (the tensor-core
    route) and float32 (the FMA route), timed beside its bound and the plain
@@ -93,7 +127,7 @@ Phases, each printed as one JSON line:
    a float64 recurrence (see k6_verdict); two planted faults must fail: the
    state not carried across chunks, and (bf16) the tensor-core route
    leaving out the low bf16 parts of its split operands;
-10. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
+12. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
    seed 0 on the card with LoRA b, conv_b and D randomised (zeros and ones at
    init hide a wrong wiring): `make_prefill_step` on 4 x 2048 tokens (K6 45
    times and K4 9 times a call) and `BatchServer(max_batch=8,
@@ -104,15 +138,15 @@ Phases, each printed as one JSON line:
    same weights in float32 (HYBRID_F32_REL_TOL), where the fault must
    exceed the limit; the decode is replayed teacher-forced with the plain
    attention, and with a planted K5 fault;
-11. hybrid profile — one prefill call and 16 decode steps under
+13. hybrid profile — one prefill call and 16 decode steps under
    torch.profiler;
-12. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
+14. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
    against teacher-forced decode (K5) at the last of 200 tokens
    (RECURRENT_PATHS_REL_TOL), and the planted K6 fault beyond it.  Phases
-   9-11 and 13-15 run the same functions (phase_recurrent_serving,
+   11-13 and 15-17 run the same functions (phase_recurrent_serving,
    phase_serving_profile, phase_recurrent_paths) on each family's record
    (HYBRID_FAMILY, RWKV_FAMILY);
-13. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
+15. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
    rwkv6-1.6b's prefill shape (B 4, T 2048, 32 heads, K = V = 64) and decode
    shape (B 8, T 1, the state written over state0 as decode runs it) in
    bf16 and float32, timed beside the bound and the plain version (at
@@ -124,7 +158,7 @@ Phases, each printed as one JSON line:
    and a float64 recurrence (see k7_verdict).  Three planted faults must
    fail: the state not carried across tiles, the bonus u dropped, state0
    ignored;
-14. rwkv serving — rwkv6-1.6b at full width and depth in bf16
+16. rwkv serving — rwkv6-1.6b at full width and depth in bf16
    (1,583,941,632 parameters), weights from seed 0 on the card with w0,
    w_b and u randomised (at init the decay is nearly one constant):
    `make_prefill_step` on 4 x 2048 tokens (K7 24 times a call) and
@@ -136,12 +170,12 @@ Phases, each printed as one JSON line:
    the same weights in float32 (RWKV_F32_REL_TOL); the fault must exceed
    both limits; the decode is replayed teacher-forced with the plain scan,
    and with K7 ignoring state0, which must exceed SERVE_REL_TOL;
-15. rwkv profile — one prefill call and 16 decode steps under
+17. rwkv profile — one prefill call and 16 decode steps under
    torch.profiler;
-16. rwkv paths — the reduced rwkv6 in float32: the prefill step against
+18. rwkv paths — the reduced rwkv6 in float32: the prefill step against
    teacher-forced decode at the last of 200 tokens (RECURRENT_PATHS_REL_TOL),
    and the planted no-carry fault beyond it;
-17. train parity — K3 (the DeepSVRP tree step) over the whole bf16
+19. train parity — K3 (the DeepSVRP tree step) over the whole bf16
    Qwen2-1.5B tree in one launch and over small f32 / f64 trees; K4's output
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
@@ -153,24 +187,24 @@ Phases, each printed as one JSON line:
    for bit, dQ's spread in relative L2); two planted K4b faults must fail
    the check: the first 64-key tile skipped, and one query head of each
    group left out of dK and dV (the wgmma route's group sum);
-18. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
+20. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
    bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
    from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
    K = 4, eta 1.0, local_lr 0.1, 3 rounds with the coins [1, 0, 1]; the
    counts are zeroed before and read after: K3 C K a round, K4 and K4b one
    a layer in each of the round's C (1 + K) + C refresh forward and
    backward passes; the loss finite;
-19. train replay — round 1 again from the same state with the plain K3 and
+21. train replay — round 1 again from the same state with the plain K3 and
    the plain attention forward and backward on the card, compared with the
    kernels' run where both runs share a point: the cohort-mean gradient at
    x0 and the loss there (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL) and the
    round's update x' - x0 (TRAIN_UPDATE_REL_TOL); two planted faults (K4b
    skipping its first key tile, K3 with inv_eta 0) must exceed them;
-20. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
+22. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
-21. train profile — one plain round under torch.profiler;
-22. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
+23. train profile — one plain round under torch.profiler;
+24. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
    the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
@@ -230,6 +264,37 @@ ENGINE_PATH_TOL = {"exact": dict(rtol=1e-6, atol=1e-24), "gd": dict(rtol=1e-6, a
                    "spectral": dict(rtol=1e-4, atol=1e-20), "newton": dict(rtol=1e-4, atol=1e-20)}
 ENGINE_FUSED_RTOL = 1e-9
 ENGINE_FAULT_P = 0.25
+# The engine's composite, channel and DP-ERM sweeps: composite SVRP with the
+# l1 (weight COMPOSITE_L1), box and l2-ball regularizers on Figure 1, each
+# binding at its solution (box and ball at half the unconstrained
+# minimizer's largest entry and norm), the solution by COMPOSITE_PGD_STEPS
+# proximal-gradient steps; svrp through each lossy channel on Figure 1; svrp
+# on the DP-ERM a9a problem (Figure 2's shape, sigma 1, clip 1).
+COMPOSITE_L1 = 0.01
+COMPOSITE_PGD_STEPS = 20000
+COMPOSITE_ROUNDS = 200
+CHANNEL_ROUNDS = 400
+DP_ROUNDS = 100
+# DeepSVRP on the federated LM (examples/fed_transformer_torch.py's presets
+# and hyperparameters): 2 trials (seeds), 4 clients.  The 20m sweeps run
+# fused and registry on identity and quant8; their first DEEP_REPLAY_ROUNDS
+# rounds are replayed on the CPU with the plain versions and the same coins,
+# the loss held to the float32 round tolerance of the CPU tests
+# (tests/_torch_replay.py ROUND_TOL) and comm and comm_bytes equal.  Fused
+# against registry on the card: bit for bit, comm and comm_bytes equal (the
+# two share the local solver's binding, and the float32 gradient sums in a
+# fixed order: K4b's float32 route has no atomics, and the embedding's
+# backward, an accumulating index_put_, sorts its indices on CUDA; read bit
+# for bit on an H100 80GB HBM3 at 700 W at both presets).  quant8's bytes at most DEEP_BYTES_RATIO
+# of float32's, with the loss falling on both channels.
+DEEP_HP = dict(eta=1.0, local_lr=0.2, local_steps=2, anchor_prob=0.25)
+DEEP_CLIENTS, DEEP_SEEDS, DEEP_ALPHA = 4, 2, 0.3
+DEEP_ROUNDS = {"20m": 8, "100m": 3}
+DEEP_REPLAYED = ("20m",)  # the presets with the four sweeps, CPU replay and fault
+DEEP_PATH_ROUNDS = 2  # the other presets: fused against registry over this many
+DEEP_REPLAY_ROUNDS = 2
+DEEP_REPLAY_TOL = dict(rtol=1e-4, atol=1e-6)
+DEEP_BYTES_RATIO = 0.27
 # Serving: kernel run against the plain-attention replay, per step, as
 # ||logits - plain||_2 / ||plain||_2.  Both runs are bf16 and differ only in
 # the attention arithmetic (K4 rounds P to bf16 before P V; K5 sums in
@@ -406,7 +471,8 @@ TRAIN_KERNELS = ("prox_update", "flash_attention", "flash_attention_bwd")
 HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
 SWEEP_KERNELS = ("quadratic_prox_gd_batched", "prox_update_batched", "logistic_prox_gd_batched")
-PATHS = ("sweep", "engine", "serving", "hybrid", "ssm", "training")
+DEEP_KERNELS = ("prox_update_batched", "flash_attention", "flash_attention_bwd")
+PATHS = ("sweep", "engine", "deep", "serving", "hybrid", "ssm", "training")
 
 
 def _wrapper(name):
@@ -616,6 +682,7 @@ def phase_parity(qprob, lprob) -> dict:
         # K2 at the Figure-2 svrp shape through the sweep's entry: R = 16
         # sampled clients, their features and labels read in place.
         results[("logistic_prox_gd_batched", dname)] = k2_case(gen, lprob, dtype)
+        results[("logistic_prox_gd_batched", dname, "y0")] = k2_y0_case(gen, lprob, dtype)
     emit({"phase": "parity", "library_ms": None,
           "library_note": "no single PyTorch call computes any of these functions",
           "kernels": [{"name": key[0], "dtype": key[1], **v} for key, v in results.items()]})
@@ -709,6 +776,49 @@ def k2_case(gen, lprob, dtype) -> dict:
                 k2._CLUSTER, k2._RESIDENT = None, True
         res["options"] = options
     return res
+
+
+def k2_y0_case(gen, lprob, dtype) -> dict:
+    """K2 as the DP-ERM fold runs it: the indexed entry at the Figure-2 svrp
+    shape with the target shifted by eta s (s a noise table row) and the
+    start y0 = z, against its plain version at the reference's tolerance."""
+    import torch
+
+    from repro_torch.kernels import logistic_prox as k2
+
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+    steps, R = 20, 16
+    Z, y = lprob.Z.to(dtype), lprob.y.to(dtype)
+    m = torch.randint(0, lprob.num_clients, (R,), generator=gen, device="cuda")
+    _, n, d = Z.shape
+    z = torch.randn(R, d, generator=gen, device="cuda", dtype=dtype) * 0.3
+    shift = torch.randn(R, d, generator=gen, device="cuda", dtype=dtype) * 0.01
+    eta = 0.5 + torch.rand(R, generator=gen, device="cuda", dtype=dtype)
+    target = z - eta[:, None] * shift
+    beta = 1.0 / (float(lprob.smoothness_max()) + 1.0 / eta)
+
+    def run():
+        return k2.logistic_prox_gd_indexed(Z, y, m, target, beta, 1.0 / eta, lprob.lam, steps,
+                                           y0=z, check_indices=False)
+
+    def plain():
+        return k2.logistic_prox_gd_indexed_plain(Z, y, m, target, beta, 1.0 / eta, lprob.lam,
+                                                 steps, z)
+
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **K2_TOL[dname])
+    unshifted = k2.logistic_prox_gd_indexed_plain(Z, y, m, z, beta, 1.0 / eta, lprob.lam, steps,
+                                                  z)
+    check(not torch.allclose(out, unshifted, **K2_TOL[dname]),
+          "logistic_prox_gd_indexed: the shifted target made no difference")
+    clients = int(torch.unique(m).numel())
+    nbytes = (clients * (n * d + n) + 3 * R * d + 2 * R) * isz + 8 * R
+    b_ms, b_by = bound_ms(nbytes, steps * R * (4 * n * d + 4 * n + 7 * d), dname)
+    return dict(shape=[R, n, d, steps], y0=True, max_abs_err=(out - ref).abs().max().item(),
+                ms=time_ms(run, 50), plain_ms=time_ms(plain, 5, 1), bound_ms=b_ms,
+                bound_by=b_by, tol=K2_TOL[dname], library_ms=None)
 
 
 def phase_main_path(qprob, lprob, l_star) -> tuple[dict, list]:
@@ -1042,6 +1152,397 @@ def phase_engine(qprob, lprob, l_star, cpu_problems) -> None:
               "kernel_launches": sum(c for _, c in kernels.values()),
               "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
                               for name, (t, c) in top]})
+
+
+def composite_plan(qprob_cpu):
+    """Composite SVRP's three regularizers on Figure 1: (name, prox_R,
+    x_star on the CPU), each binding at its solution."""
+    from repro_torch.core.composite import composite_minimizer_pgd, prox_box, prox_l1, prox_l2ball
+
+    x_unc = qprob_cpu.minimizer()
+    box, radius = 0.5 * float(x_unc.abs().max()), 0.5 * float(x_unc.norm())
+    L = float(qprob_cpu.smoothness())
+    plan = []
+    for name, prox in (("l1", lambda z, t: prox_l1(z, COMPOSITE_L1 * t)),
+                       ("box", prox_box(-box, box)), ("l2ball", prox_l2ball(radius))):
+        x_star = composite_minimizer_pgd(qprob_cpu, prox, L=L, num_steps=COMPOSITE_PGD_STEPS)
+        check(float((x_star - x_unc).norm()) > 1e-3 * float(x_unc.norm()),
+              f"composite {name}: the regularizer does not bind at the solution")
+        plan.append((name, prox, x_star))
+    return plan
+
+
+def _replay_on_cpu(label, res, kw, draws, cpu_problem, x_star, *, fault=None) -> tuple:
+    """The first CPU_REPLAY_ROUNDS rounds of a card sweep again on the CPU
+    (plain versions, the same draws): (ok, dist_sq's largest relative gap),
+    comm and comm_bytes equal; with ``fault`` (a card result), the faulted
+    run is held to the CPU run instead."""
+    import numpy as np
+
+    from repro_torch.experiments import run_batch
+
+    kw_c, draws_c = replay_head(kw, draws)
+    res_c = run_batch(kw_c["algo"], cpu_problem, x_star=x_star.cpu(), draws=draws_c,
+                      device="cpu", **{k: v for k, v in kw_c.items() if k != "algo"})
+    k = res_c.dist_sq.shape[1]
+    card = res if fault is None else fault
+    ok, rel = traj_gap(card, res_c, dict(rtol=CPU_REPLAY_RTOL, atol=0.0), k)
+    ok = ok and np.array_equal(card.comm_bytes[:, :k], res_c.comm_bytes)
+    if fault is None:
+        emit({"phase": "engine_cpu_replay", "run": label, "rounds": k, "comm_equal": ok,
+              "dist_sq_max_rel_diff": rel, "rtol": CPU_REPLAY_RTOL})
+        check(ok, f"{label}: the card's first {k} rounds differ from the CPU run (rel {rel})")
+    return ok, rel
+
+
+def phase_engine_slice(qprob, cpu_problems) -> None:
+    """The engine's composite SVRP, lossy channels and DP-ERM problem on the
+    card: every sweep timed, its first rounds replayed on the CPU, the fused
+    DP sweep through K2 with the noise fold (once a round) against the
+    registry path and against a planted fault (K2 without the fold)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import theorem2_stepsize
+    from repro_torch.experiments import run_batch
+    from repro_torch.kernels import logistic_prox as k2
+    from repro_torch.problems import make_dp_a9a_problem
+
+    M = qprob.num_clients
+    mu, delta = float(qprob.strong_convexity()), float(qprob.similarity())
+    L = float(qprob.smoothness_max())
+    eta = theorem2_stepsize(mu, delta)
+    seeds = dict(seeds=ENGINE_SEEDS)
+
+    # 1. Composite SVRP (no kernel on its path: FISTA is plain PyTorch).
+    for name, prox, x_star_cpu in composite_plan(cpu_problems["quadratic"]):
+        x_star = x_star_cpu.to("cuda")
+        label = f"composite/{name}/fig1_quadratic"
+        kw = dict(algo="composite", grid={"eta": [eta, eta / 2], "p": 1.0 / M, "smoothness": L,
+                                          "mu": mu},
+                  num_steps=COMPOSITE_ROUNDS, prox_R=prox, **seeds)
+        draws = sweep_draws(kw, M)
+        zero_launch_counts(SWEEP_KERNELS)
+        res, wall = _run(run_batch, qprob, kw, draws, x_star)
+        d2 = res.dist_sq.cpu().numpy()
+        r0 = float((x_star ** 2).sum())
+        emit({"phase": "engine_rate", "run": label, "substrate": "registry",
+              "trials": res.num_trials, "rounds": COMPOSITE_ROUNDS, "wall_s": wall,
+              "rounds_per_s": COMPOSITE_ROUNDS / wall, "dist_sq_initial": r0,
+              "dist_sq_final_median": float(np.median(d2[:, -1])),
+              "launches": launch_counts(SWEEP_KERNELS)})
+        check(np.isfinite(d2).all() and float(np.median(d2[:, -1])) < r0,
+              f"{label}: non-finite or the median trial did not descend")
+        check(not any(launch_counts(SWEEP_KERNELS).values()), f"{label}: launched a sweep kernel")
+        _replay_on_cpu(label, res, kw, draws, cpu_problems["quadratic"], x_star)
+
+    # 2. svrp through each lossy channel, registry (exact) and fused (K1's loop form).
+    x_star = qprob.minimizer()
+    for channel in ("quant8", "cast", "cast16"):
+        for fused in (False, True):
+            label = f"svrp/{channel}/{'fused' if fused else 'registry'}/fig1_quadratic"
+            grid = {"eta": [eta, eta / 2], "p": 1.0 / M}
+            extra = dict(prox_solver="exact")
+            if fused:
+                grid["smoothness"] = L
+                extra = dict(prox_solver="gd", prox_steps=200, fused=True)
+            kw = dict(algo="svrp", grid=grid, num_steps=CHANNEL_ROUNDS, channel=channel,
+                      **extra, **seeds)
+            draws = sweep_draws(kw, M)
+            zero_launch_counts(SWEEP_KERNELS)
+            res, wall = _run(run_batch, qprob, kw, draws, x_star)
+            launched = launch_counts(SWEEP_KERNELS)
+            d2 = res.dist_sq.cpu().numpy()
+            emit({"phase": "engine_rate", "run": label,
+                  "substrate": "fused" if fused else "registry", "trials": res.num_trials,
+                  "rounds": CHANNEL_ROUNDS, "wall_s": wall, "rounds_per_s": CHANNEL_ROUNDS / wall,
+                  "dist_sq_final_median": float(np.median(d2[:, -1])),
+                  "comm_bytes_final_median": float(np.median(res.comm_bytes[:, -1])),
+                  "launches": launched})
+            want = CHANNEL_ROUNDS if fused else 0
+            check(launched["quadratic_prox_gd_batched"] == want
+                  and launched["prox_update_batched"] == launched["logistic_prox_gd_batched"] == 0,
+                  f"{label}: launched {launched}")
+            check(np.isfinite(d2).all() and float(np.median(d2[:, -1])) < float((x_star ** 2).sum()),
+                  f"{label}: non-finite or the median trial did not descend")
+            _replay_on_cpu(label, res, kw, draws, cpu_problems["quadratic"], x_star)
+
+    # 3. svrp on the DP-ERM a9a problem: fused (K2 with the noise fold, once
+    # a round), registry (gd: the noised gradient oracle), CPU replays, and
+    # K2 without the fold, which the replay must reject.
+    dp = make_dp_a9a_problem(60, n_per_client=2000, lam=0.1, n_pool=32561, seed=0, sigma=1.0,
+                             clip=1.0, device="cuda")
+    dp_cpu = make_dp_a9a_problem(60, n_per_client=2000, lam=0.1, n_pool=32561, seed=0,
+                                 sigma=1.0, clip=1.0, device="cpu")
+    check(torch.equal(dp.dp_shift.cpu(), dp_cpu.dp_shift), "DP noise differs between devices")
+    x_star = dp.minimizer()
+    leta = theorem2_stepsize(dp.lam, float(dp.similarity_at(x_star)))
+    base = dict(algo="svrp", grid={"eta": [leta, leta / 2], "p": 1.0 / dp.num_clients,
+                                   "smoothness": float(dp.smoothness_max())},
+                num_steps=DP_ROUNDS, prox_solver="gd", prox_steps=20, **seeds)
+    draws = sweep_draws(base, dp.num_clients)
+    out = {}
+    for fused in (True, False):
+        label = f"svrp/dp_a9a/{'fused' if fused else 'registry'}"
+        kw = {**base, **({"fused": True} if fused else {})}
+        zero_launch_counts(SWEEP_KERNELS)
+        res, wall = _run(run_batch, dp, kw, draws, x_star)
+        launched = launch_counts(SWEEP_KERNELS)
+        d2 = res.dist_sq.cpu().numpy()
+        emit({"phase": "engine_rate", "run": label, "substrate": "fused" if fused else "registry",
+              "trials": res.num_trials, "rounds": DP_ROUNDS, "wall_s": wall,
+              "rounds_per_s": DP_ROUNDS / wall, "dist_sq_final_median": float(np.median(d2[:, -1])),
+              "dist_sq_initial": float((x_star ** 2).sum()), "launches": launched})
+        check(launched["logistic_prox_gd_batched"] == (DP_ROUNDS if fused else 0),
+              f"{label}: launched {launched}")
+        check(np.isfinite(d2).all() and float(np.median(d2[:, -1])) < float((x_star ** 2).sum()),
+              f"{label}: non-finite or the median trial did not descend")
+        _replay_on_cpu(label, res, kw, draws, dp_cpu, x_star)
+        out[fused] = (kw, res)
+    ok, rel = traj_gap(out[True][1], out[False][1], dict(rtol=ENGINE_FUSED_RTOL, atol=0.0))
+    emit({"phase": "engine_rate", "run": "svrp/dp_a9a", "fused_vs_registry_ok": ok,
+          "fused_vs_registry_max_rel_diff": rel, "rtol": ENGINE_FUSED_RTOL})
+    check(ok, f"svrp/dp_a9a: the fused path differs from the registry path (rel {rel})")
+    kw, good = out[True]
+    real = k2.logistic_prox_gd_indexed
+
+    def no_fold(Z, y, m, z, beta, inv_eta, lam, steps, *, y0=None, check_indices=True):
+        return real(Z, y, m, z if y0 is None else y0, beta, inv_eta, lam, steps, y0=y0,
+                    check_indices=check_indices)
+
+    kw_h, draws_h = replay_head(kw, draws)
+    k2.logistic_prox_gd_indexed = no_fold
+    try:
+        faulted, _ = _run(run_batch, dp, kw_h, draws_h.to("cuda"), x_star)
+    finally:
+        k2.logistic_prox_gd_indexed = real
+    ok, rel = _replay_on_cpu("svrp/dp_a9a/fused", good, kw, draws, dp_cpu, x_star, fault=faulted)
+    emit({"phase": "engine_fault", "run": f"svrp/dp_a9a/fused, {CPU_REPLAY_ROUNDS} rounds, K2 "
+          "without the noise fold", "rejected": not ok, "dist_sq_max_rel_diff": rel})
+    check(not ok, f"planted fault (no DP fold) passed the CPU-replay check: rel {rel}")
+
+
+# ------------------------------------------- DeepSVRP on the federated LM
+def deep_expected(cfg, rounds: int, draws) -> tuple[dict, str]:
+    """The kernel launches of one deep_svrp sweep, derived from the round:
+    one K1 launch a local step; a client gradient is one K4 (with lse) and
+    one K4b a layer, a metric pass one K4 a layer.  Gradients: M for the
+    initial anchor, then B M (1 + K) a round (the control variates at w and
+    K local steps for every lane and client), and B M on each round where
+    some lane refreshes (the full gradient of every lane); B M metric
+    passes a round."""
+    B, M, K, L = DEEP_SEEDS, DEEP_CLIENTS, DEEP_HP["local_steps"], cfg.num_layers
+    refresh = int(draws.refresh[:rounds].sum())
+    grads = M + rounds * B * M * (1 + K) + refresh * B * M
+    metric = rounds * B * M
+    counts = {"prox_update_batched": K * rounds, "flash_attention": L * (grads + metric),
+              "flash_attention_bwd": L * grads}
+    formula = (f"K1 = K R = {K}*{rounds}; grads G = M + R B M (1+K) + F B M = {M} + "
+               f"{rounds}*{B}*{M}*{1 + K} + {refresh}*{B}*{M} = {grads} (F = rounds where a "
+               f"lane refreshes); K4b = L G = {L}*{grads}; K4 = L (G + R B M) = "
+               f"{L}*({grads} + {metric})")
+    return counts, formula
+
+
+def deep_run(problem, x0, draws, rounds: int, *, fused: bool, channel=None, device="cuda"):
+    """One deep_svrp sweep of DEEP_SEEDS trials through `run_batch`."""
+    from repro_torch.experiments import run_batch
+
+    return run_batch("deep_svrp", problem, grid=dict(
+        eta=DEEP_HP["eta"], local_lr=DEEP_HP["local_lr"], anchor_prob=DEEP_HP["anchor_prob"]),
+        seeds=list(range(DEEP_SEEDS)), x0=x0, x_star=x0, num_steps=rounds,
+        local_steps=DEEP_HP["local_steps"], channel=channel, fused=fused, draws=draws,
+        device=device)
+
+
+def deep_sweep(preset, problem, x0, draws, rounds, *, fused, channel=None) -> tuple:
+    """A timed, counted deep_svrp sweep on the card: (result, info)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Draws
+
+    draws = Draws(None, draws.coins[:rounds])
+    zero_launch_counts(DEEP_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = _timed(lambda: deep_run(problem, x0, draws, rounds, fused=fused, channel=channel))
+    launched = launch_counts(DEEP_KERNELS)
+    expected, formula = deep_expected(problem.cfg, rounds, draws)
+    loss = res.dist_sq.cpu().numpy()
+    info = {"phase": "deep_sweep", "preset": preset, "substrate": "fused" if fused else "registry",
+            "channel": channel or "identity", "trials": res.num_trials, "rounds": rounds,
+            "wall_s": wall, "s_per_round": wall / rounds,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": loss.tolist(), "comm_final": res.comm[:, -1].cpu().tolist(),
+            "comm_bytes_final": res.comm_bytes[:, -1].tolist(), "launches": launched,
+            "expected_launches": expected, "launch_formula": formula}
+    emit(info)
+    check(loss.shape == (DEEP_SEEDS, rounds) and np.isfinite(loss).all(),
+          f"deep {preset}: non-finite loss or wrong shape {loss.shape}")
+    check(launched == expected, f"deep {preset}: launched {launched}, expected {expected} "
+                                f"({formula})")
+    return res, info
+
+
+def deep_gap(a, b, rtol: float, k: int | None = None) -> tuple[bool, float, bool]:
+    """(comm and comm_bytes equal and loss within rtol, the largest relative
+    loss gap, bit for bit) over the first ``k`` rounds."""
+    import numpy as np
+
+    k = a.dist_sq.shape[1] if k is None else k
+    la, lb = a.dist_sq[:, :k].cpu().numpy(), b.dist_sq[:, :k].cpu().numpy()
+    same_comm = (np.array_equal(a.comm[:, :k].cpu().numpy(), b.comm[:, :k].cpu().numpy())
+                 and np.array_equal(a.comm_bytes[:, :k], b.comm_bytes[:, :k]))
+    rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    return same_comm and rel <= rtol, rel, bool(np.array_equal(la, lb))
+
+
+def _faulted_round():
+    """The planted fault: the round's local loop starts from its targets z,
+    not from the broadcast iterate."""
+    from repro_torch.core import rounds as rounds_mod
+
+    real = rounds_mod.ROUND_DEFS["deep_svrp"]
+
+    def round_fn(ops, s, k):
+        local = ops.local_prox_gd
+        ops.local_prox_gd = lambda z, x: local(z, z)
+        try:
+            return real.round(ops, s, k)
+        finally:
+            ops.local_prox_gd = local
+
+    return real, rounds_mod.RoundDef("deep_svrp", real.init, round_fn)
+
+
+def phase_deep_parity() -> dict:
+    """K1, K4 and K4b at the shapes the federated LM gives them: K1 over the
+    20m preset's 2 trials x 4 clients rows of 15,733,632 float32 values (bit
+    for bit its plain version); K4 and K4b in float32 at Dh 64 at each
+    preset's attention shape (one client's batch)."""
+    import torch
+
+    from repro_torch.kernels.prox_update import prox_update_batched, prox_update_batched_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    R, d = DEEP_SEEDS * DEEP_CLIENTS, 15_733_632
+    y, g, z = (torch.randn(R, d, generator=gen, device="cuda") for _ in range(3))
+    lr = torch.full((R,), DEEP_HP["local_lr"], device="cuda")
+    ie = torch.full((R,), 1.0 / DEEP_HP["eta"], device="cuda")
+    out, ref = prox_update_batched(y, g, z, lr, ie), prox_update_batched_plain(y, g, z, lr, ie)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), "prox_update_batched at the deep width differs from its plain "
+                                 "version")
+    b_ms, b_by = bound_ms((4 * R * d + 2 * R) * 4, 5 * R * d, "float32")
+    results = {"prox_update_batched": dict(
+        shape=[R, d], dtype="float32", max_abs_err=0.0, bit_identical=True,
+        ms=time_ms(lambda: prox_update_batched(y, g, z, lr, ie), 20),
+        plain_ms=time_ms(lambda: prox_update_batched_plain(y, g, z, lr, ie), 5, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+    del y, g, z, out, ref
+    for preset, (B, S, H, KVH) in (("20m", (2, 128, 6, 2)), ("100m", (4, 256, 12, 4))):
+        results[f"flash_attention {preset}"] = k4_case(gen, B, S, S, H, KVH, 64, torch.float32)
+        results[f"flash_attention_bwd {preset}"] = k4b_case(gen, B, S, S, H, KVH, 64,
+                                                            torch.float32, timed=True)
+    emit({"phase": "deep_parity", "kernels": [{"name": k, **v} for k, v in results.items()]})
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_deep(presets=("20m", "100m")) -> dict:
+    """DeepSVRP on the federated transformer at full width and depth."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import draw_schedule
+    from repro_torch.core import rounds as rounds_mod
+
+    ex = _load_example("fed_transformer_torch")
+    out = {}
+    for preset in presets:
+        problem, x0 = ex.make_problem(preset, DEEP_CLIENTS, DEEP_ALPHA, 0, "cuda")
+        cfg = problem.cfg
+        R = DEEP_ROUNDS[preset]
+        draws = draw_schedule(list(range(DEEP_SEEDS)), DEEP_CLIENTS, R, DEEP_HP["anchor_prob"],
+                              clients=False)
+        emit({"phase": "deep_model", "preset": preset, "params": problem.dim,
+              "layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+              "tokens_per_client": list(problem.tokens.shape[1:]), "clients": DEEP_CLIENTS,
+              "trials": DEEP_SEEDS, "hparams": DEEP_HP, "coins": draws.coins.tolist()})
+        if preset not in DEEP_REPLAYED:
+            res, _ = deep_sweep(preset, problem, x0, draws, R, fused=True)
+            k = DEEP_PATH_ROUNDS
+            fused, fi = deep_sweep(preset, problem, x0, draws, k, fused=True)
+            reg, ri = deep_sweep(preset, problem, x0, draws, k, fused=False)
+            ok, rel, bits = deep_gap(fused, reg, 0.0)
+            emit({"phase": "deep_paths", "preset": preset, "rounds": k, "fused_s_per_round":
+                  fi["s_per_round"], "registry_s_per_round": ri["s_per_round"],
+                  "loss_max_rel_diff": rel, "bit_identical": bits})
+            check(ok and bits, f"deep {preset}: fused and registry differ (rel {rel})")
+            out[preset] = res
+            del problem, x0, res, fused, reg
+            torch.cuda.empty_cache()
+            continue
+        runs = {}
+        for channel in (None, "quant8"):
+            for fused in (True, False):
+                runs[channel, fused], _ = deep_sweep(preset, problem, x0, draws, R, fused=fused,
+                                                     channel=channel)
+        for channel in (None, "quant8"):
+            ok, rel, bits = deep_gap(runs[channel, True], runs[channel, False], 0.0)
+            loss = runs[channel, True].dist_sq.cpu().numpy()
+            falls = bool((loss[:, -1] < loss[:, 0]).all())
+            emit({"phase": "deep_paths", "preset": preset, "channel": channel or "identity",
+                  "rounds": R, "loss_max_rel_diff": rel, "bit_identical": bits,
+                  "loss_falls": falls})
+            check(ok and bits, f"deep {preset} {channel}: fused and registry differ (rel {rel})")
+            check(falls, f"deep {preset} {channel}: the loss did not fall: {loss.tolist()}")
+        ratio = float(runs["quant8", True].comm_bytes[0, -1]) / float(runs[None, True].comm_bytes[0, -1])
+        emit({"phase": "deep_bytes", "preset": preset, "quant8_over_f32": ratio,
+              "limit": DEEP_BYTES_RATIO})
+        check(ratio <= DEEP_BYTES_RATIO, f"deep {preset}: quant8 bytes ratio {ratio}")
+
+        # The first rounds on the CPU (plain K1, K4, K4b) from the card's x0.
+        k = DEEP_REPLAY_ROUNDS
+        cpu_problem, _ = ex.make_problem(preset, DEEP_CLIENTS, DEEP_ALPHA, 0, "cpu")
+        check(torch.equal(cpu_problem.tokens, problem.tokens.cpu()), "deep: tokens differ")
+        t0 = time.perf_counter()
+        from repro_torch.core import Draws
+
+        cpu = deep_run(cpu_problem, x0.cpu(), Draws(None, draws.coins[:k]), k, fused=True,
+                       device="cpu")
+        cpu_s = time.perf_counter() - t0
+        ok, rel, _ = deep_gap(runs[None, True], cpu, DEEP_REPLAY_TOL["rtol"], k)
+        emit({"phase": "deep_cpu_replay", "preset": preset, "rounds": k, "ok": ok,
+              "loss_max_rel_diff": rel, "tol": DEEP_REPLAY_TOL, "cpu_s": cpu_s})
+        check(ok, f"deep {preset}: the card's first {k} rounds differ from the CPU's (rel {rel})")
+        real, faulty = _faulted_round()
+        rounds_mod.ROUND_DEFS["deep_svrp"] = faulty
+        try:
+            bad = deep_run(problem, x0, Draws(None, draws.coins[:k]), k, fused=True)
+        finally:
+            rounds_mod.ROUND_DEFS["deep_svrp"] = real
+        ok, rel, _ = deep_gap(bad, cpu, DEEP_REPLAY_TOL["rtol"], k)
+        emit({"phase": "deep_fault", "preset": preset, "fault": "the local loop starts from z",
+              "rejected": not ok, "loss_max_rel_diff": rel})
+        check(not ok, f"deep {preset}: the planted fault passed the CPU replay (rel {rel})")
+
+        # One round under the profiler.
+        one = Draws(None, draws.coins[:1])
+        wall_ms, kernels = profiled(lambda: deep_run(problem, x0, one, 1, fused=True), 1)
+        busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+        emit({"phase": "deep_profile", "preset": preset, "rounds": 1, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms,
+              "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+              "kernel_launches": sum(c for _, c in kernels.values()),
+              "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
+                              for name, (t, c) in top]})
+        out[preset] = runs[None, True]
+        del problem, x0, runs, cpu_problem, cpu, bad
+        torch.cuda.empty_cache()
+    return out
 
 
 def _timed(fn):
@@ -2655,7 +3156,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "six and prints the kernels line")
+                         "seven and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2689,9 +3190,14 @@ def main(argv=None) -> int:
             del qprob, lprob, runs
         if run["engine"]:
             qprob, lprob = fig1_quadratic("cuda"), fig2_logistic("cuda")
-            phase_engine(qprob, lprob, lprob.minimizer(),
-                         {"quadratic": fig1_quadratic("cpu"), "logistic": fig2_logistic("cpu")})
-            del qprob, lprob
+            cpu_problems = {"quadratic": fig1_quadratic("cpu"), "logistic": fig2_logistic("cpu")}
+            phase_engine(qprob, lprob, lprob.minimizer(), cpu_problems)
+            phase_engine_slice(qprob, cpu_problems)
+            del qprob, lprob, cpu_problems
+            torch.cuda.empty_cache()
+        if run["deep"]:
+            phase_deep_parity()
+            phase_deep()
             torch.cuda.empty_cache()
         if run["serving"]:
             attention = phase_attention_parity()

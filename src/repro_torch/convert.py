@@ -3,7 +3,9 @@
 The port never imports `repro`; what crosses between the two packages is
 plain numpy.  `problem_from_arrays` rebuilds a `repro` problem from its
 leaves (``A``/``b`` for a quadratic, ``Z``/``y``/``lam`` for a logistic
-problem), `hparams_from_numpy` a per-trial hparam table,
+problem, and ``dp_shift`` with the DP metadata for a DP-ERM one),
+`fed_lm_x0_from_numpy` a federated LM's flat parameter vector from the
+reference's parameter tree, `hparams_from_numpy` a per-trial hparam table,
 `dense_params_from_numpy`, `hybrid_params_from_numpy` and
 `ssm_params_from_numpy` a dense, hybrid (zamba2) or ssm (rwkv6) model's
 parameter tree and `svrp_state_from_numpy` a DeepSVRP train state,
@@ -23,6 +25,7 @@ from repro_torch.experiments.spec import resolve_algo
 from repro_torch.launch.steps import SVRPServerState
 from repro_torch.models import model as M
 from repro_torch.problems import LogisticProblem, QuadraticProblem
+from repro_torch.problems.dp_erm import DPLogisticProblem, DPQuadraticProblem
 
 
 def problem_from_arrays(
@@ -33,17 +36,39 @@ def problem_from_arrays(
     dtype: torch.dtype = torch.float64,
 ):
     """The port's problem of ``kind`` ("quadratic" or "logistic") on the
-    given leaves, as tensors of ``dtype`` on ``device`` (default CUDA)."""
+    given leaves, as tensors of ``dtype`` on ``device`` (default CUDA).
+
+    With a ``dp_shift`` leaf it is the DP-ERM problem as the reference holds
+    it (`DPQuadraticProblem`: ``b`` already noised; `DPLogisticProblem`:
+    ``Z`` already clipped), and ``dp_sigma``, ``dp_clip`` and (quadratic)
+    ``dp_n`` give its metadata."""
     dev = resolve_device(device)
 
     def t(name):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=dev)
 
+    dp = {}
+    if "dp_shift" in arrays:
+        dp = dict(dp_shift=t("dp_shift"), dp_sigma=float(arrays["dp_sigma"]),
+                  dp_clip=float(arrays["dp_clip"]))
     if kind == "quadratic":
+        if dp:
+            return DPQuadraticProblem(A=t("A"), b=t("b"), dp_n=int(arrays["dp_n"]), **dp)
         return QuadraticProblem(A=t("A"), b=t("b"))
     if kind == "logistic":
-        return LogisticProblem(Z=t("Z"), y=t("y"), lam=float(arrays["lam"]))
+        cls = DPLogisticProblem if dp else LogisticProblem
+        return cls(Z=t("Z"), y=t("y"), lam=float(arrays["lam"]), **dp)
     raise ValueError(f"unknown problem kind {kind!r}; expected 'quadratic' or 'logistic'")
+
+
+def fed_lm_x0_from_numpy(tree, cfg: ModelConfig, device=None) -> torch.Tensor:
+    """A federated LM's flat float32 parameter vector from the reference's
+    parameter tree with numpy leaves: the leaves in `jax.flatten_util.
+    ravel_pytree`'s order (dict keys sorted at every level), so it equals
+    the reference's ravelled ``x0`` bit for bit."""
+    from repro_torch.problems.fed_lm import ravel_params
+
+    return ravel_params(dense_params_from_numpy(tree, cfg, device, dtype=torch.float32))
 
 
 def hparams_from_numpy(algo: str, values: Mapping[str, np.ndarray], *, device=None):

@@ -11,6 +11,9 @@ Each cohort is one client; a round is
 This module holds the single-process form: one cohort, so the reference's
 `_maybe_pmean` over no mesh axes is the identity.  The train step of one
 card (`launch.steps.make_svrp_train_step`) runs several cohorts in turn.
+`deep_svrp_scan` and `run_deep_svrp` are the flat-vector form the engine
+sweeps (`run_batch("deep_svrp", ...)`): every client a cohort, all of them
+each round, over a convex problem or `problems.fed_lm.FedLMProblem`.
 
 The refresh coin is injected.  The reference flips it from
 ``fold_in(rng, step)``, which torch cannot replay; here a round takes
@@ -27,7 +30,10 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.rounds import local_prox_gd_tree
+from repro_torch.core.draws import Draws, trial_draws
+from repro_torch.core.rounds import ROUND_DEFS, local_prox_gd_tree, make_registry_ops, scan_rounds
+from repro_torch.core.types import RunResult, scalar_hparam
+from repro_torch.device import problem_device
 from repro_torch.utils.tree import (
     tree_add,
     tree_axpy,
@@ -101,14 +107,49 @@ def deep_svrp_round(loss_fn: Callable[[PyTree, Any], torch.Tensor], state: DeepS
     return new_state, loss_val
 
 
-def deep_svrp_scan(*args, **kwargs):
-    raise NotImplementedError("deep_svrp_scan is not ported yet: it needs problems/fed_lm.py "
-                              "and the deep_svrp round (ROADMAP §1 item 2)")
+class DeepSVRPScanParams(NamedTuple):
+    """Per-trial hyperparameters of the convex DeepSVRP scan, each a (B,)
+    tensor in a sweep."""
+
+    eta: torch.Tensor  # server prox stepsize
+    local_lr: torch.Tensor  # Algorithm 7's beta
+    anchor_prob: torch.Tensor  # p, the Bernoulli anchor-refresh probability
 
 
-def run_deep_svrp(*args, **kwargs):
-    raise NotImplementedError("run_deep_svrp is not ported yet: it needs problems/fed_lm.py "
-                              "and the deep_svrp round (ROADMAP §1 item 2)")
+def deep_svrp_scan(problem, x0: torch.Tensor, x_star: torch.Tensor, draws: Draws,
+                   hp: DeepSVRPScanParams, *, num_steps: int, local_steps: int = 4,
+                   channel: str | None = None) -> RunResult:
+    """DeepSVRP's full-participation schedule on a flat-vector problem (a
+    convex one, or `problems.fed_lm.FedLMProblem`), one trajectory per lane
+    of ``draws``, whose coins are the only draws:
+
+      1. per-client control variate  g^m = gbar - grad f_m(w)
+      2. prox target                 z^m = x - eta g^m
+      3. K prox-GD steps             y <- y - beta (grad f_m(y) + (y - z^m)/eta)
+      4. aggregate                   x' = mean_m y^m
+      5. anchor refresh w.p. p       w <- x', gbar <- grad f(w)
+
+    comm: 3M to set up the anchor, then 2M a round plus a coin-gated 2M.
+    The round is `rounds.ROUND_DEFS["deep_svrp"]` and its local solver the
+    binding every substrate shares (`rounds.deep_local_prox_gd`, one K1
+    launch a GD step)."""
+    ops = make_registry_ops("deep_svrp", problem, x0, x_star, hp, draws,
+                            local_steps=local_steps, channel=channel)
+    return scan_rounds(ROUND_DEFS["deep_svrp"], ops, x0, num_steps)
+
+
+def run_deep_svrp(problem, x0: torch.Tensor, x_star: torch.Tensor, *, eta: float,
+                  local_lr: float, anchor_prob: float, num_steps: int, seed: int | None = None,
+                  draws: Draws | None = None, local_steps: int = 4, device=None) -> RunResult:
+    """One DeepSVRP trajectory on ``device`` (default CUDA), with the coins of
+    ``draws`` (a per-trial coins-only record) or drawn from ``seed``."""
+    dev = problem_device(problem, device)
+    hp = DeepSVRPScanParams(eta=scalar_hparam(eta, dev), local_lr=scalar_hparam(local_lr, dev),
+                            anchor_prob=scalar_hparam(anchor_prob, dev))
+    draws = trial_draws(draws, seed, problem.num_clients, num_steps, anchor_prob,
+                        clients=False, device=dev)
+    return deep_svrp_scan(problem, x0, x_star, draws, hp, num_steps=num_steps,
+                          local_steps=local_steps)
 
 
 # ----------------------------------------------------------------- baselines

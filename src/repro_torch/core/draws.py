@@ -12,6 +12,9 @@ round layer reads the same decisions from a `Draws` record instead:
 * ``coins``: ``(K, B)`` (or ``(T, K, B)``) bool anchor-refresh coins, None for
   sppm, which never refreshes.
 
+DeepSVRP draws no client (every client takes part in every round): its
+record carries coins only, and ``clients`` is None.
+
 The baselines follow the same two patterns: sgd and scaffold draw one client a
 round (as sppm), svrg a client and a coin (as svrp); dane and
 acc_extragradient draw nothing.  One trial's record (``batched=False``) has
@@ -37,7 +40,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Draws:
-    clients: torch.Tensor  # (K, B) / (K, B, b) int64; Catalyst (T, K, B)
+    clients: torch.Tensor | None  # (K, B) / (K, B, b) int64; Catalyst (T, K, B); deep_svrp None
     coins: torch.Tensor | None = None  # (K, B) bool; Catalyst (T, K, B); None for sppm
     # Host (K,) / (T, K) mask: does any trial refresh its anchor at that round?
     refresh: np.ndarray | None = None
@@ -60,20 +63,23 @@ class Draws:
         return (self.num_trials,) if self.batched else ()
 
     def to(self, device) -> "Draws":
-        coins = None if self.coins is None else self.coins.to(device)
-        return Draws(self.clients.to(device), coins, self.refresh, self.batched)
+        return Draws(_opt(self.clients, lambda t: t.to(device)),
+                     _opt(self.coins, lambda t: t.to(device)), self.refresh, self.batched)
 
     def stage(self, t: int) -> "Draws":
         """Catalyst's outer stage t as a plain ``(K, B)`` (or ``(K,)``) record."""
-        coins = None if self.coins is None else self.coins[t]
         refresh = None if self.refresh is None else self.refresh[t]
-        return Draws(self.clients[t], coins, refresh, self.batched)
+        return Draws(self.clients[t], _opt(self.coins, lambda c: c[t]), refresh, self.batched)
 
     def trial(self, i: int) -> "Draws":
         """Trial ``i`` of a batched record, as one trial's record."""
         axis = (self.coins if self.coins is not None else self.clients).ndim - 1
-        coins = None if self.coins is None else self.coins.select(axis, i)
-        return Draws(self.clients.select(axis, i), coins, batched=False)
+        return Draws(_opt(self.clients, lambda t: t.select(axis, i)),
+                     _opt(self.coins, lambda t: t.select(axis, i)), batched=False)
+
+
+def _opt(t, fn):
+    return None if t is None else fn(t)
 
 
 def draw_schedule(
@@ -84,6 +90,7 @@ def draw_schedule(
     *,
     batch_clients: int | None = None,
     num_outer: int | None = None,
+    clients: bool = True,
     device=None,
 ) -> Draws:
     """Draw a sweep's whole horizon natively, one generator per trial.
@@ -91,23 +98,24 @@ def draw_schedule(
     ``seeds`` is the ``(B,)`` per-trial seed array; ``p`` the ``(B,)`` (or
     scalar) refresh probability, None for sppm; ``batch_clients`` draws
     cohorts of that size without replacement; ``num_outer`` stacks Catalyst's
-    stages.  Trial b's generator draws its clients first, then its coins."""
+    stages; ``clients=False`` draws coins only (DeepSVRP).  Trial b's
+    generator draws its clients first, then its coins."""
     seeds = np.asarray(seeds).reshape(-1)
     lead = (num_steps,) if num_outer is None else (num_outer, num_steps)
     probs = None if p is None else np.broadcast_to(np.asarray(p, np.float64), seeds.shape)
-    clients, coins = [], []
+    picks, coins = [], []
     for b, seed in enumerate(seeds):
         gen = torch.Generator().manual_seed(int(seed))
-        if batch_clients is None:
-            clients.append(torch.randint(0, num_clients, lead, generator=gen))
-        else:
+        if clients and batch_clients is None:
+            picks.append(torch.randint(0, num_clients, lead, generator=gen))
+        elif clients:
             keys = torch.rand(lead + (num_clients,), generator=gen, dtype=torch.float64)
-            clients.append(keys.argsort(dim=-1)[..., :batch_clients])
+            picks.append(keys.argsort(dim=-1)[..., :batch_clients])
         if probs is not None:
             coins.append(torch.rand(lead, generator=gen, dtype=torch.float64) < float(probs[b]))
     axis = len(lead)
     draws = Draws(
-        torch.stack(clients, dim=axis),
+        torch.stack(picks, dim=axis) if clients else None,
         None if probs is None else torch.stack(coins, dim=axis),
     )
     return draws if device is None else draws.to(device)
@@ -122,6 +130,7 @@ def trial_draws(
     *,
     batch_clients: int | None = None,
     num_outer: int | None = None,
+    clients: bool = True,
     device=None,
 ) -> Draws:
     """One trial's record for a per-trial driver, on ``device``.
@@ -130,29 +139,35 @@ def trial_draws(
     cohorts; Catalyst ``(T, K)``) and coins of the lead shape — or a batched
     record of one trial; when it is None, `draw_schedule` draws the record
     from ``seed``.  Client indices are checked against ``[0, num_clients)``
-    here, once, on the host."""
+    here, once, on the host.  ``clients=False``: a coins-only record
+    (DeepSVRP), checked by its coins' shape."""
     lead = (num_steps,) if num_outer is None else (num_outer, num_steps)
     cohort = () if batch_clients is None else (batch_clients,)
     if draws is None:
         if seed is None:
             raise ValueError("pass draws= (a per-trial record) or seed= to draw one")
-        draws = draw_schedule([seed], num_clients, num_steps, p,
-                              batch_clients=batch_clients, num_outer=num_outer).trial(0)
-    elif draws.batched and tuple(draws.clients.shape) == lead + (1,) + cohort:
-        draws = draws.trial(0)
-    elif tuple(draws.clients.shape) == lead + cohort:
-        if draws.batched:
-            draws = Draws(draws.clients, draws.coins, batched=False)
+        draws = draw_schedule([seed], num_clients, num_steps, p, batch_clients=batch_clients,
+                              num_outer=num_outer, clients=clients).trial(0)
     else:
-        raise ValueError(
-            f"the draws have clients {tuple(draws.clients.shape)}; this run needs "
-            f"{lead + cohort} (or {lead + (1,) + cohort})"
-        )
+        picked = draws.clients if clients else draws.coins
+        got = None if picked is None else tuple(picked.shape)
+        if draws.batched and got == lead + (1,) + cohort:
+            draws = draws.trial(0)
+        elif got == lead + cohort:
+            if draws.batched:
+                draws = Draws(draws.clients, draws.coins, batched=False)
+        else:
+            raise ValueError(
+                f"the draws have {'clients' if clients else 'coins'} {got}; this run needs "
+                f"{lead + cohort} (or {lead + (1,) + cohort})"
+            )
+        if not clients and draws.clients is not None:
+            raise ValueError("this run draws no clients; the draws carry some")
     coins_shape = None if draws.coins is None else tuple(draws.coins.shape)
     if coins_shape != (None if p is None else lead):
         raise ValueError(f"the draws have coins {coins_shape}; this run needs "
                          f"{None if p is None else lead}")
-    if draws.clients.numel():
+    if draws.clients is not None and draws.clients.numel():
         lo, hi = (int(v) for v in torch.aminmax(draws.clients))
         if lo < 0 or hi >= num_clients:
             raise ValueError(f"the draws' clients span [{lo}, {hi}], outside [0, {num_clients})")

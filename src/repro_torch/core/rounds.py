@@ -53,12 +53,22 @@ it.  ``comm`` keeps the reference's dtypes under x64: int64 for sppm, int32
 for the refresh-bearing rounds (the reference's ``c.astype(int32)``
 increment fixes their counter to int32).
 
+DeepSVRP's round (``deep_svrp``) is full participation: every client runs
+``local_steps`` Algorithm-7 GD steps from the broadcast iterate each round,
+and the server averages them.  Its local solver is ONE binding
+(`deep_local_prox_gd`) that the sequential, registry and fused substrates
+share: each GD step is one K1 launch (`kernels.prox_update_batched`) over
+the lanes x M rows, with the per-row gradients from ``problem.grad`` (a
+quadratic's batched matvec, or `problems.fed_lm.FedLMProblem`'s model
+gradients through K4 / K4b).  A problem with a ``metric`` (the federated
+LM) reports it per lane in place of the squared distance.
+
 `local_prox_gd_tree` is DeepSVRP's local solver over a parameter tree, the
 loop the DeepSVRP round (`core.deep`) and the train step
 (`launch.steps.make_svrp_train_step`) run on every cohort.
 
-Not ported yet: the convex deep_svrp round definition (ROADMAP §1 item 2),
-the client-sharded substrate (item 6) and the incremental sessions (item 7).
+Not ported yet: the client-sharded substrate (ROADMAP §1 item 6) and the
+incremental sessions (item 7).
 """
 from __future__ import annotations
 
@@ -87,7 +97,8 @@ class RoundOps:
     ``S`` is ``(B,)`` for a batched `Draws` record of B trials and ``()``
     for one trial's record.  The local prox solve is injected by the caller:
     ``prox(m, z)`` for single-client rounds (sppm/svrp), ``cohort_prox(ms,
-    z)`` for minibatch cohorts.  ``grad``/``full_grad`` overrides replace the
+    z)`` for minibatch cohorts, ``local_prox_gd(z, x)`` for DeepSVRP's
+    full-participation rows.  ``grad``/``full_grad`` overrides replace the
     problem's oracles (the fused Catalyst's per-trial shifted gradients)."""
 
     def __init__(
@@ -103,6 +114,7 @@ class RoundOps:
         cohort_size: int | None = None,
         grad: Callable | None = None,
         full_grad: Callable | None = None,
+        local_prox_gd: Callable | None = None,
         channel=None,
     ):
         self.problem = problem
@@ -117,6 +129,7 @@ class RoundOps:
         self.prox = prox
         self.cohort_prox = cohort_prox
         self.cohort_size = cohort_size
+        self.local_prox_gd = local_prox_gd
         self._grad = problem.grad
         self._full_grad = problem.full_grad
         self.oracle_overridden = grad is not None or full_grad is not None
@@ -135,6 +148,11 @@ class RoundOps:
 
     def bernoulli(self, k: int) -> torch.Tensor:
         return self.draws.coins[k]
+
+    def all_clients(self) -> torch.Tensor:
+        """Every client, in every lane: ``S + (M,)`` (DeepSVRP's full
+        participation draws no client)."""
+        return torch.arange(self.M, device=self.device).expand(self.lanes + (self.M,))
 
     # ------------------------------------------------------------- oracles
     def grad(self, m, y):
@@ -203,7 +221,17 @@ class RoundOps:
     def chan_bcast(self, v):
         return self.channel.bcast(v)
 
+    def client_mean(self, y):
+        """Mean over the client axis of full-participation rows: S + (M, d) -> S + (d,)."""
+        return y.mean(dim=-2)
+
     def dist_sq(self, x):
+        """Squared distance to x_star per lane; a problem with a ``metric``
+        (no computable minimizer: the federated LM's mean loss) reports
+        that, per lane, instead."""
+        metric = getattr(self.problem, "metric", None)
+        if metric is not None:
+            return metric(x)
         return ((x - self.x_star) ** 2).sum(-1)
 
 
@@ -278,11 +306,74 @@ def _svrp_minibatch_round(ops: RoundOps, s, k):
     return (x_next, w_next, gbar_next, comm, ch), (ops.dist_sq(x_next), comm)
 
 
+def _deep_svrp_round(ops: RoundOps, s, k):
+    """DeepSVRP's full-participation round: every client is a cohort and all
+    M step at once, with Algorithm 7 at the explicit stepsize hp.local_lr
+    (``ops.local_prox_gd``).  The refresh coin is the round's only draw."""
+    x, w, gbar, comm, ch = s
+    clients = ops.all_clients()
+
+    ch, x_d = ops.chan_down(ch, x)
+    g_k = ops.expand(gbar) - ops.cohort_grad(clients, w)
+    z = ops.expand(x_d) - ops.cvec(ops.hp.eta) * g_k
+    del g_k
+    y = ops.local_prox_gd(z, x_d)
+    x_next = ops.client_mean(ops.chan_up(y))
+    del z, y
+
+    c = ops.bernoulli(k)
+    w_next = ops.where_vec(c, ops.chan_bcast(x_next), w)
+    gbar_next = ops.refresh_grad(k, c, w_next, gbar)
+    # 2M a round (x down, y up, every client) and a coin-gated 2M for the
+    # anchor-gradient all-reduce.
+    comm = comm + 2 * ops.M + 2 * ops.M * ops.as_count(c)
+    return (x_next, w_next, gbar_next, comm, ch), (ops.dist_sq(x_next), comm)
+
+
 ROUND_DEFS: dict[str, RoundDef] = {
     "sppm": RoundDef("sppm", _sppm_init, _sppm_round),
     "svrp": RoundDef("svrp", _svrp_init, _svrp_round),
     "svrp_minibatch": RoundDef("svrp_minibatch", _svrp_init, _svrp_minibatch_round),
+    "deep_svrp": RoundDef("deep_svrp", _svrp_init, _deep_svrp_round),
 }
+
+
+def deep_local_prox_gd(problem, hp, lanes: tuple, dtype, device, local_steps: int) -> Callable:
+    """DeepSVRP's local solver, the one binding every substrate shares:
+    ``local_prox_gd(z, x)`` takes ``local_steps`` Algorithm-7 steps
+
+        y <- y - local_lr (grad f_m(y) + (y - z_m) / eta)
+
+    for every lane and client at once, from ``y0 = x``: ``z`` is
+    ``S + (M, d)``, ``x`` ``S + (d,)`` broadcast over the clients (the
+    round's start) or ``S + (M, d)``.  Each step is one
+    K1 launch (`kernels.prox_update.prox_update_batched`; its plain version
+    on CPU tensors) over the ``prod(S) * M`` rows, with each row's lane's
+    ``local_lr`` and ``1/eta`` (the reference's `ref.prox_update_batched`
+    and its Pallas kernel compute the same formula)."""
+    from repro_torch.kernels.prox_update import prox_update_batched
+
+    M = problem.num_clients
+
+    def rows(h):
+        lane = torch.as_tensor(h, dtype=dtype, device=device).broadcast_to(lanes).reshape(-1)
+        return lane.repeat_interleave(M)
+
+    lr_rows = rows(hp.local_lr)
+    ie_rows = 1.0 / rows(hp.eta)
+    m_rows = torch.arange(M, device=device).repeat(lr_rows.shape[0] // M)
+
+    def local_prox_gd(z, x):
+        d = z.shape[-1]
+        z_rows = z.reshape(-1, d)
+        y = (x if x.dim() == z.dim() else x.unsqueeze(-2)).expand(z.shape).reshape(-1, d)
+        for _ in range(local_steps):
+            g = None  # the previous step's gradient, freed before the next is taken
+            g = problem.grad(m_rows, y)
+            y = prox_update_batched(y, g, z_rows, lr_rows, ie_rows)
+        return y.reshape(z.shape)
+
+    return local_prox_gd
 
 
 # ========================================== sequential and registry substrates
@@ -297,10 +388,13 @@ ROUND_DEFS: dict[str, RoundDef] = {
 def make_registry_ops(
     algo: str, problem, x0, x_star, hp, draws: Draws, *,
     prox_solver: str = "exact", prox_steps: int = 50, prox_tol: float = 1e-10,
-    batch_clients: int | None = None, prox_factors=None, channel=None,
+    batch_clients: int | None = None, local_steps: int | None = None, prox_factors=None,
+    channel=None,
 ) -> RoundOps:
     """Bind one rounds-defined algorithm to its registry prox solver over the
     lanes of ``draws``; ``hp`` fields are per-lane (or shared) scalars.
+    deep_svrp binds its local Algorithm-7 loop (`deep_local_prox_gd`,
+    ``local_steps`` steps) instead of a prox solver.
 
     ``prox_factors`` passes pre-hoisted solver state (Catalyst's spectral
     factors, hoisted once for every stage); otherwise the solver's own
@@ -308,10 +402,9 @@ def make_registry_ops(
     from repro_torch.core.prox import get_prox_solver
 
     if algo == "deep_svrp":
-        raise NotImplementedError(
-            "the convex deep_svrp round (make_registry_ops('deep_svrp', ...)) is not "
-            "ported to repro_torch yet: ROADMAP §1 item 2"
-        )
+        local = deep_local_prox_gd(problem, hp, draws.lanes, x0.dtype, x0.device, local_steps)
+        return RoundOps(problem, hp, x_star, x0.dtype, draws=draws, local_prox_gd=local,
+                        channel=channel)
     solver = get_prox_solver(prox_solver, problem)
     factors = prox_factors if prox_factors is not None else solver.prepare(problem)
     dtype, dev = x0.dtype, x0.device
@@ -338,14 +431,15 @@ def make_registry_ops(
 def registry_batched_scan(
     algo: str, problem, x0, x_star, draws: Draws, hp, *,
     num_steps: int, prox_solver: str = "exact", prox_steps: int = 50,
-    prox_tol: float = 1e-10, batch_clients: int | None = None, channel=None,
+    prox_tol: float = 1e-10, batch_clients: int | None = None,
+    local_steps: int | None = None, channel=None,
 ) -> RunResult:
     """Run one rounds-defined algorithm over the ``(B,)`` lanes of ``draws``
     with its registry prox solver (per-trial eta/smoothness per lane)."""
     ops = make_registry_ops(
         algo, problem, x0, x_star, hp, draws, prox_solver=prox_solver,
         prox_steps=prox_steps, prox_tol=prox_tol, batch_clients=batch_clients,
-        channel=channel,
+        local_steps=local_steps, channel=channel,
     )
     return scan_rounds(ROUND_DEFS[algo], ops, x0, num_steps)
 
@@ -379,13 +473,23 @@ def prox_gd_fused(problem, m, z, eta, L, prox_steps: int):
     trials for single-client rounds and trial x cohort pairs for minibatch.
     ``m`` comes from the sweep's draws, whose range `run_batch` checked when
     the sweep started, so neither solve repeats the check; both read the
-    sampled clients' data in place."""
+    sampled clients' data in place.
+
+    DP-ERM noise fold: a problem with ``dp_linear_term(m)`` (the per-client
+    objective-perturbation shift s_m) solves prox_{eta f^DP}(z) =
+    prox_{eta f}(z - eta s_m) through the same kernel, from the unshifted
+    start ``y0 = z``, as the reference does.  The quadratic branch needs no
+    fold: the noise rides in ``problem.b``."""
     if fused_oracle_kind(problem) == "logistic":
         from repro_torch.kernels.logistic_prox import logistic_prox_gd_indexed
 
         beta = 1.0 / (L + 1.0 / eta)
-        return logistic_prox_gd_indexed(problem.Z, problem.y, m, z, beta, 1.0 / eta,
-                                        problem.lam, prox_steps, check_indices=False)
+        y0, target = None, z
+        if hasattr(problem, "dp_linear_term"):
+            target = z - eta[:, None] * problem.dp_linear_term(m)
+            y0 = z
+        return logistic_prox_gd_indexed(problem.Z, problem.y, m, target, beta, 1.0 / eta,
+                                        problem.lam, prox_steps, y0=y0, check_indices=False)
     from repro_torch.core.prox import gd_row_scalars
     from repro_torch.kernels.prox_update import quadratic_prox_gd_batched
 
@@ -410,6 +514,10 @@ def _fused_ops(algo: str, problem, hp, x_star, x0, draws: Draws, *,
     """Bind one algorithm's fused substrate: injected draws + kernel prox."""
     dtype, dev = x0.dtype, x0.device
     B = draws.num_trials
+    if algo == "deep_svrp":  # needs only problem.grad: no fused oracle kind
+        local = deep_local_prox_gd(problem, hp, (B,), dtype, dev, inner_steps)
+        return RoundOps(problem, hp, x_star, dtype, draws=draws, local_prox_gd=local,
+                        channel=channel)
     eta = _per_trial(hp.eta, B, dtype, dev)
     L = _per_trial(getattr(hp, "smoothness", 0.0), B, dtype, dev)
     kw: dict[str, Any] = {"cohort_size": cohort_size, "channel": channel}

@@ -16,13 +16,16 @@ loop over ``(B, d)`` lanes:
     res.summary()          # median/IQR over the batch axis
 
 Substrates (`repro_torch.core.rounds`): by default (``fused=False``) the
-rounds-defined algorithms (sppm, svrp, svrp_minibatch) run
-`rounds.registry_batched_scan`, their registry prox solver over the lanes,
-and catalyzed_svrp and the baselines run their ``scan_fn`` over the same
-``(B,)`` lanes (the counterpart of the reference's vmap of the per-trial
-scan).  ``fused=True`` with ``prox_solver="gd"`` runs the fused substrate,
-the Algorithm-7 solves through the batched Hopper kernels.  `run_sequential`
-runs the same trials one driver call per trial.
+rounds-defined algorithms (sppm, svrp, svrp_minibatch, deep_svrp) run
+`rounds.registry_batched_scan`, their registry prox solver (deep_svrp: its
+local Algorithm-7 loop) over the lanes, and catalyzed_svrp, composite and
+the baselines run their ``scan_fn`` over the same ``(B,)`` lanes (the
+counterpart of the reference's vmap of the per-trial scan).  ``fused=True``
+with ``prox_solver="gd"`` runs the fused substrate, the Algorithm-7 solves
+through the batched Hopper kernels; deep_svrp's fused path needs only
+``problem.grad``, so it also runs on `problems.fed_lm.FedLMProblem` (the
+reference's fused path takes only quadratic and logistic problems).
+`run_sequential` runs the same trials one driver call per trial.
 
 The random draws come from a `core.draws.Draws` record: by default
 `draw_schedule` draws them natively from the trial seeds (trial s draws the
@@ -33,8 +36,7 @@ acc_extragradient) draw nothing.  Both entry points run on CUDA unless
 ``device=`` names another device, and never fall back to the CPU.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-``shard=`` (item 6), ``stop_eps=`` (item 7), the composite (item 3) and
-deep_svrp (item 2) algorithms.
+``shard=`` (item 6) and ``stop_eps=`` (item 7).
 """
 from __future__ import annotations
 
@@ -140,15 +142,17 @@ def ledger_bytes(cfg: Mapping[str, Any], x0: torch.Tensor, comm) -> np.ndarray:
     return np.asarray(torch.as_tensor(comm).cpu().numpy(), dtype=np.int64) * np.int64(wire)
 
 
-def _expected_draws(algo: str, cfg: Mapping[str, Any], B: int) -> tuple[tuple, tuple | None]:
-    """The (clients, coins) shapes a sweep consumes."""
+def _expected_draws(algo: str, cfg: Mapping[str, Any], B: int) -> tuple[tuple | None, tuple | None]:
+    """The (clients, coins) shapes a sweep consumes (None: draws none)."""
     lead = (horizon_rounds(cfg), B)
     if algo == "catalyzed_svrp":
         lead = (cfg["num_outer"],) + lead
         return lead, lead
     if algo == "svrp_minibatch":
         return lead + (cfg["batch_clients"],), lead
-    return lead, (lead if algo in ("svrp", "svrg") else None)
+    if algo == "deep_svrp":
+        return None, lead
+    return lead, (lead if algo in ("svrp", "svrg", "composite") else None)
 
 
 def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int, M: int) -> None:
@@ -156,12 +160,13 @@ def _check_draws(draws: Draws, algo: str, cfg: Mapping[str, Any], B: int, M: int
     kernels that read a client's data by index need not check every round."""
     clients, coins = _expected_draws(algo, cfg, B)
     got_coins = None if draws.coins is None else tuple(draws.coins.shape)
-    if tuple(draws.clients.shape) != clients or got_coins != coins:
+    got_clients = None if draws.clients is None else tuple(draws.clients.shape)
+    if got_clients != clients or got_coins != coins:
         raise ValueError(
-            f"{algo}: the injected draws have clients {tuple(draws.clients.shape)} and "
+            f"{algo}: the injected draws have clients {got_clients} and "
             f"coins {got_coins}; this sweep needs clients {clients} and coins {coins}"
         )
-    if draws.clients.numel():
+    if got_clients is not None and draws.clients.numel():
         lo, hi = (int(v) for v in torch.aminmax(draws.clients))
         if lo < 0 or hi >= M:
             raise ValueError(f"{algo}: the draws' clients span [{lo}, {hi}], outside [0, {M})")
@@ -177,8 +182,9 @@ def _sweep_draws(spec: AlgoSpec, algo: str, cfg, hparams, seeds: np.ndarray, M: 
         return None
     if draws is None:
         draws = draw_schedule(
-            seeds, M, horizon_rounds(cfg), hparams.get("p"),
+            seeds, M, horizon_rounds(cfg), hparams.get("p", hparams.get("anchor_prob")),
             batch_clients=cfg.get("batch_clients"), num_outer=cfg.get("num_outer"),
+            clients=algo != "deep_svrp",
         )
     _check_draws(draws, algo, cfg, seeds.shape[0], M)
     return draws
@@ -265,7 +271,8 @@ def run_batch(
             raise ValueError(
                 f"{algo}: fused=True requires a fusable algo with prox_solver='gd'"
             )
-        fused_oracle_kind(problem)
+        if algo != "deep_svrp":  # deep_svrp's local loop needs only problem.grad
+            fused_oracle_kind(problem)
     draws = _sweep_draws(spec, algo, cfg, rr.hparams, rr.seeds, problem.num_clients, draws)
     draws = None if draws is None else draws.to(dev)
     hp = rr.device_hparams(dev)

@@ -1,8 +1,7 @@
 """What to run: the algorithm registry and the shared `RunSpec`.
 
-Port of `repro.experiments.spec`: every `ALGOS` entry of the reference but
-composite (ROADMAP §1 item 3) and deep_svrp (item 2), whose names raise "not
-ported".  Resolution, trial table, static config, theory-stepsize resolution
+Port of `repro.experiments.spec`: every `ALGOS` entry of the reference.
+Resolution, trial table, static config, theory-stepsize resolution
 (`core.theory.theory_grid`) and every validation error text are the
 reference's, so a sweep that `repro` rejects fails here with the same message.
 """
@@ -28,6 +27,8 @@ from repro_torch.core.baselines import (
 )
 from repro_torch.core.catalyst import CatalyzedSVRPParams, catalyzed_svrp_scan
 from repro_torch.core.channel import get_channel
+from repro_torch.core.composite import CompositeSVRPParams, composite_svrp_scan
+from repro_torch.core.deep import DeepSVRPScanParams, deep_svrp_scan
 from repro_torch.core.minibatch import MinibatchParams, svrp_minibatch_scan
 from repro_torch.core.prox import get_prox_solver
 from repro_torch.core.sppm import SPPMParams, sppm_scan
@@ -60,6 +61,7 @@ class AlgoSpec:
     fused_inner_steps: str | None = None
     fused_round_steps: str = "num_steps"
     deterministic: bool = False  # draws nothing; run_batch rejects multi-seed sweeps
+    requires_x_star: bool = False  # problem.minimizer() is NOT the right reference point
 
 
 _PROX_STATIC = {
@@ -128,11 +130,23 @@ ALGOS: dict[str, AlgoSpec] = {
         static={"num_rounds": _REQUIRED, "surrogate_client": 0},
         deterministic=True,
     ),
+    "composite": AlgoSpec(
+        CompositeSVRPParams, composite_svrp_scan,
+        defaults={
+            "eta": _REQUIRED, "p": _REQUIRED,
+            "smoothness": _REQUIRED, "mu": _REQUIRED,
+        },
+        static={"num_steps": _REQUIRED, "prox_R": _REQUIRED, "prox_steps": 80},
+        requires_x_star=True,  # dist_sq must be measured to the COMPOSITE optimum
+    ),
+    "deep_svrp": AlgoSpec(
+        DeepSVRPScanParams, deep_svrp_scan,
+        defaults={"eta": _REQUIRED, "local_lr": _REQUIRED, "anchor_prob": _REQUIRED},
+        static={"num_steps": _REQUIRED, "local_steps": 4, "channel": None},
+        # its local solver IS Algorithm 7 (no prox_solver switch)
+        fusable=True, fused_inner_steps="local_steps",
+    ),
 }
-
-# The reference's entries this port does not carry yet, with the ROADMAP
-# item that ports each.
-NOT_PORTED_ALGOS = {"composite": "ROADMAP §1 item 3", "deep_svrp": "ROADMAP §1 item 2"}
 
 
 def horizon_rounds(cfg: Mapping[str, Any]) -> int:
@@ -201,6 +215,20 @@ class RunSpec:
         if x0 is None:
             x0 = torch.zeros(problem.dim, dtype=_problem_dtype(problem), device=problem.device)
         if x_star is None:
+            if aspec.requires_x_star:
+                raise ValueError(
+                    f"{algo}: pass x_star explicitly — problem.minimizer() is the "
+                    "UNCONSTRAINED optimum, not this algorithm's reference point "
+                    "(use e.g. composite_minimizer_pgd)"
+                )
+            if hasattr(problem, "privacy_spent"):
+                raise ValueError(
+                    f"{algo}: DP problems need an explicit x_star — "
+                    "problem.minimizer() is the NOISED optimum; pass "
+                    "problem.base_problem().minimizer() to measure utility "
+                    "against the non-private solution, or problem.minimizer() "
+                    "to measure convergence of the private objective"
+                )
             x_star = problem.minimizer()
         if self.stepsize is not None:
             if self.stepsize != "theory":
@@ -284,11 +312,6 @@ def as_runspec(
 
 
 def resolve_algo(algo: str) -> AlgoSpec:
-    if algo in NOT_PORTED_ALGOS:
-        raise NotImplementedError(
-            f"algo {algo!r} is not ported to repro_torch yet ({NOT_PORTED_ALGOS[algo]}); "
-            "use repro for it"
-        )
     if algo not in ALGOS:
         raise KeyError(f"unknown algo {algo!r}; available: {sorted(ALGOS)}")
     return ALGOS[algo]

@@ -6,8 +6,9 @@ the round (`repro.core.rounds.RoundOps`, `repro.core.baselines`);
 reference's exact draws for a sweep — per trial b: ``key(seed_b)`` ->
 ``split(key, K)`` -> per round ``split`` -> ``randint`` /
 ``choice(replace=False)`` / ``bernoulli`` (sppm, sgd and scaffold:
-``randint`` on the round key itself; Catalyst first splits ``(key,
-num_outer)``) — so both packages run the same trajectories and ``comm``
+``randint`` on the round key itself; deep_svrp: ``bernoulli`` on the round
+key itself, no client; Catalyst first splits ``(key, num_outer)``) — so
+both packages run the same trajectories and ``comm``
 agrees integer-exactly; `replay_trial` gives one trial's record for the
 per-trial drivers.
 
@@ -46,6 +47,10 @@ def _round_draws(keys, algo: str, M: int, num_steps: int, p, batch_clients):
 
     if algo == "sppm":
         return np.asarray(_per_round_trial(uniform)(step_keys)), None
+    if algo == "deep_svrp":  # no client draw: the coin flips on the round key itself
+        coins = _per_round_trial(jax.random.bernoulli)(step_keys,
+                                                       jnp.broadcast_to(p, step_keys.shape))
+        return None, np.asarray(coins)
     split = _per_round_trial(jax.random.split)(step_keys)  # (K, B, 2)
     key_m, key_c = split[:, :, 0], split[:, :, 1]
     if batch_clients is None:
@@ -60,8 +65,9 @@ def _round_draws(keys, algo: str, M: int, num_steps: int, p, batch_clients):
 
 # The baselines draw as the rounds they mirror: sgd and scaffold one client
 # from each round key (`repro.core.baselines` randint on the key), svrg a
-# client and a coin from its split.
-_PATTERN = {"sgd": "sppm", "scaffold": "sppm", "svrg": "svrp"}
+# client and a coin from its split; composite draws as svrp
+# (`repro.core.composite`: split, randint, bernoulli).
+_PATTERN = {"sgd": "sppm", "scaffold": "sppm", "svrg": "svrp", "composite": "svrp"}
 
 
 def replay_draws(algo: str, seeds, M: int, cfg: dict, p=None, dtype=jnp.float64):
@@ -83,7 +89,8 @@ def replay_draws(algo: str, seeds, M: int, cfg: dict, p=None, dtype=jnp.float64)
 
 def draws_from_numpy(clients, coins, device="cpu", batched=True) -> Draws:
     return Draws(
-        torch.tensor(np.array(clients, dtype=np.int64), device=device),
+        None if clients is None else torch.tensor(np.array(clients, dtype=np.int64),
+                                                  device=device),
         None if coins is None else torch.tensor(np.array(coins, dtype=bool), device=device),
         batched=batched,
     )

@@ -3,8 +3,8 @@
 SGD, loopless SVRG, SCAFFOLD, DANE and accelerated extragradient: each
 ``run_*`` driver of the port, on the CPU, against the reference's with the
 reference's draws replayed from the same key (tests/_torch_replay.py), on a
-small quadratic (M 12, d 8) and, for the surrogate methods, a small logistic
-problem (their guarded-Newton surrogate).  Then the quickstart twin
+small quadratic (M 12, d 8) and a small logistic problem (SGD, SVRG and
+SCAFFOLD on its gradients, the surrogate methods by guarded Newton).  Then the quickstart twin
 (examples/quickstart_torch.py) runs its three drivers at 300 rounds against
 `repro`'s `run_svrp`, `run_svrg` and `run_sgd` with the same keys.
 
@@ -113,6 +113,24 @@ def test_surrogate_methods_on_logistic_match_reference(logi, algo):
     _check(port, ref, NEWTON)
 
 
+@pytest.mark.parametrize("algo", ["sgd", "svrg", "scaffold"])
+def test_sampling_methods_on_logistic_match_reference(logi, algo):
+    """Non-quadratic gradients with the reference's draws replayed from
+    ``key(1)``; every step is closed form, so the quadratic's tolerance."""
+    lg, _ = logi
+    L = float(lg.smoothness_max())
+    kw = {"sgd": dict(stepsize=1 / (2 * L), num_steps=60),
+          "svrg": dict(stepsize=1 / (6 * L), p=0.3, num_steps=60),
+          "scaffold": dict(local_lr=1 / (4 * L), global_lr=1.0, local_steps=3,
+                           num_rounds=30)}[algo]
+    (rp, rx0, rxs), (pp, px0, pxs) = _both(logi)
+    ref = getattr(rcore, f"run_{algo}")(rp, rx0, rxs, key=jax.random.key(1), **kw)
+    draws = replay_trial(algo, 1, lg.num_clients, kw, kw.get("p"))
+    port = getattr(tcore, f"run_{algo}")(pp, px0, pxs, draws=draws, device="cpu", **kw)
+    _check(port, ref, EXACT)
+    assert float(port.dist_sq[-1]) < float(port.dist_sq[0])
+
+
 def test_svrg_refresh_only_on_coin_rounds(quad, monkeypatch):
     """L-SVRG recomputes the anchor gradient only on rounds whose coin says
     so: the host knows the coins, so no round asks the device."""
@@ -170,3 +188,17 @@ def test_quickstart_twin_raises_without_a_card():
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         _quickstart().run(None, dict.fromkeys(("SVRP", "SVRG", "SGD"), 2))
+
+
+def test_fed_a9a_twin_runs():
+    """examples/fed_a9a_torch.py at a small size on the CPU: both panels'
+    sweeps run, and SVRP ends nearer the optimum than L-SVRG at the budget."""
+    spec = importlib.util.spec_from_file_location("fed_a9a_torch",
+                                                  REPO / "examples" / "fed_a9a_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    panels = mod.main(["--clients", "6", "--comm-budget", "600", "--seeds", "2",
+                       "--n-per-client", "100", "--device", "cpu"])
+    for runs in panels.values():
+        svrp, svrg = (runs[k].final_at_budget(600) for k in ("svrp", "svrg"))
+        assert np.isfinite(svrp) and svrp < svrg

@@ -1,0 +1,150 @@
+"""The port's comm channels (quant8 with error feedback, cast, cast16) against `repro`.
+
+Each round trip is held bit for bit to the reference's as its rounds run it
+(compiled), on float32 and float64 payloads: zero blocks, widths that are
+not a multiple of the 256-value block, and ``(B, M, d)`` lane payloads.  The
+EF residual is held over three broadcasts, the bytes prices exactly, and
+svrp on the small quadratic through each channel against the reference's
+sweep with its draws replayed: comm and comm_bytes equal, dist_sq rtol 1e-9.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_replay import draws_from_numpy, replay_draws  # noqa: E402
+from repro.core import channel as rch  # noqa: E402
+from repro.experiments import run_batch as ref_run_batch  # noqa: E402
+from repro.problems import make_synthetic_quadratic  # noqa: E402
+from repro_torch.convert import problem_from_arrays  # noqa: E402
+from repro_torch.core import channel as tch  # noqa: E402
+from repro_torch.experiments import run_batch, run_sequential  # noqa: E402
+
+LOSSY = ["quant8", "cast", "cast16"]
+DTYPES = {"float32": np.float32, "float64": np.float64}
+
+
+def _payload(shape, dtype, seed=0):
+    """Values over many magnitudes, with a zero block and a zero row."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape) * np.exp(rng.uniform(-8, 8, size=shape[:-1] + (1,)))
+    a = a.astype(dtype)
+    if shape[-1] >= 256:
+        a[..., :256] = 0.0
+    if a.ndim > 1:
+        a[(0,) * (a.ndim - 1)] = 0.0
+    return a
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1000,), (3, 4, 700), (2, 256), (5, 40)])
+@pytest.mark.parametrize("name", LOSSY)
+def test_round_trip_is_the_references_bit_for_bit(name, shape, dtype):
+    a = _payload(shape, DTYPES[dtype])
+    want = np.asarray(jax.jit(rch.CHANNELS[name].up)(jnp.asarray(a)))
+    got = tch.CHANNELS[name].up(torch.from_numpy(a))
+    assert got.dtype == torch.from_numpy(a).dtype and got.shape == a.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_float64_casts_round_once():
+    """Values just off a 16-bit midpoint: PyTorch's own float64 -> float16
+    conversion rounds through float32 and lands on the wrong side; the
+    channel rounds once, as the reference does."""
+    rng = np.random.default_rng(1)
+    h = rng.standard_normal(20000).astype(np.float16).astype(np.float64)
+    up = np.nextafter(h.astype(np.float16), np.float16(np.inf)).astype(np.float64)
+    a = (h + up) / 2 * (1 + rng.choice([-1.0, 1.0], h.shape) * 1e-10)
+    want = np.asarray(jax.jit(rch.CHANNELS["cast16"].up)(jnp.asarray(a)))
+    np.testing.assert_array_equal(tch.CHANNELS["cast16"].up(torch.from_numpy(a)).numpy(), want)
+    assert (torch.from_numpy(a).half().double().numpy() != want).any()
+
+
+def test_zero_blocks_quantize_to_exact_zeros():
+    a = torch.zeros(3, 600, dtype=torch.float64)
+    a[1, 300] = 5.0
+    out = tch.CHANNELS["quant8"].up(a)
+    assert torch.equal(out, a)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_error_feedback_residual_over_three_broadcasts(dtype):
+    rng = np.random.default_rng(2)
+    vs = [rng.standard_normal((2, 300)).astype(DTYPES[dtype]) for _ in range(3)]
+    jc, tc = rch.CHANNELS["quant8"], tch.CHANNELS["quant8"]
+    jstate, tstate = jc.init_state(jnp.asarray(vs[0])), tc.init_state(torch.from_numpy(vs[0]))
+    down = jax.jit(jc.down)
+    for v in vs:
+        jstate, jsent = down(jstate, jnp.asarray(v))
+        tstate, tsent = tc.down(tstate, torch.from_numpy(v))
+        np.testing.assert_array_equal(tsent.numpy(), np.asarray(jsent))
+        np.testing.assert_array_equal(tstate.numpy(), np.asarray(jstate))
+        # the residual is what the wire left out of v + e
+        assert tstate.abs().max() <= tsent.abs().max() / 127 + 1e-12
+    for name in ("identity", "cast"):  # stateless links carry no state
+        state, sent = tch.CHANNELS[name].down((), torch.from_numpy(vs[0]))
+        assert state == ()
+
+
+@pytest.mark.parametrize("name", ["identity", *LOSSY])
+@pytest.mark.parametrize("size,itemsize", [(1, 4), (255, 4), (256, 8), (257, 4), (15733632, 4)])
+def test_wire_bytes_match_the_reference(name, size, itemsize):
+    assert (tch.CHANNELS[name].wire_nbytes(size, itemsize)
+            == rch.CHANNELS[name].wire_nbytes(size, itemsize)
+            == tch.wire_vector_bytes(name, size, itemsize))
+
+
+def test_payload_bytes_of_a_tree_and_of_meta_tensors():
+    shapes = {"emb": (1000, 64), "layers": {"w": (4, 64, 64), "b": (4, 64)}}
+    tree = {"emb": torch.empty(1000, 64, device="meta"),
+            "layers": {"w": torch.empty(4, 64, 64, device="meta"),
+                       "b": torch.empty(4, 64, dtype=torch.bfloat16, device="meta")}}
+    ref_tree = {"emb": jax.ShapeDtypeStruct(shapes["emb"], jnp.float32),
+                "layers": {"w": jax.ShapeDtypeStruct(shapes["layers"]["w"], jnp.float32),
+                           "b": jax.ShapeDtypeStruct(shapes["layers"]["b"], jnp.bfloat16)}}
+    for name in (None, "identity", *LOSSY):
+        assert tch.payload_nbytes(name, tree) == rch.payload_nbytes(name, ref_tree)
+    assert 0.25 < tch.payload_nbytes("quant8", tree) / tch.payload_nbytes(None, tree) < 0.27
+
+
+def test_unknown_channel_error_text_matches():
+    with pytest.raises(ValueError) as r:
+        rch.get_channel("int4")
+    with pytest.raises(ValueError) as t:
+        tch.get_channel("int4")
+    assert str(t.value) == str(r.value)
+
+
+# ------------------------------------------------------ svrp through a channel
+M = 10
+
+
+@pytest.fixture(scope="module")
+def quad():
+    q = make_synthetic_quadratic(num_clients=M, dim=6, mu=1.0, L=80.0, delta=4.0, seed=1)
+    return q, problem_from_arrays("quadratic", {"A": np.asarray(q.A), "b": np.asarray(q.b)},
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("path", ["registry", "sequential", "fused"])
+@pytest.mark.parametrize("channel", LOSSY)
+def test_svrp_through_each_channel_matches_the_reference(quad, channel, path):
+    q, pq = quad
+    L = float(q.smoothness_max())
+    kw = dict(grid={"eta": [0.05, 0.1], "p": 0.3}, seeds=2, num_steps=40, channel=channel)
+    if path == "fused":
+        kw.update(prox_solver="gd", prox_steps=30)
+        kw["grid"] = {**kw["grid"], "smoothness": L}
+    ref = ref_run_batch("svrp", q, fused=path == "fused", **kw)
+    clients, coins = replay_draws("svrp", ref.seeds, M, kw, ref.hparams["p"])
+    draws = draws_from_numpy(clients, coins)
+    entry = run_sequential if path == "sequential" else run_batch
+    extra = {"fused": True} if path == "fused" else {}
+    got = entry("svrp", pq, draws=draws, device="cpu", **extra, **kw)
+    assert got.comm.dtype == torch.int32
+    np.testing.assert_array_equal(got.comm.numpy(), np.asarray(ref.comm))
+    np.testing.assert_array_equal(got.comm_bytes, np.asarray(ref.comm_bytes))
+    np.testing.assert_allclose(got.dist_sq.numpy(), np.asarray(ref.dist_sq), rtol=1e-9, atol=0)

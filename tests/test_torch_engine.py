@@ -197,14 +197,20 @@ def test_unknown_substrate_error_text_matches(problems):
 def test_unported_paths_raise(problems, what):
     """The paths the first slice left out: those still not ported raise
     "not ported" and name their ROADMAP item; those ported since (the
-    registry substrate ``fused=False``, ``stepsize="theory"`` and
-    `run_sequential`) return a sweep of the expected shape that agrees with
-    the fused one's comm."""
+    registry substrate ``fused=False``, ``stepsize="theory"``,
+    `run_sequential` and the quant8 channel) return a sweep of the expected
+    shape that agrees with the fused one's comm (quant8: and prices each
+    vector at d int8 bytes plus one float32 scale a 256-value block)."""
     _, port_p = problems["quadratic"]
     kw = dict(grid={"eta": 0.1, "p": 0.1, "smoothness": 1.0}, num_steps=4, device="cpu", **GD)
     if what == "quant8":
-        with pytest.raises(ValueError, match="not ported"):
-            run_batch("svrp", port_p, fused=True, channel="quant8", **kw)
+        kw["grid"] = {"eta": 0.1, "p": 0.1, "smoothness": float(port_p.smoothness_max())}
+        fused = run_batch("svrp", port_p, fused=True, **kw)
+        res = run_batch("svrp", port_p, fused=True, channel="quant8", **kw)
+        np.testing.assert_array_equal(res.comm.numpy(), fused.comm.numpy())
+        d = port_p.dim
+        np.testing.assert_array_equal(res.comm_bytes, fused.comm_bytes // (8 * d) * (d + 4))
+        assert res.dist_sq.shape == (1, 4) and np.isfinite(res.dist_sq.numpy()).all()
         return
     if what in ("shard", "stop_eps"):
         extra = {"shard": dict(shard="data"), "stop_eps": dict(stop_eps=1e-6)}[what]

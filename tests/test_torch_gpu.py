@@ -1127,3 +1127,94 @@ def test_rwkv_serving_path_goes_through_the_kernels(cuda):
     steps = (5 + 5) + (3 + 5)  # per group: prompt length + new tokens - 1
     assert rwkv6_scan.launches == cfg.num_layers * steps
     assert got == BatchServer(cfg, params, serve, device="cpu").generate(prompts, max_new_tokens=6)
+
+
+# ------------------------------------------------- DeepSVRP on the federated LM
+@pytest.mark.gpu
+def test_prox_update_batched_at_the_deep_svrp_width(cuda):
+    """K1 as DeepSVRP's local step at the 20m preset: 8 rows (2 trials x 4
+    clients) of 15,733,632 float32 values, bit for bit its plain version."""
+    R, d = 8, 15_733_632
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    y, g, z = (torch.randn(R, d, generator=gen, device=cuda) for _ in range(3))
+    lr = torch.full((R,), 0.2, device=cuda)
+    ie = torch.tensor([1.0, 1.0, 1.0, 1.0, 2.0, 2.0, 2.0, 2.0], device=cuda)
+    out = prox_update_batched(y, g, z, lr, ie)
+    assert prox_update_batched.launches == 1
+    assert torch.equal(out, prox_update_batched_plain(y, g, z, lr, ie))
+
+
+def _fed_lm(dev):
+    """A small federated LM at Dh 64 (the head dim the card's K4 builds)."""
+    import dataclasses
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.problems import make_fed_lm_problem
+
+    cfg = dataclasses.replace(REGISTRY["llama3.2-3b"].reduced(), num_layers=2, d_model=128,
+                              num_heads=2, num_kv_heads=1, head_dim=64, d_ff=256,
+                              vocab_size=256, param_dtype="float32", compute_dtype="float32")
+    return make_fed_lm_problem(cfg, num_clients=3, per_client_batch=2, seq_len=64, seed=0,
+                               device=dev)
+
+
+@pytest.mark.gpu
+def test_fed_lm_gradient_on_the_card_matches_the_cpu(cuda):
+    """One client gradient through K4 (forward with lse) and K4b, once a
+    layer each, and the metric through K4 alone, against the CPU's plain
+    attention at the float32 gradient tolerances."""
+    prob, x0 = _fed_lm(cuda)
+    cpu, x0_cpu = _fed_lm("cpu")
+    x = x0.cpu()  # the card's weights on both sides
+    g = prob.grad(torch.tensor(1, device=cuda), x.to(cuda))
+    assert flash_attention.launches == flash_attention_bwd.launches == prob.cfg.num_layers
+    torch.testing.assert_close(g.cpu(), cpu.grad(torch.tensor(1), x), rtol=1e-4, atol=1e-5)
+    flash_attention.launches = 0
+    loss = prob.metric(x.to(cuda))
+    assert flash_attention.launches == prob.num_clients * prob.cfg.num_layers
+    assert flash_attention_bwd.launches == prob.cfg.num_layers
+    torch.testing.assert_close(loss.cpu(), cpu.metric(x), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_deep_svrp_on_the_card_matches_the_cpu(cuda):
+    """run_batch("deep_svrp") on the small federated LM, fused and registry:
+    K1 once a local step, the loss trajectory within the float32 round
+    tolerance of the CPU run with the same coins, comm equal."""
+    from repro_torch.core import draw_schedule
+    from repro_torch.experiments import run_batch
+
+    prob, x0 = _fed_lm(cuda)
+    cpu, _ = _fed_lm("cpu")
+    draws = draw_schedule([0, 1], 3, 3, 0.5, clients=False)
+    kw = dict(grid={"eta": 1.0, "local_lr": 0.2, "anchor_prob": 0.5}, seeds=2, num_steps=3,
+              local_steps=2, x0=x0, x_star=x0)
+    want = run_batch("deep_svrp", cpu, draws=draws, device="cpu",
+                     **{**kw, "x0": x0.cpu(), "x_star": x0.cpu()})
+    for fused in (True, False):
+        prox_update_batched.launches = 0
+        got = run_batch("deep_svrp", prob, fused=fused, draws=draws, **kw)
+        assert prox_update_batched.launches == 3 * 2
+        assert torch.equal(got.comm.cpu(), want.comm)
+        torch.testing.assert_close(got.dist_sq.cpu(), want.dist_sq, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_dp_logistic_fused_sweep_on_the_card_matches_the_cpu(cuda):
+    """svrp on a DP logistic problem through K2 with the noise fold (the
+    shifted target and y0 = z), once a round, against the CPU."""
+    from repro_torch.core import draw_schedule
+    from repro_torch.experiments import run_batch
+    from repro_torch.problems import make_dp_a9a_problem
+
+    runs = []
+    for dev in ("cpu", "cuda"):
+        prob = make_dp_a9a_problem(6, n_per_client=40, n_pool=300, dim=12, nnz_per_row=4,
+                                   sigma=2.0, device=dev)
+        x_star = prob.minimizer()
+        kw = dict(grid={"eta": [0.5, 1.0], "p": 0.3, "smoothness": float(prob.smoothness_max())},
+                  seeds=2, num_steps=20, prox_solver="gd", prox_steps=15, fused=True,
+                  draws=draw_schedule([0, 0, 1, 1], 6, 20, 0.3), x_star=x_star)
+        runs.append(run_batch("svrp", prob, device=dev, **kw))
+    assert logistic_prox_gd_batched.launches == 20
+    _same_run(runs[1], runs[0])

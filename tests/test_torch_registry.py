@@ -1,10 +1,10 @@
 """The port's sequential and registry substrates against `repro`.
 
 The twin of the ROUND_DEFS and ALGOS rows of tests/test_substrates.py: for
-every algorithm the port carries (all of `repro`'s ALGOS but composite and
-deep_svrp), on the same small quadratic (M 10, d 6), the port runs on the
-CPU with the reference's own draws replayed from its PRNG keys
-(tests/_torch_replay.py):
+every algorithm of `repro`'s ALGOS (composite, whose prox of R and x_star
+are each package's own, is held in tests/test_torch_composite.py), on the
+same small quadratic (M 10, d 6), the port runs on the CPU with the
+reference's own draws replayed from its PRNG keys (tests/_torch_replay.py):
 
 * `run_batch(fused=False)` against `repro`'s `run_batch(fused=False)`, with
   the prox solvers exact, spectral, gd and newton for the rounds-defined
@@ -13,6 +13,10 @@ CPU with the reference's own draws replayed from its PRNG keys
   port's own `run_batch`;
 * the registry path against the fused path for sppm, svrp and minibatch
   with gd;
+* deep_svrp on all three substrates (fused, registry, sequential) and
+  through `run_deep_svrp`, against the reference's engine and its
+  `run_deep_svrp`: comm equal, dist_sq rtol 1e-9 against the same kind of
+  run, 1e-6 between a one-trial run and a lane batch (atol 1e-24);
 * the Section-4.2 accounting in closed form, and the per-trial drivers.
 
 Tolerances (the reference's own engine tolerances): ``comm``
@@ -42,7 +46,6 @@ from repro_torch.convert import problem_from_arrays  # noqa: E402
 from repro_torch.core import Draws, trial_draws  # noqa: E402
 from repro_torch.experiments import ALGOS, run_batch, run_sequential  # noqa: E402
 from repro_torch.experiments import spec as spec_mod  # noqa: E402
-from repro_torch.experiments.spec import NOT_PORTED_ALGOS  # noqa: E402
 from repro.experiments import spec as ref_spec  # noqa: E402
 
 M = 10
@@ -83,6 +86,8 @@ def cases(probs):
                          local_steps=4),
         "dane": dict(grid={"theta": dmax}, num_rounds=15),
         "acc_extragradient": dict(grid={"theta": dmax, "mu": mu}, num_rounds=15),
+        "deep_svrp": dict(grid={"eta": [0.05, 0.1], "local_lr": 1 / (2 * L), "anchor_prob": 0.3},
+                          seeds=SEEDS, num_steps=40, local_steps=3),
     }
 
 
@@ -104,7 +109,8 @@ def _draws(algo, ref, kw):
     if ALGOS[algo].deterministic:
         return None
     cfg = {k: v for k, v in kw.items() if k not in ("grid", "seeds")}
-    return draws_from_numpy(*replay_draws(algo, ref.seeds, M, cfg, ref.hparams.get("p")))
+    p = ref.hparams.get("p", ref.hparams.get("anchor_prob"))
+    return draws_from_numpy(*replay_draws(algo, ref.seeds, M, cfg, p))
 
 
 def _check(port, ref, tol):
@@ -116,7 +122,9 @@ def _check(port, ref, tol):
                                rtol=tol["rtol"], atol=1e-12)
 
 
-SOLVER_CASES = [(a, "exact") for a in sorted(ALGOS)] + [
+# composite's prox of R and x_star are each package's own: test_torch_composite.py
+CASE_ALGOS = sorted(set(ALGOS) - {"composite"})
+SOLVER_CASES = [(a, "exact") for a in CASE_ALGOS] + [
     (a, s) for s in ("spectral", "gd", "newton") for a in ROUND_ALGOS]
 
 
@@ -142,11 +150,13 @@ def _plain(table, required):
 
 
 def test_every_ported_algo_has_a_case(cases):
-    """The port carries every reference ALGOS entry but the two not ported."""
-    assert set(cases) == set(ALGOS)
-    assert set(ALGOS) | set(NOT_PORTED_ALGOS) == set(REF_ALGOS)
+    """The port carries every reference ALGOS entry, each with its flags."""
+    assert set(cases) == set(CASE_ALGOS)
+    assert set(ALGOS) == set(REF_ALGOS)
     for name, spec in ALGOS.items():
         assert spec.deterministic == REF_ALGOS[name].deterministic, name
+        for flag in ("fusable", "fused_inner_steps", "fused_round_steps", "requires_x_star"):
+            assert getattr(spec, flag) == getattr(REF_ALGOS[name], flag), (name, flag)
         for ours, theirs in ((spec.static, REF_ALGOS[name].static),
                              (spec.defaults, REF_ALGOS[name].defaults)):
             assert _plain(ours, spec_mod._REQUIRED) == _plain(theirs, ref_spec._REQUIRED), name
@@ -161,7 +171,7 @@ def test_registry_batch_matches_reference(runs, algo, solver):
     assert port.labels() == ref.labels()
 
 
-@pytest.mark.parametrize("algo", sorted(ALGOS))
+@pytest.mark.parametrize("algo", CASE_ALGOS)
 def test_sequential_matches_reference(probs, runs, algo):
     q, _ = probs
     ref, _, seq, kw = runs[algo, "exact"]
@@ -202,6 +212,7 @@ def test_comm_accounting_closed_form(runs):
         "scaffold": ({2}, {2}),
         "dane": ({2 * M + 2}, {2 * M + 2}),
         "acc_extragradient": ({4 * M + 2}, {4 * M + 2}),
+        "deep_svrp": ({5 * M, 7 * M}, {2 * M, 4 * M}),
     }
     for algo, (first, incs) in expected.items():
         comm = runs[algo, "exact"][1].comm.numpy()
@@ -334,12 +345,70 @@ def test_trial_draws_shapes_and_checks():
 
 @pytest.mark.parametrize("algo,item", [("composite", "item 3"), ("deep_svrp", "item 2")])
 def test_unported_algos_raise(probs, algo, item):
+    """The two algorithms earlier slices left out (ROADMAP §1 items 2 and 3)
+    now run on both entry points and bind their registry ops; the full
+    comparisons are test_deep_svrp_substrates_and_entries and
+    tests/test_torch_composite.py."""
+    from repro_torch.core.composite import prox_l1
+
     _, pq = probs
+    kw = {"deep_svrp": dict(grid={"eta": 0.1, "local_lr": 0.01, "anchor_prob": 0.5}),
+          "composite": dict(grid={"eta": 0.1, "p": 0.5, "smoothness": 80.0, "mu": 1.0},
+                            prox_R=prox_l1, x_star=pq.minimizer())}[algo]
+    comms = []
     for entry in (run_batch, run_sequential):
-        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
-            entry(algo, pq, grid={"eta": 0.1}, num_steps=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tcore.make_registry_ops("deep_svrp", pq, None, None, None, None)
+        res = entry(algo, pq, num_steps=3, device="cpu", **kw)
+        assert res.dist_sq.shape == (1, 3) and np.isfinite(res.dist_sq.numpy()).all()
+        comms.append(res.comm.numpy())
+    np.testing.assert_array_equal(*comms)  # the same native draws
+    if algo == "deep_svrp":
+        hp = tcore.DeepSVRPScanParams(*(torch.tensor(v, dtype=torch.float64)
+                                        for v in (0.1, 0.01, 0.5)))
+        draws = Draws(None, torch.tensor([True, False]), batched=False)
+        ops = tcore.make_registry_ops("deep_svrp", pq, pq.minimizer(), pq.minimizer(), hp,
+                                      draws, local_steps=2)
+        assert ops.local_prox_gd is not None and ops.all_clients().tolist() == list(range(M))
+
+
+@pytest.mark.parametrize("entry", ["engine", "run_deep_svrp"])
+@pytest.mark.parametrize("substrate", ["fused", "registry", "sequential"])
+def test_deep_svrp_substrates_and_entries(probs, runs, substrate, entry):
+    """deep_svrp's one local-solver binding on every substrate, against the
+    reference's engine (its run_batch) and its per-trial `run_deep_svrp`."""
+    q, pq = probs
+    ref, _, _, kw = runs["deep_svrp", "exact"]
+    draws = _draws("deep_svrp", ref, kw)
+    if substrate == "sequential" and entry == "run_deep_svrp":
+        trials = []
+        for i, h in enumerate(ref.labels()):
+            trials.append(tcore.run_deep_svrp(
+                pq, torch.zeros(6, dtype=torch.float64), pq.minimizer(), eta=h["eta"],
+                local_lr=h["local_lr"], anchor_prob=h["anchor_prob"], num_steps=kw["num_steps"],
+                local_steps=kw["local_steps"], draws=draws.trial(i), device="cpu"))
+        got_d2 = np.stack([t.dist_sq.numpy() for t in trials])
+        got_comm = np.stack([t.comm.numpy() for t in trials])
+    else:
+        entry_fn = run_sequential if substrate == "sequential" else run_batch
+        extra = {"fused": True} if substrate == "fused" else {}
+        got = entry_fn("deep_svrp", pq, device="cpu", draws=draws, **extra, **kw)
+        got_d2, got_comm = got.dist_sq.numpy(), got.comm.numpy()
+        assert got.comm.dtype == torch.int32
+    if entry == "engine":
+        want = ref
+    else:
+        want_trials = [rcore.run_deep_svrp(q, jax.numpy.zeros(6), q.minimizer(), eta=h["eta"],
+                                           local_lr=h["local_lr"], anchor_prob=h["anchor_prob"],
+                                           num_steps=kw["num_steps"],
+                                           local_steps=kw["local_steps"],
+                                           key=jax.random.key(int(s)))
+                       for h, s in zip(ref.labels(), ref.seeds)]
+        want = tcore.RunResult(np.stack([np.asarray(t.dist_sq) for t in want_trials]),
+                               np.stack([np.asarray(t.comm) for t in want_trials]), None)
+    np.testing.assert_array_equal(got_comm, np.asarray(want.comm))
+    same_kind = (substrate == "sequential") == (entry == "run_deep_svrp")
+    tol = dict(rtol=1e-9, atol=1e-24) if same_kind else TOL["exact"]
+    np.testing.assert_allclose(got_d2, np.asarray(want.dist_sq), **tol)
+    assert (got_d2[:, -1] < 1e-3 * got_d2[:, 0]).all()
 
 
 def test_a_stale_refresh_fails_the_check(probs, runs, monkeypatch):

@@ -126,9 +126,11 @@ def test_theory_error_texts_match():
         with pytest.raises(ValueError) as t:
             call(tcore)
         assert str(t.value) == str(r.value)
-    with pytest.raises(ValueError, match="not ported"):
-        tcore.predict_comm_bytes("svrp", mu=1.0, delta=2.0, M=5, eps=1e-6, dim=4,
-                                 channel="quant8")
+    # The lossy channels, ported since, price their bytes as the reference's do.
+    for channel in ("quant8", "cast", "cast16"):
+        kw = dict(mu=1.0, delta=2.0, M=5, eps=1e-6, dim=300, channel=channel)
+        assert (tcore.predict_comm_bytes("svrp", **kw)
+                == rcore.predict_comm_bytes("svrp", **kw))
 
 
 @pytest.mark.parametrize("kind", ["quadratic", "logistic"])

@@ -190,8 +190,13 @@ def test_train_launcher_runs(capsys):
     assert "2 client cohorts" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--ckpt-dir", "x"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdeep.run_deep_svrp()
+    # The flat-vector DeepSVRP driver, ported since, runs one trial.
+    from repro_torch.problems import make_synthetic_quadratic
+
+    q = make_synthetic_quadratic(4, 3, L=10.0, delta=1.0, seed=0, device="cpu")
+    res = tdeep.run_deep_svrp(q, torch.zeros(3, dtype=torch.float64), q.minimizer(), eta=0.1,
+                              local_lr=0.05, anchor_prob=0.5, num_steps=5, seed=0, device="cpu")
+    assert res.dist_sq.shape == (5,) and float(res.dist_sq[-1]) < float(res.dist_sq[0])
 
 
 # ------------------------------------------------------------------ (i)
