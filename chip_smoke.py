@@ -5,10 +5,11 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives seven paths of the port: the paper's fused sweep (K1, K2), the
+It drives eight paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
-federated transformer through the engine (K1, K4, K4b), dense-transformer
+federated transformer through the engine (K1, K4, K4b), the online round
+engine (sessions, a pool, the streaming servers; K1, K4, K4b), dense-transformer
 serving on Llama-3.2-3B (K4, K5), hybrid serving on
 Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7) and DeepSVRP
 training on Qwen2-1.5B (K3, K4, K4b).
@@ -91,7 +92,26 @@ Phases, each printed as one JSON line:
    (124,668,672 parameters, 12 layers, 12/4 heads, vocab 32000, 4 x 256
    tokens a client): 3 rounds fused, then 2 rounds fused and registry, bit
    for bit, each timed and counted;
-8. attention parity — K4 (flash attention) and K5 (decode attention) against
+8. online — the online round engine (`repro_torch.serve`; no new kernel):
+   on the Figure-1 quadratic (float64, 8 seeds, the exact prox) a session
+   stepped 1 + 49 + 150 rounds must equal `run_batch` over the same record
+   bit for bit, and a planted session that draws its record again at each
+   `step` must not; `run_batch(stop_eps=1e-8)` over 1000 rounds must stop
+   each trial at its first crossing in the full run; a `SessionPool` of four
+   tenants (four Figure-1 draws, etas and horizons, one with stop_eps 1e-6)
+   served by `FedRoundServer(pool=...)`: each lane within 1e-5 of its
+   standalone session with comm and bytes exact, the stop_eps tenant frozen
+   early, launches a tick beside a session's round, and a planted pool that
+   keeps stepping a frozen lane must fail the frozen-lane gate;
+   `FedRoundServer` for svrp and svrp_minibatch (cohorts of 10) under
+   `ClientStream(churn=0.1)`, 500 rounds each (rounds/s, p50/p95/p99,
+   GFLOP/s), their first 20 rounds equal to the same servers on the CPU
+   (comm exact, dist_sq rtol 1e-9); then on the 20m federated LM a
+   deep_svrp session stepped 1 + 2 rounds equal to `run_batch` (registry)
+   over the same coins bit for bit, both with the exact K1 / K4 / K4b
+   counts of `deep_expected`, and a `FedRoundServer("deep_svrp")` for 3
+   rounds with its counts derived from its own refresh rounds;
+9. attention parity — K4 (flash attention) and K5 (decode attention) against
    their plain versions at the serving path's shapes (K4: Llama prefill,
    bf16 and float32, causal; and small sliding-window, non-causal and head
    dim 80 / 64 cases, each with the route it took: wgmma + TMA for bf16 at
@@ -102,7 +122,7 @@ Phases, each printed as one JSON line:
    faults must fail), timed with CUDA events beside the bound, the plain
    version and one `scaled_dot_product_attention` call (the yardstick; the
    port never calls it);
-9. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
+10. serving — Llama-3.2-3B at full width and depth in bf16, weights from seed
    0 on the card: `make_prefill_step` on 4 x 2048 tokens and
    `BatchServer(max_batch=8, cache_len=1024).generate` on 8 ragged prompts
    (128-512 tokens) with 64 greedy tokens each.  The K4 / K5 counts are
@@ -111,9 +131,9 @@ Phases, each printed as one JSON line:
    with the plain attention on the card (the decode teacher-forced on the
    served tokens) and every step's logits compared (SERVE_REL_TOL), and with
    a planted attention fault, which must exceed that limit;
-10. serving profile — one prefill call and 16 decode steps under
+11. serving profile — one prefill call and 16 decode steps under
    torch.profiler;
-11. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
+12. ssm parity — K6 (the Mamba-2 scan) against its plain version at Zamba2's
    prefill shape (B 4, T 2048, 80 heads, P 64, N 64; x, B and C as column
    views of one tensor, as the model hands them) in bf16 (the tensor-core
    route) and float32 (the FMA route), timed beside its bound and the plain
@@ -127,7 +147,7 @@ Phases, each printed as one JSON line:
    a float64 recurrence (see k6_verdict); two planted faults must fail: the
    state not carried across chunks, and (bf16) the tensor-core route
    leaving out the low bf16 parts of its split operands;
-12. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
+13. hybrid serving — Zamba2-2.7B at full width and depth in bf16, weights from
    seed 0 on the card with LoRA b, conv_b and D randomised (zeros and ones at
    init hide a wrong wiring): `make_prefill_step` on 4 x 2048 tokens (K6 45
    times and K4 9 times a call) and `BatchServer(max_batch=8,
@@ -138,15 +158,15 @@ Phases, each printed as one JSON line:
    same weights in float32 (HYBRID_F32_REL_TOL), where the fault must
    exceed the limit; the decode is replayed teacher-forced with the plain
    attention, and with a planted K5 fault;
-13. hybrid profile — one prefill call and 16 decode steps under
+14. hybrid profile — one prefill call and 16 decode steps under
    torch.profiler;
-14. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
+15. hybrid paths — the reduced zamba2 in float32: the prefill step (K6, K4)
    against teacher-forced decode (K5) at the last of 200 tokens
    (RECURRENT_PATHS_REL_TOL), and the planted K6 fault beyond it.  Phases
    11-13 and 15-17 run the same functions (phase_recurrent_serving,
    phase_serving_profile, phase_recurrent_paths) on each family's record
    (HYBRID_FAMILY, RWKV_FAMILY);
-15. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
+16. rwkv parity — K7 (the RWKV-6 WKV scan) against its plain version at
    rwkv6-1.6b's prefill shape (B 4, T 2048, 32 heads, K = V = 64) and decode
    shape (B 8, T 1, the state written over state0 as decode runs it) in
    bf16 and float32, timed beside the bound and the plain version (at
@@ -158,7 +178,7 @@ Phases, each printed as one JSON line:
    and a float64 recurrence (see k7_verdict).  Three planted faults must
    fail: the state not carried across tiles, the bonus u dropped, state0
    ignored;
-16. rwkv serving — rwkv6-1.6b at full width and depth in bf16
+17. rwkv serving — rwkv6-1.6b at full width and depth in bf16
    (1,583,941,632 parameters), weights from seed 0 on the card with w0,
    w_b and u randomised (at init the decay is nearly one constant):
    `make_prefill_step` on 4 x 2048 tokens (K7 24 times a call) and
@@ -170,12 +190,12 @@ Phases, each printed as one JSON line:
    the same weights in float32 (RWKV_F32_REL_TOL); the fault must exceed
    both limits; the decode is replayed teacher-forced with the plain scan,
    and with K7 ignoring state0, which must exceed SERVE_REL_TOL;
-17. rwkv profile — one prefill call and 16 decode steps under
+18. rwkv profile — one prefill call and 16 decode steps under
    torch.profiler;
-18. rwkv paths — the reduced rwkv6 in float32: the prefill step against
+19. rwkv paths — the reduced rwkv6 in float32: the prefill step against
    teacher-forced decode at the last of 200 tokens (RECURRENT_PATHS_REL_TOL),
    and the planted no-carry fault beyond it;
-19. train parity — K3 (the DeepSVRP tree step) over the whole bf16
+20. train parity — K3 (the DeepSVRP tree step) over the whole bf16
    Qwen2-1.5B tree in one launch and over small f32 / f64 trees; K4's output
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
@@ -187,24 +207,24 @@ Phases, each printed as one JSON line:
    for bit, dQ's spread in relative L2); two planted K4b faults must fail
    the check: the first 64-key tile skipped, and one query head of each
    group left out of dK and dV (the wgmma route's group sum);
-20. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
+21. train — `make_svrp_train_step` on Qwen2-1.5B at full width and depth in
    bf16 (weights from seed 0 on the card), C = 2 cohorts of 2 x 1024 tokens
    from `SyntheticLMDataset` (vocab 151936, 2 clients, alpha 0.5, seed 0),
    K = 4, eta 1.0, local_lr 0.1, 3 rounds with the coins [1, 0, 1]; the
    counts are zeroed before and read after: K3 C K a round, K4 and K4b one
    a layer in each of the round's C (1 + K) + C refresh forward and
    backward passes; the loss finite;
-21. train replay — round 1 again from the same state with the plain K3 and
+22. train replay — round 1 again from the same state with the plain K3 and
    the plain attention forward and backward on the card, compared with the
    kernels' run where both runs share a point: the cohort-mean gradient at
    x0 and the loss there (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL) and the
    round's update x' - x0 (TRAIN_UPDATE_REL_TOL); two planted faults (K4b
    skipping its first key tile, K3 with inv_eta 0) must exceed them;
-22. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
+23. train reduced — the reduced qwen2 in float32 through K3, K4 and K4b in
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
-23. train profile — one plain round under torch.profiler;
-24. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
+24. train profile — one plain round under torch.profiler;
+25. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
    the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
@@ -472,7 +492,7 @@ HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
 SWEEP_KERNELS = ("quadratic_prox_gd_batched", "prox_update_batched", "logistic_prox_gd_batched")
 DEEP_KERNELS = ("prox_update_batched", "flash_attention", "flash_attention_bwd")
-PATHS = ("sweep", "engine", "deep", "serving", "hybrid", "ssm", "training")
+PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training")
 
 
 def _wrapper(name):
@@ -1543,6 +1563,309 @@ def phase_deep(presets=("20m", "100m")) -> dict:
         del problem, x0, runs, cpu_problem, cpu, bad
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ online engine
+ONLINE_SEEDS = 8
+ONLINE_CHUNKS = (1, 49, 150)  # the Figure-1 session's step sizes: 200 rounds
+ONLINE_STOP_EPS = 1e-8
+ONLINE_STOP_ROUNDS = 1000
+ONLINE_STOP_P = 0.01
+ONLINE_POOL = [  # (Figure-1 draw seed, eta scale, horizon, stop_eps)
+    (0, 1.0, 200, None), (1, 0.9, 300, None), (2, 0.8, 250, None), (3, 1.0, 600, 1e-6)]
+ONLINE_POOL_TOL = dict(rtol=1e-5, atol=1e-24)
+ONLINE_SERVER_ROUNDS = 500
+ONLINE_SERVER_CHURN = 0.1
+ONLINE_MINIBATCH = 10
+ONLINE_DEEP_CHUNKS = (1, 2)
+ONLINE_PROFILE_TICKS = 20
+
+
+def _online_kw(qprob, scale=1.0):
+    from repro_torch.core import theorem2_stepsize
+
+    M = qprob.num_clients
+    eta = theorem2_stepsize(float(qprob.strong_convexity()), float(qprob.similarity()))
+    return dict(grid={"eta": scale * eta, "p": 1.0 / M}, seeds=ONLINE_SEEDS, device=qprob.device)
+
+
+def _redrawing_session(algo, problem, **kw):
+    """The planted fault: a session that draws its record again at every
+    `step` call (fresh seeds each call) instead of reading the rows of the
+    record drawn at open."""
+    from repro_torch.core import draw_schedule
+    from repro_torch.serve import open_session
+    from repro_torch.serve.session import trial_step_def
+
+    sess = open_session(algo, problem, **kw)
+    real_step, calls = sess.step, [0]
+
+    def step(n=1):
+        calls[0] += 1
+        fresh = draw_schedule(sess._seeds + 1000 * calls[0], problem.num_clients, sess.horizon,
+                              sess._hparams["p"]).to(problem.device)
+        sess._sds = [trial_step_def(algo, problem, sess._x0, sess._x_star, sess._hp, sess._cfg,
+                                    fresh)]
+        return real_step(n)
+
+    sess.step = step
+    return sess
+
+
+def _session_gate(sess, full) -> tuple[bool, dict]:
+    """A session stepped ONLINE_CHUNKS against run_batch over the same record."""
+    import torch
+
+    for n in ONLINE_CHUNKS:
+        sess.step(n)
+    same = (torch.equal(sess.dist_sq, full.dist_sq) and torch.equal(sess.comm, full.comm)
+            and torch.equal(sess.x(), full.x_final))
+    gap = float(((sess.dist_sq - full.dist_sq).abs() / full.dist_sq.abs()).max())
+    return same, {"bit_identical": same, "dist_sq_max_rel_diff": gap}
+
+
+def _frozen_lane_gate(qprobs, *, fault: bool) -> tuple[bool, dict]:
+    """Two svrp tenants, the first with a stop_eps: once it freezes, 20 more
+    ticks must leave its rounds, trajectory and bytes as they were and its
+    rows of the pooled output zero.  ``fault``: a pool that keeps stepping a
+    frozen lane (`PoolTenant.running` ignoring the freeze)."""
+    from repro_torch.serve import SessionPool, pool as pool_mod
+
+    real = pool_mod.PoolTenant.running
+    if fault:
+        pool_mod.PoolTenant.running = property(lambda self: not self.evicted)
+    try:
+        pool = SessionPool(capacity=2)
+        a = pool.admit("svrp", qprobs[3], stop_eps=ONLINE_POOL[3][3], num_steps=600,
+                       **_online_kw(qprobs[3]))
+        pool.admit("svrp", qprobs[0], num_steps=600, **_online_kw(qprobs[0]))
+        while not pool.is_frozen(a):
+            pool.step(1)
+        t_frozen, bytes_frozen = pool.session(a).t, int(pool.session(a).comm_bytes[:, -1].sum())
+        rows_zero = True
+        for _ in range(20):
+            d2, comm = pool.step(1)
+            rows_zero &= not bool(d2[0].any()) and not bool(comm[0].any())
+        ses = pool.session(a)
+        ok = (ses.t == t_frozen and rows_zero
+              and int(ses.comm_bytes[:, -1].sum()) == bytes_frozen)
+    finally:
+        pool_mod.PoolTenant.running = real
+    return ok, {"frozen_at": t_frozen, "t_after_20_ticks": ses.t, "rows_zero": rows_zero}
+
+
+def _launches_per_call(fn, reps: int) -> float:
+    _, kernels = profiled(fn, reps)
+    return sum(c for _, c in kernels.values()) / reps
+
+
+def phase_online() -> None:
+    """The online round engine (`repro_torch.serve`): Figure-1 sessions,
+    early stopping, a pool of four tenants, the streaming servers and their
+    CPU replay, DeepSVRP sessions and a server on the 20m federated LM with
+    exact K1 / K4 / K4b counts, and two planted faults."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Draws
+    from repro_torch.experiments import run_batch
+    from repro_torch.problems import make_synthetic_quadratic
+    from repro_torch.serve import ClientStream, FedRoundServer, SessionPool, open_session
+
+    def fig1(seed, device):
+        return make_synthetic_quadratic(1000, 40, mu=1.0, L=3330.0, delta=10.0, seed=seed,
+                                        device=device)
+
+    qprobs = [fig1(seed, "cuda") for seed, *_ in ONLINE_POOL]
+    qprob = qprobs[0]
+    M = qprob.num_clients
+    rounds = sum(ONLINE_CHUNKS)
+
+    # 1. A Figure-1 session stepped 1 + 49 + 150 rounds == run_batch, bit
+    # for bit; then the planted redraw-per-step fault must fail that gate.
+    kw = dict(_online_kw(qprob), num_steps=rounds)
+    full = run_batch("svrp", qprob, **kw)  # warm-up; timed again below
+    sess = open_session("svrp", qprob, **kw)
+    (ok, info), sess_s = _timed(lambda: _session_gate(sess, full))
+    again, rb_s = _timed(lambda: run_batch("svrp", qprob, **kw))
+    ok = ok and torch.equal(again.dist_sq, full.dist_sq)
+    emit({"phase": "online_session", "problem": "fig1_quadratic", "algo": "svrp", "solver": "exact",
+          "trials": full.num_trials, "chunks": list(ONLINE_CHUNKS), **info,
+          "session_rounds_per_s": rounds / sess_s, "run_batch_rounds_per_s": rounds / rb_s,
+          "card": CARD})
+    check(ok, f"online: the Figure-1 session differs from run_batch ({info})")
+    bad_ok, bad = _session_gate(_redrawing_session("svrp", qprob, **kw), full)
+    emit({"phase": "online_fault", "fault": "the session draws its record again at each step",
+          "rejected": not bad_ok, **bad})
+    check(not bad_ok, "online: the redraw-per-step fault passed the session gate")
+
+    # 2. run_batch(stop_eps=...): each trial's stopped round is its first
+    # crossing in the full run's trajectory (p = 10 / M: at 1 / M a trial
+    # that never refreshes in 1000 rounds never reaches eps).
+    kw = dict(_online_kw(qprob), num_steps=ONLINE_STOP_ROUNDS)
+    kw["grid"] = dict(kw["grid"], p=ONLINE_STOP_P)
+    full = run_batch("svrp", qprob, **kw)
+    stopped, stop_s = _timed(lambda: run_batch("svrp", qprob, stop_eps=ONLINE_STOP_EPS, **kw))
+    d2 = full.dist_sq.cpu().numpy()
+    hit = d2 <= ONLINE_STOP_EPS
+    first = np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, -1)
+    k = stopped.dist_sq.shape[1]
+    prefix = bool(torch.equal(stopped.dist_sq, full.dist_sq[:, :k])
+                  and torch.equal(stopped.comm, full.comm[:, :k]))
+    emit({"phase": "online_stop_eps", "eps": ONLINE_STOP_EPS, "horizon": ONLINE_STOP_ROUNDS,
+          "rounds_run": k, "stopped_round": stopped.stopped_round.tolist(),
+          "first_crossing": first.tolist(), "prefix_bit_identical": prefix, "wall_s": stop_s,
+          "card": CARD})
+    check(np.array_equal(stopped.stopped_round, first) and prefix and (first > 0).all()
+          and k < ONLINE_STOP_ROUNDS,
+          f"online: stop_eps rounds {stopped.stopped_round} != first crossings {first}")
+
+    # 3. A pool of four tenants (distinct Figure-1 draws, etas, horizons, one
+    # with stop_eps) served by FedRoundServer(pool=...): each lane equals its
+    # standalone session; launches a tick against a session's round.
+    pool = SessionPool(capacity=len(ONLINE_POOL))
+    tenants = []
+    for prob, (_, scale, horizon, eps) in zip(qprobs, ONLINE_POOL):
+        tkw = dict(_online_kw(prob, scale), num_steps=horizon)
+        tenants.append((pool.admit("svrp", prob, stop_eps=eps, **tkw), prob, tkw))
+    srv = FedRoundServer(pool=pool)
+    stats = srv.run(max(h for _, _, h, _ in ONLINE_POOL))
+    lanes = []
+    for tid, prob, tkw in tenants:
+        got = pool.result(tid)
+        ref = open_session("svrp", prob, **tkw)
+        ref.step(pool.session(tid).t)
+        d_got, d_ref = got.dist_sq.cpu().numpy(), ref.dist_sq.cpu().numpy()
+        lanes.append({"tenant": tid, "rounds": int(got.dist_sq.shape[1]),
+                      "frozen": pool.is_frozen(tid),
+                      "comm_equal": bool(torch.equal(got.comm, ref.comm)
+                                         and np.array_equal(got.comm_bytes, ref.comm_bytes)),
+                      "within_tol": bool(np.allclose(d_got, d_ref, **ONLINE_POOL_TOL)),
+                      "dist_sq_max_rel_diff": float(np.max(np.abs(d_got - d_ref) / d_ref))})
+    # One tick of a fresh four-tenant pool against the four sessions stepped
+    # one round each in turn (what the pool replaces): launches and ms.
+    fresh = SessionPool(capacity=len(ONLINE_POOL))
+    alone = []
+    for prob, (_, scale, horizon, _) in zip(qprobs, ONLINE_POOL):
+        fresh.admit("svrp", prob, num_steps=horizon, **_online_kw(prob, scale))
+        alone.append(open_session("svrp", prob, num_steps=horizon, **_online_kw(prob, scale)))
+
+    def in_turn():
+        for a in alone:
+            a.step(1)
+
+    n = ONLINE_PROFILE_TICKS
+    tick_launches = _launches_per_call(lambda: fresh.step(1), n)
+    turn_launches = _launches_per_call(in_turn, n)
+    _, tick_s = _timed(lambda: [fresh.step(1) for _ in range(n)])
+    _, turn_s = _timed(lambda: [in_turn() for _ in range(n)])
+    emit({"phase": "online_pool", "tenants": len(ONLINE_POOL), "stacked": pool.stacked,
+          "ticks": stats.rounds, **stats.summary(), "lanes": lanes,
+          "launches_per_tick": tick_launches, "launches_tenant_by_tenant": turn_launches,
+          "ms_per_tick": tick_s / n * 1e3, "ms_tenant_by_tenant": turn_s / n * 1e3,
+          "tenant_rounds_per_s": pool.total_rounds / stats.elapsed_s[-1], "card": CARD})
+    check(all(v["comm_equal"] and v["within_tol"] for v in lanes),
+          f"online: a pooled lane differs from its standalone session ({lanes})")
+    check(pool.is_frozen(tenants[3][0]) and lanes[3]["rounds"] < ONLINE_POOL[3][2],
+          "online: the stop_eps tenant did not freeze before its horizon")
+    for fault in (False, True):
+        ok, info = _frozen_lane_gate(qprobs, fault=fault)
+        emit({"phase": "online_fault" if fault else "online_frozen_lane",
+              "fault": "the pool keeps stepping a frozen lane" if fault else None,
+              "passed": ok, **info})
+        check(ok != fault, f"online: frozen-lane gate {'passed a fault' if fault else 'failed'} "
+                           f"({info})")
+
+    # 4. The streaming servers under churn, 500 rounds; their first 20 rounds
+    # against the same servers on the CPU (the draws are made on the host
+    # from the same generator and masks, so they are the same draws).
+    cpu_q = fig1(0, "cpu")
+    kw = _online_kw(qprob)["grid"]
+    for algo, extra in (("svrp", {}), ("svrp_minibatch", {"batch_clients": ONLINE_MINIBATCH})):
+        def server(problem, device):
+            return FedRoundServer(algo, problem, hparams=kw, seed=0, device=device,
+                                  stream=ClientStream(M, churn=ONLINE_SERVER_CHURN, seed=1),
+                                  **extra)
+
+        srv = server(qprob, "cuda")
+        stats = srv.run(ONLINE_SERVER_ROUNDS)
+        s = stats.summary()
+        cpu = server(cpu_q, "cpu").run(CPU_REPLAY_ROUNDS)
+        k = CPU_REPLAY_ROUNDS
+        same_comm = stats.comm[:k] == cpu.comm and stats.comm_bytes[:k] == cpu.comm_bytes
+        rel = float(np.max(np.abs(np.array(stats.dist_sq[:k]) - cpu.dist_sq)
+                           / np.abs(cpu.dist_sq)))
+        emit({"phase": "online_server", "algo": algo, "clients": M,
+              "churn": ONLINE_SERVER_CHURN, **s, "cpu_replay_rounds": k,
+              "cpu_replay_comm_equal": same_comm, "cpu_replay_max_rel_diff": rel,
+              "dist_sq_initial": stats.dist_sq[0], "card": CARD})
+        check(s["rounds"] == ONLINE_SERVER_ROUNDS and np.isfinite(stats.dist_sq).all(),
+              f"online: {algo} server rounds or dist_sq")
+        check(same_comm and rel <= CPU_REPLAY_RTOL,
+              f"online: {algo} server's first {k} rounds differ from the CPU (rel {rel})")
+        check(stats.dist_sq[-1] < 1e-2 * stats.dist_sq[0],
+              f"online: {algo} server made no progress under churn")
+    del qprobs, qprob, cpu_q, pool, fresh, alone, sess, full, again, stopped
+    torch.cuda.empty_cache()
+
+    # 5. DeepSVRP on the 20m federated LM: a session stepped 1 + 2 rounds ==
+    # run_batch (registry) over the same coins, bit for bit, each with the
+    # exact K1 / K4 / K4b counts; then a server, 3 rounds.
+    ex = _load_example("fed_transformer_torch")
+    problem, x0 = ex.make_problem("20m", DEEP_CLIENTS, DEEP_ALPHA, 0, "cuda")
+    R = sum(ONLINE_DEEP_CHUNKS)
+    from repro_torch.core import draw_schedule
+
+    draws = draw_schedule(list(range(DEEP_SEEDS)), DEEP_CLIENTS, R, DEEP_HP["anchor_prob"],
+                          clients=False)
+    expected, formula = deep_expected(problem.cfg, R, draws)
+    zero_launch_counts(DEEP_KERNELS)
+    full, rb_s = _timed(lambda: deep_run(problem, x0, Draws(None, draws.coins), R, fused=False))
+    rb_counts = launch_counts(DEEP_KERNELS)
+    zero_launch_counts(DEEP_KERNELS)
+
+    def session():
+        sess = open_session("deep_svrp", problem, grid=dict(
+            eta=DEEP_HP["eta"], local_lr=DEEP_HP["local_lr"],
+            anchor_prob=DEEP_HP["anchor_prob"]), seeds=list(range(DEEP_SEEDS)), x0=x0,
+            x_star=x0, num_steps=R, local_steps=DEEP_HP["local_steps"],
+            draws=Draws(None, draws.coins))
+        for n in ONLINE_DEEP_CHUNKS:
+            sess.step(n)
+        return sess
+
+    sess, sess_s = _timed(session)
+    sess_counts = launch_counts(DEEP_KERNELS)
+    same = bool(torch.equal(sess.dist_sq, full.dist_sq) and torch.equal(sess.comm, full.comm)
+                and torch.equal(sess.x(), full.x_final))
+    emit({"phase": "online_deep_session", "preset": "20m", "trials": DEEP_SEEDS,
+          "chunks": list(ONLINE_DEEP_CHUNKS), "bit_identical": same,
+          "session_s_per_round": sess_s / R, "run_batch_s_per_round": rb_s / R,
+          "launches": sess_counts, "run_batch_launches": rb_counts,
+          "expected_launches": expected, "launch_formula": formula,
+          "flops_per_trial": sess.flops[:, -1].tolist(), "card": CARD})
+    check(same, "online: the 20m DeepSVRP session differs from run_batch")
+    check(sess_counts == expected and rb_counts == expected,
+          f"online: 20m session launched {sess_counts}, run_batch {rb_counts}, "
+          f"expected {expected} ({formula})")
+    zero_launch_counts(DEEP_KERNELS)
+    srv = FedRoundServer("deep_svrp", problem, x0=x0, x_star=x0, seed=0,
+                         hparams={k: DEEP_HP[k] for k in ("eta", "local_lr", "anchor_prob")},
+                         local_steps=DEEP_HP["local_steps"])
+    stats = srv.run(R)
+    counts = launch_counts(DEEP_KERNELS)
+    Mc, K, L = DEEP_CLIENTS, DEEP_HP["local_steps"], problem.cfg.num_layers
+    refresh = int(np.sum(np.diff([3 * Mc] + stats.comm) == 4 * Mc))
+    grads = Mc + R * Mc * (1 + K) + refresh * Mc
+    want = {"prox_update_batched": K * R, "flash_attention": L * (grads + R * Mc),
+            "flash_attention_bwd": L * grads}
+    s = stats.summary()
+    emit({"phase": "online_deep_server", "preset": "20m", **s, "launches": counts,
+          "expected_launches": want, "refresh_rounds": refresh, "card": CARD})
+    check(counts == want and np.isfinite(stats.dist_sq).all(),
+          f"online: the 20m server launched {counts}, expected {want}")
+    del problem, x0, full, sess, srv
+    torch.cuda.empty_cache()
 
 
 def _timed(fn):
@@ -3156,7 +3479,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "seven and prints the kernels line")
+                         "eight and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3199,6 +3522,8 @@ def main(argv=None) -> int:
             phase_deep_parity()
             phase_deep()
             torch.cuda.empty_cache()
+        if run["online"]:
+            phase_online()
         if run["serving"]:
             attention = phase_attention_parity()
             cfg, params, tokens, serve_launches = phase_serving()

@@ -7,11 +7,13 @@ Port of `repro.core.catalyst`.  Each outer step t approximately minimizes
 with SVRP as the inner solver, then extrapolates.  Theorem 3: gamma =
 delta/sqrt(M) - mu when delta/mu >= sqrt(M), else 0.
 
-* `catalyzed_svrp_scan` — the whole method over the lanes of its draws (one
-  trial or a sweep): the outer recurrence `rounds.catalyst_stages` with each
-  stage's inner SVRP rounds on the per-lane shifted subproblem
-  (``problem.shifted_lanes``) through the registry prox solver;
-  `run_catalyzed_svrp` runs it for one trial with the proof's parameters.
+* `catalyzed_step_def` — the whole method over the lanes of its draws (one
+  trial or a sweep) as a `StepDef` of ``num_outer * inner_steps`` rounds:
+  the outer recurrence `rounds.catalyst_step_def` with each stage's inner
+  SVRP rounds on the per-lane shifted subproblem (``problem.shifted_lanes``)
+  through the registry prox solver; the online engine steps it a chunk at a
+  time, `catalyzed_svrp_scan` runs it for the whole horizon and
+  `run_catalyzed_svrp` for one trial with the proof's parameters.
 * `run_catalyst` — the generic host-side outer loop over ANY inner solver;
   `run_catalyzed_svrp_host` runs it with `run_svrp` inside.
 
@@ -25,9 +27,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.draws import Draws, trial_draws
-from repro_torch.core.rounds import catalyst_stages, make_registry_ops
+from repro_torch.core.rounds import catalyst_step_def, make_registry_ops
 from repro_torch.core.svrp import SVRPParams, run_svrp, theorem2_stepsize
-from repro_torch.core.types import RunResult, scalar_hparam
+from repro_torch.core.types import RunResult, StepDef, scalar_hparam, scan_step_def
 from repro_torch.device import problem_device
 
 
@@ -68,12 +70,12 @@ def catalyst_inner_iterations(mu: float, delta: float, M: int, safety: float = 3
     return int(math.ceil(safety / tau))
 
 
-def catalyzed_svrp_scan(
+def catalyzed_step_def(
     problem,
     x0: torch.Tensor,
     x_star: torch.Tensor,
-    draws: Draws,
     hp: CatalyzedSVRPParams,
+    draws: Draws,
     *,
     num_outer: int,
     inner_steps: int,
@@ -81,18 +83,19 @@ def catalyzed_svrp_scan(
     prox_steps: int = 50,
     prox_tol: float = 1e-10,
     channel: str | None = None,
-) -> RunResult:
+) -> StepDef:
     """Catalyzed SVRP over the lanes of ``draws`` (``(T, K)`` for one trial,
-    ``(T, K, B)`` for a sweep).  Stage t solves lane s's subproblem
-    f + gamma_s/2 ||x - y_s||^2 by ``inner_steps`` SVRP rounds; distances are
-    measured to the ORIGINAL optimum.  The spectral solver's factors are the
-    base problem's, computed once here and shifted by gamma per lane."""
+    ``(T, K, B)`` for a sweep; stage t's ``(K, B)`` block is the
+    reference's per-stage ``split``), one round a step.  Stage t solves lane
+    s's subproblem f + gamma_s/2 ||x - y_s||^2 by ``inner_steps`` SVRP
+    rounds; distances are measured to the ORIGINAL optimum.  The spectral
+    solver's factors are the base problem's, computed once here and shifted
+    by gamma per lane."""
     from repro_torch.core.prox import get_prox_solver
 
     get_prox_solver(prox_solver, problem)
     base_factors = problem.prox_factors() if prox_solver == "spectral" else None
-    lanes = draws.lanes
-    gamma = torch.as_tensor(hp.gamma, dtype=x0.dtype, device=x0.device).broadcast_to(lanes)
+    gamma = torch.as_tensor(hp.gamma, dtype=x0.dtype, device=x0.device).broadcast_to(draws.lanes)
     inner_hp = SVRPParams(eta=hp.eta, p=hp.p, smoothness=hp.smoothness)
 
     def stage_ops(y_prev, stage_draws):
@@ -102,8 +105,17 @@ def catalyzed_svrp_scan(
             prox_factors=base_factors, channel=channel,
         )
 
-    return catalyst_stages(stage_ops, x0, hp, draws, num_outer=num_outer,
-                           num_steps=inner_steps)
+    return catalyst_step_def(stage_ops, x0, hp, draws, num_outer=num_outer,
+                             inner_steps=inner_steps)
+
+
+def catalyzed_svrp_scan(problem, x0: torch.Tensor, x_star: torch.Tensor, draws: Draws,
+                        hp: CatalyzedSVRPParams, *, num_outer: int, inner_steps: int,
+                        **static) -> RunResult:
+    """The whole horizon of `catalyzed_step_def`: one trajectory per lane."""
+    sd = catalyzed_step_def(problem, x0, x_star, hp, draws, num_outer=num_outer,
+                            inner_steps=inner_steps, **static)
+    return scan_step_def(sd, num_outer * inner_steps)
 
 
 def run_catalyst(

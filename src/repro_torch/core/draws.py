@@ -29,10 +29,21 @@ trial s draws the same numbers whatever the batch size.  Either way the whole
 horizon is drawn up front and moved to the device once, and the per-round
 "does any trial refresh" mask is computed on the host once, so the
 batch-aware anchor refresh never waits on the device.
+
+The online engine (`repro_torch.serve`) reads records in two more ways:
+
+* `Draws.window` takes rounds ``[t, t + n)`` of a record with its host mask
+  sliced to match, and `concat_trials` puts several tenants' windows side
+  by side on the trial axis, their clients offset into a stacked problem
+  and their host masks OR-ed (a session pool's tick);
+* `ResidentDraws` is the streaming server's source: one round at a time,
+  over the clients resident when the round starts, drawn from the server's
+  own generator or read from a replayed record.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -71,6 +82,14 @@ class Draws:
         refresh = None if self.refresh is None else self.refresh[t]
         return Draws(self.clients[t], _opt(self.coins, lambda c: c[t]), refresh, self.batched)
 
+    def window(self, t: int, n: int) -> "Draws":
+        """Rounds ``[t, t + n)`` of the record's round axis (the leading one;
+        not a Catalyst stack), its host refresh mask sliced to match."""
+        sl = slice(t, t + n)
+        refresh = None if self.refresh is None else self.refresh[sl]
+        return Draws(_opt(self.clients, lambda c: c[sl]), _opt(self.coins, lambda c: c[sl]),
+                     refresh, self.batched)
+
     def trial(self, i: int) -> "Draws":
         """Trial ``i`` of a batched record, as one trial's record."""
         axis = (self.coins if self.coins is not None else self.clients).ndim - 1
@@ -80,6 +99,102 @@ class Draws:
 
 def _opt(t, fn):
     return None if t is None else fn(t)
+
+
+def concat_trials(records: Sequence[Draws], client_offsets: Sequence[int]) -> Draws:
+    """Batched records of equal length side by side on the trial axis: the
+    clients of record i offset by ``client_offsets[i]`` (into a problem whose
+    clients are the records' problems' clients stacked in order), and the
+    host refresh mask the OR of the records' (a round refreshes if any
+    trial of any record does)."""
+    first = records[0]
+    clients = None
+    if first.clients is not None:
+        clients = torch.cat([r.clients + off for r, off in zip(records, client_offsets)], dim=1)
+    coins = None if first.coins is None else torch.cat([r.coins for r in records], dim=1)
+    refresh = None
+    if first.refresh is not None:
+        refresh = np.logical_or.reduce([np.asarray(r.refresh) for r in records])
+    return Draws(clients, coins, refresh)
+
+
+class _Round:
+    """One round's value, indexed by round as a record's round axis is."""
+
+    __slots__ = ("k", "value")
+
+    def __init__(self):
+        self.k, self.value = -1, None
+
+    def __getitem__(self, k: int):
+        if k != self.k:
+            raise IndexError(f"round {k} was not drawn; this source holds round {self.k}")
+        return self.value
+
+
+class ResidentDraws:
+    """The streaming server's draws: one trial, one round at a time, over
+    the clients resident when the round starts.
+
+    ``draw(k, mask)`` fills round ``k`` for the host residency mask
+    ``mask`` (M,): natively from ``generator`` — a client uniform over the
+    resident set (sppm / svrp), or a cohort of ``batch_clients`` drawn
+    without replacement from it (svrp_minibatch), then a refresh coin
+    ``u < p`` with ``u`` drawn at ``coin_dtype`` (the iterate's, as the
+    reference flips its coins) — or from row ``k`` of ``replay``, a
+    one-trial record, whose picks must be resident.  DeepSVRP
+    (``clients=False``) draws its coin only: every client takes part.  The
+    draws are made on the host, so the round's refresh mask is known there
+    before the round is queued; the round layer reads ``clients[k]``,
+    ``coins[k]`` and ``refresh[k]`` as it reads a record's, and reading
+    another round than the one drawn raises."""
+
+    batched = False
+    lanes: tuple = ()
+    num_trials = 1
+
+    def __init__(self, num_clients: int, *, device, p=None, batch_clients: int | None = None,
+                 clients: bool = True, coin_dtype=torch.float64,
+                 generator: torch.Generator | None = None, replay: Draws | None = None):
+        self.num_clients = num_clients
+        self.device = device
+        self.p = p
+        self.batch_clients = batch_clients
+        self.coin_dtype = coin_dtype
+        self.generator = generator
+        self.replay = None if replay is None else replay.to("cpu")
+        self.clients = _Round() if clients else None
+        self.coins = None if p is None else _Round()
+        self.refresh = None if p is None else _Round()
+
+    def draw(self, k: int, mask: np.ndarray) -> None:
+        """Fill round ``k`` for the residency ``mask``."""
+        resident = np.flatnonzero(mask)
+        if self.clients is not None:
+            if self.replay is not None:
+                pick = self.replay.clients[k]
+                if not mask[pick.numpy()].all():
+                    raise ValueError(f"round {k}: the replayed clients {pick.tolist()} are not "
+                                     f"all resident (resident: {resident.tolist()})")
+            elif self.batch_clients is None:
+                pick = torch.as_tensor(resident)[
+                    torch.randint(len(resident), (), generator=self.generator)]
+            else:
+                order = torch.randperm(len(resident), generator=self.generator)
+                pick = torch.as_tensor(resident)[order[:self.batch_clients]]
+            self._set(self.clients, k, pick.to(self.device))
+        if self.coins is not None:
+            if self.replay is not None:
+                coin = self.replay.coins[k]
+            else:
+                u = torch.rand((), generator=self.generator, dtype=self.coin_dtype)
+                coin = u < torch.as_tensor(self.p, dtype=self.coin_dtype)
+            self._set(self.refresh, k, bool(coin))
+            self._set(self.coins, k, coin.to(self.device))
+
+    @staticmethod
+    def _set(slot: _Round, k: int, value) -> None:
+        slot.k, slot.value = k, value
 
 
 def draw_schedule(

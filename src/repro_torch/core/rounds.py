@@ -33,7 +33,7 @@ fused       ``(B, d)`` lanes with the Algorithm-7 local solves through the
             Catalyst): `batched_scan`.
 ==========  ================================================================
 
-Catalyst's outer recurrence (`_catalyst_stages`) runs the shared svrp round
+Catalyst's outer recurrence (`catalyst_step_def`) runs the shared svrp round
 on each stage's shifted oracles, on any substrate: the fused one overrides
 the gradients and solves through the elementwise kernel; the sequential and
 registry ones solve on the problem's per-lane shifted subproblem
@@ -67,8 +67,15 @@ LM) reports it per lane in place of the squared distance.
 loop the DeepSVRP round (`core.deep`) and the train step
 (`launch.steps.make_svrp_train_step`) run on every cohort.
 
-Not ported yet: the client-sharded substrate (ROADMAP §1 item 6) and the
-incremental sessions (item 7).
+Each binding is also an incrementally steppable `core.types.StepDef`
+(`registry_step_def`, `catalyst_step_def`): the online engine
+(`repro_torch.serve`) steps it a chunk at a time over the record drawn for
+the whole horizon, and `registry_pool_step_def` binds several tenants'
+same-shaped quadratic sweeps as one lane batch (a session pool's tick).
+The streaming server binds `core.draws.ResidentDraws` in place of a record:
+its sampling over the resident clients is a draw source, not a callback.
+
+Not ported yet: the client-sharded substrate (ROADMAP §1 item 6).
 """
 from __future__ import annotations
 
@@ -77,7 +84,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.channel import get_channel
-from repro_torch.core.draws import Draws
+from repro_torch.core.draws import Draws, concat_trials
 from repro_torch.core.types import RunResult, StepDef, scan_step_def
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.tree import tree_zeros_like
@@ -235,16 +242,15 @@ class RoundOps:
         return ((x - self.x_star) ** 2).sum(-1)
 
 
+def round_step_def(rdef: RoundDef, ops: RoundOps, x0) -> StepDef:
+    """One definition on one binding as a `StepDef`."""
+    return StepDef(init=lambda: rdef.init(ops, x0), step=lambda s, k: rdef.round(ops, s, k),
+                   final=lambda s: s[0])
+
+
 def scan_rounds(rdef: RoundDef, ops: RoundOps, x0, num_steps: int) -> RunResult:
     """Execute ``num_steps`` rounds of one definition on one binding."""
-    return _scan_from(ops, rdef.round, rdef.init(ops, x0), num_steps)
-
-
-def _scan_from(ops: RoundOps, round_fn: Callable, state0, num_steps: int) -> RunResult:
-    """``num_steps`` rounds of ``round_fn`` from ``state0``: S + (K,) trajectories."""
-    sd = StepDef(init=lambda: state0, step=lambda s, k: round_fn(ops, s, k),
-                 final=lambda s: s[0])
-    return scan_step_def(sd, num_steps)
+    return scan_step_def(round_step_def(rdef, ops, x0), num_steps)
 
 
 # ============================================================ round definitions
@@ -367,6 +373,7 @@ def deep_local_prox_gd(problem, hp, lanes: tuple, dtype, device, local_steps: in
         d = z.shape[-1]
         z_rows = z.reshape(-1, d)
         y = (x if x.dim() == z.dim() else x.unsqueeze(-2)).expand(z.shape).reshape(-1, d)
+        y = y.contiguous()  # one lane's rows are an expanded view; K1 takes dense rows
         for _ in range(local_steps):
             g = None  # the previous step's gradient, freed before the next is taken
             g = problem.grad(m_rows, y)
@@ -428,6 +435,16 @@ def make_registry_ops(
     return RoundOps(problem, hp, x_star, dtype, draws=draws, **kw)
 
 
+def registry_step_def(algo: str, problem, x0, x_star, hp, draws, **binding) -> StepDef:
+    """The rounds-defined algorithms' incremental unit: the same ``(init,
+    round)`` pair `scan_rounds` runs, on `make_registry_ops`'s binding over
+    the lanes of ``draws`` (a record, or the streaming server's
+    `ResidentDraws`).  ``binding`` is forwarded (prox_solver, prox_steps,
+    prox_tol, batch_clients, local_steps, channel)."""
+    return round_step_def(ROUND_DEFS[algo],
+                          make_registry_ops(algo, problem, x0, x_star, hp, draws, **binding), x0)
+
+
 def registry_batched_scan(
     algo: str, problem, x0, x_star, draws: Draws, hp, *,
     num_steps: int, prox_solver: str = "exact", prox_steps: int = 50,
@@ -436,12 +453,49 @@ def registry_batched_scan(
 ) -> RunResult:
     """Run one rounds-defined algorithm over the ``(B,)`` lanes of ``draws``
     with its registry prox solver (per-trial eta/smoothness per lane)."""
-    ops = make_registry_ops(
+    sd = registry_step_def(
         algo, problem, x0, x_star, hp, draws, prox_solver=prox_solver,
         prox_steps=prox_steps, prox_tol=prox_tol, batch_clients=batch_clients,
         local_steps=local_steps, channel=channel,
     )
-    return scan_rounds(ROUND_DEFS[algo], ops, x0, num_steps)
+    return scan_step_def(sd, num_steps)
+
+
+# Algorithms and problems whose tenants a session pool stacks into one lane
+# batch: the single-client and cohort rounds on the plain quadratic.
+POOL_STACKED_ALGOS = ("sppm", "svrp", "svrp_minibatch")
+
+
+def pool_stacks(algo: str, problem) -> bool:
+    """Whether `registry_pool_step_def` can stack tenants of ``algo`` on
+    ``problem``'s family."""
+    from repro_torch.problems.quadratic import QuadraticProblem
+
+    return algo in POOL_STACKED_ALGOS and type(problem) is QuadraticProblem
+
+
+def registry_pool_step_def(algo: str, problems, x_stars, hps, records, *, x0, **binding) -> StepDef:
+    """The pool binding, the counterpart of the reference's
+    ``registry_pool_scan``: the registry round of P tenants' sweeps as ONE
+    ``(P B,)``-lane batch.  Tenant i's problem, x_star ``(d,)``, hparams
+    (fields ``(B,)``) and record window ``records[i]`` (``(n, B)`` rows) are
+    stacked in order: the problems' clients into one
+    `problems.quadratic.PooledQuadraticProblem` (tenant i's clients offset
+    by ``i M``, each tenant's lanes taking its own mean Hessian for the
+    full gradient), the windows by `concat_trials` (host refresh masks
+    OR-ed).  Only `pool_stacks` pairs qualify.  The step def's ``init`` is
+    not used: the pool carries the tenants' states, concatenated on the
+    lane axis; round k reads row k of the stacked windows."""
+    from repro_torch.problems.quadratic import stack_quadratics
+
+    B = records[0].num_trials
+    pooled = stack_quadratics(problems)
+    M = problems[0].num_clients
+    draws = concat_trials(records, [i * M for i in range(len(problems))])
+    hp = type(hps[0])(*(torch.cat([torch.as_tensor(h).broadcast_to((B,)) for h in field])
+                        for field in zip(*hps)))
+    x_star = torch.cat([xs.expand(B, -1) for xs in x_stars])
+    return registry_step_def(algo, pooled, x0, x_star, hp, draws, **binding)
 
 
 # ============================================================ fused substrate
@@ -596,20 +650,37 @@ def _catalyzed_batched_scan(
             prox=prox, grad=grad_sh, full_grad=full_grad_sh, channel=channel,
         )
 
-    return catalyst_stages(stage_ops, x0, hp, draws, num_outer=num_outer, num_steps=num_steps)
+    sd = catalyst_step_def(stage_ops, x0, hp, draws, num_outer=num_outer, inner_steps=num_steps)
+    return scan_step_def(sd, num_outer * num_steps)
 
 
-def catalyst_stages(stage_ops: Callable, x0, hp, draws: Draws, *,
-                    num_outer: int, num_steps: int) -> RunResult:
-    """Catalyst's outer recurrence over lanes (Algorithm 3), on any substrate.
+class CatalystState(NamedTuple):
+    """Catalyst's outer recurrence (x_{t-1}, y_{t-1}, alpha_{t-1}, the
+    carried comm offset) and the current stage's binding, inner svrp state
+    and position (None before a stage starts)."""
 
-    Stage t runs ``num_steps`` rounds of the shared svrp round on
+    x_prev: Any
+    y_prev: Any
+    alpha_prev: Any
+    comm0: Any
+    ops: Any = None
+    inner: Any = None
+
+
+def catalyst_step_def(stage_ops: Callable, x0, hp, draws: Draws, *,
+                      num_outer: int, inner_steps: int) -> StepDef:
+    """Catalyst's outer recurrence over lanes (Algorithm 3) as a `StepDef`
+    of ``num_outer * inner_steps`` rounds, on any substrate.
+
+    Round ``k`` is round ``pos = k % inner_steps`` of stage ``t = k //
+    inner_steps``, which runs the shared svrp round on
     ``stage_ops(y_prev, draws.stage(t))`` — a binding whose oracles are the
-    stage's shifted subproblem — from x_{t-1}, then extrapolates
-    y_t = x_t + beta_t (x_t - x_{t-1}).  Each stage re-pays the 3M anchor
-    setup on top of the carried int32 comm offset, and its channel state
-    starts afresh, as the reference's inner svrp_scan re-runs _svrp_init.
-    Trajectories of all stages are concatenated on the round axis."""
+    stage's shifted subproblem.  At a stage's first round the binding is
+    made and the inner state starts from x_{t-1} (re-paying the 3M anchor
+    setup, its channel state afresh, as the reference's inner svrp_scan
+    re-runs _svrp_init); comm is the inner count on the carried int32
+    offset; after its last round the stage extrapolates
+    y_t = x_t + beta_t (x_t - x_{t-1})."""
     from repro_torch.core.catalyst import catalyst_extrapolate
 
     lanes = draws.lanes
@@ -617,29 +688,32 @@ def catalyst_stages(stage_ops: Callable, x0, hp, draws: Draws, *,
     mu, gamma = (torch.as_tensor(h, dtype=dtype, device=dev).broadcast_to(lanes)
                  for h in (hp.mu, hp.gamma))
     q = mu / (mu + gamma)
-    x_prev = y_prev = x0.expand(lanes + x0.shape).contiguous()
-    alpha_prev = torch.sqrt(q)
-    comm0 = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    d2_stages, comm_stages = [], []
-    for t in range(num_outer):
-        ops = stage_ops(y_prev, draws.stage(t))
-        state0 = (
-            x_prev, x_prev, ops.full_grad(x_prev),
-            ops.comm0(3 * ops.M, torch.int32), ops.chan_init(x_prev),
-        )
-        res = _scan_from(ops, _svrp_round, state0, num_steps)
-        x_t, d2s, comms = res.x_final, res.dist_sq, res.comm
-        alpha_prev, beta_t = catalyst_extrapolate(alpha_prev, q)
-        y_prev = x_t + beta_t.unsqueeze(-1) * (x_t - x_prev)
-        x_prev = x_t
-        comm = comms + comm0.unsqueeze(-1)
-        comm0 = comm[..., -1]
-        d2_stages.append(d2s)
-        comm_stages.append(comm)
-    return RunResult(
-        dist_sq=torch.cat(d2_stages, dim=-1), comm=torch.cat(comm_stages, dim=-1),
-        x_final=x_prev,
-    )
+
+    def init():
+        xB = x0.expand(lanes + x0.shape).contiguous()
+        return CatalystState(xB, xB, torch.sqrt(q), torch.zeros(lanes, dtype=torch.int32,
+                                                                device=dev))
+
+    def step(s: CatalystState, k: int):
+        t, pos = divmod(k, inner_steps)
+        ops, inner = s.ops, s.inner
+        if pos == 0:
+            ops = stage_ops(s.y_prev, draws.stage(t))
+            inner = (s.x_prev, s.x_prev, ops.full_grad(s.x_prev),
+                     ops.comm0(3 * ops.M, torch.int32), ops.chan_init(s.x_prev))
+        inner, (d2, comm_in) = _svrp_round(ops, inner, pos)
+        comm = comm_in + s.comm0
+        if pos + 1 < inner_steps:
+            return s._replace(ops=ops, inner=inner), (d2, comm)
+        x_t = inner[0]
+        alpha_t, beta_t = catalyst_extrapolate(s.alpha_prev, q)
+        y_t = x_t + beta_t.unsqueeze(-1) * (x_t - s.x_prev)
+        return CatalystState(x_t, y_t, alpha_t, comm), (d2, comm)
+
+    def final(s: CatalystState):
+        return s.x_prev if s.inner is None else s.inner[0]
+
+    return StepDef(init, step, final)
 
 
 # ------------------------------------------------- pod (pytree) local solver

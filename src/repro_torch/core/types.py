@@ -24,10 +24,16 @@ class StepDef(NamedTuple):
       (deterministic algorithms ignore ``k``);
     * ``final(state) -> x``                     — current iterate.
 
-    The reference's ``schedule`` (a key layout) has no counterpart: the
-    port's draws are a record bound at construction.  `scan_step_def` runs
-    ``num_steps`` rounds of one, as the reference's
-    ``lax.scan(sd.step, sd.init(), keys)`` does.
+    The reference's ``schedule`` (its key layout, drawn for the whole
+    horizon because ``split`` is not prefix-stable) is the record itself:
+    the port's draws are a `core.draws.Draws` bound at construction, drawn
+    once for the whole horizon, and round ``k`` reads its row ``k``.  So a
+    session that binds the horizon's record at open and steps rounds
+    ``[t, t + n)`` a chunk at a time (`step_rounds`) computes the first
+    columns of `scan_step_def` over the same record, by construction; the
+    record is never extended, and a session refuses to step past it.
+    `scan_step_def` runs ``num_steps`` rounds from `init`, as the
+    reference's ``lax.scan(sd.step, sd.init(), keys)`` does.
     """
 
     init: Callable[[], Any]
@@ -65,16 +71,23 @@ class RunResult(NamedTuple):
         return _first_hit(self.dist_sq, self.comm_bytes, eps)
 
 
-def scan_step_def(sd: StepDef, num_steps: int) -> RunResult:
-    """``num_steps`` rounds of ``sd``, the per-round outputs stacked on a last
-    (round) axis: ``(K,)`` for one trial, ``(B, K)`` for a lane batch."""
-    state = sd.init()
+def step_rounds(sd: StepDef, state, start: int, n: int) -> tuple:
+    """Rounds ``start, ..., start + n - 1`` of ``sd`` from ``state``:
+    ``(state, (dist_sq, comm))``, the per-round outputs stacked on a last
+    (round) axis, ``(n,)`` for one trial and ``(B, n)`` for a lane batch."""
     d2s, comms = [], []
-    for k in range(num_steps):
+    for k in range(start, start + n):
         state, (d2, comm) = sd.step(state, k)
         d2s.append(d2)
         comms.append(comm)
-    return RunResult(torch.stack(d2s, dim=-1), torch.stack(comms, dim=-1), sd.final(state))
+    return state, (torch.stack(d2s, dim=-1), torch.stack(comms, dim=-1))
+
+
+def scan_step_def(sd: StepDef, num_steps: int) -> RunResult:
+    """``num_steps`` rounds of ``sd`` from its `init` (`step_rounds` from
+    round 0) as a `RunResult`."""
+    state, (d2, comm) = step_rounds(sd, sd.init(), 0, num_steps)
+    return RunResult(d2, comm, sd.final(state))
 
 
 def scalar_hparam(v, device) -> torch.Tensor:

@@ -35,11 +35,17 @@ record (the tests replay the reference's PRNG keys into one, which makes
 acc_extragradient) draw nothing.  Both entry points run on CUDA unless
 ``device=`` names another device, and never fall back to the CPU.
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-``shard=`` (item 6) and ``stop_eps=`` (item 7).
+``stop_eps=`` runs the sweep on the incremental session substrate
+(`repro_torch.serve.open_session(...).run_until`): the same step
+definitions over the same record, stepped a chunk at a time until every
+trial has reached ``dist_sq <= stop_eps`` (or the horizon runs out).
+
+Not ported yet (raises `NotImplementedError` naming its ROADMAP item):
+``shard=`` (item 6).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
@@ -66,7 +72,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class BatchResult(NamedTuple):
-    """Stacked `RunResult`s for a sweep batch, plus per-trial labels."""
+    """Stacked `RunResult`s for a sweep batch, plus per-trial labels.
+
+    `stopped_round` is set only by the early-stopping path
+    (`run_batch(..., stop_eps=...)` / `FedSession.run_until`): per trial, the
+    1-based round at which dist_sq first reached the threshold, or -1 if it
+    never did within the rounds run.  K is then the number of rounds run;
+    the trajectories are the full run's prefix."""
 
     dist_sq: torch.Tensor  # (B, K)
     comm: torch.Tensor  # (B, K)
@@ -74,6 +86,7 @@ class BatchResult(NamedTuple):
     hparams: dict[str, np.ndarray]  # each (B,)
     seeds: np.ndarray  # (B,)
     comm_bytes: np.ndarray | None = None  # (B, K) int64 wire-bytes ledger
+    stopped_round: np.ndarray | None = None  # (B,) early-stopping path only
 
     @property
     def num_trials(self) -> int:
@@ -209,13 +222,11 @@ def _fused_body(algo: str, static_items: tuple) -> Callable:
     return run
 
 
-def _prepare(spec_: RunSpec, problem, device, shard, stop_eps):
+def _prepare(spec_: RunSpec, problem, device, shard):
     """Shared by both entry points: the device, the unported options, the
     resolved run."""
     dev = problem_device(problem, device)
     full_precision_matmul()
-    if stop_eps is not None:
-        raise _not_ported("stop_eps= (the incremental session substrate)", "item 7")
     if shard is not None:
         raise _not_ported(f"shard={shard!r} (the client-sharded substrate)", "item 6")
     return dev, spec_.resolve(problem)
@@ -259,12 +270,26 @@ def run_batch(
     (`core.theory.theory_grid`).  `fused=True` (fusable algos with
     prox_solver="gd") runs the fused substrate.  `device` (default CUDA)
     must be the device `problem` lives on; `draws` injects the sweep's client
-    indices and refresh coins (default: `draw_schedule`).
+    indices and refresh coins (default: `draw_schedule`).  `stop_eps` stops
+    early on the session substrate: the returned trajectories are the full
+    run's prefix and `BatchResult.stopped_round` holds each trial's
+    first-hit round.
     """
     spec_ = as_runspec(algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
                        stepsize=stepsize, target_eps=target_eps,
                        theory_constants=theory_constants, static=static)
-    dev, rr = _prepare(spec_, problem, device, shard, stop_eps)
+    if stop_eps is not None:
+        if fused or shard is not None:
+            raise ValueError(
+                "stop_eps runs on the incremental session substrate; it cannot "
+                "be combined with fused= or shard="
+            )
+        from repro_torch.serve import open_session  # serve imports this module
+
+        sess = open_session(dataclasses.replace(spec_, substrate="batched"), problem,
+                            draws=draws, device=device)
+        return sess.run_until(stop_eps)
+    dev, rr = _prepare(spec_, problem, device, shard)
     algo, spec, cfg = rr.algo, rr.aspec, rr.cfg
     if fused:
         if not (spec.fusable and cfg.get("prox_solver", "gd") == "gd"):
@@ -307,7 +332,7 @@ def run_sequential(
     spec_ = as_runspec(algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
                        stepsize=stepsize, target_eps=target_eps,
                        theory_constants=theory_constants, static=static)
-    dev, rr = _prepare(spec_, problem, device, None, None)
+    dev, rr = _prepare(spec_, problem, device, None)
     spec = rr.aspec
     draws = _sweep_draws(spec, rr.algo, rr.cfg, rr.hparams, rr.seeds, problem.num_clients, draws)
     hp_all = rr.device_hparams(dev)

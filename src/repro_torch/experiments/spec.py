@@ -7,6 +7,7 @@ reference's, so a sweep that `repro` rejects fails here with the same message.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
@@ -158,6 +159,15 @@ def horizon_rounds(cfg: Mapping[str, Any]) -> int:
     raise KeyError("static config names no round count")
 
 
+def session_horizon(cfg: Mapping[str, Any]) -> int:
+    """The total rounds a resolved static config prescribes (Catalyst's
+    ``num_outer * inner_steps``): the horizon a session draws its record for
+    at open and never steps past."""
+    if "num_outer" in cfg:
+        return int(cfg["num_outer"]) * int(cfg["inner_steps"])
+    return horizon_rounds(cfg)
+
+
 # ---------------------------------------------------------------- substrates
 _SESSION_SUBSTRATES = ("sequential", "batched", "clients")
 
@@ -170,6 +180,69 @@ def check_substrate(substrate: str) -> str:
             "'sequential', 'batched', 'clients'"
         )
     return substrate
+
+
+# ------------------------------------------------------------ pool signatures
+# Static-config keys that ONLY set the round horizon and never shape the round
+# body: pool tenants may differ on these.  Catalyst's num_outer/inner_steps
+# are not here: its step carries the stage structure.
+_POOL_HORIZON_KEYS = frozenset({"num_steps", "num_rounds"})
+
+
+def _tensor_signature(obj) -> tuple:
+    """(name, shape, dtype) of the tensors a problem dataclass (or one tensor) holds."""
+    if isinstance(obj, torch.Tensor):
+        return ((None, tuple(obj.shape), str(obj.dtype)),)
+    return tuple(
+        (f.name, tuple(v.shape), str(v.dtype))
+        for f in dataclasses.fields(obj)
+        if isinstance(v := getattr(obj, f.name), torch.Tensor)
+    )
+
+
+def pool_entry_signature(
+    algo: str, cfg: Mapping[str, Any], num_trials: int, problem, x0, x_star
+) -> tuple:
+    """The signature every tenant of one `serve.SessionPool` must share:
+    algorithm, round-body static config (horizon-only keys excluded), trial
+    count, and the problem type and tensor shapes / dtypes, x0's and
+    x_star's.  Hyperparameters, seeds, horizons and `stop_eps` are absent:
+    they vary freely per tenant (the reference's fields and error text)."""
+    static = tuple((k, v) for k, v in sorted(cfg.items()) if k not in _POOL_HORIZON_KEYS)
+    return (
+        algo,
+        static,
+        int(num_trials),
+        type(problem).__name__,
+        _tensor_signature(problem),
+        _tensor_signature(x0),
+        _tensor_signature(x_star),
+    )
+
+
+_POOL_SIG_FIELDS = (
+    "algo", "static config (horizon keys excluded)", "trial count",
+    "problem structure", "problem leaf shapes/dtypes",
+    "x0 shape/dtype", "x_star shape/dtype",
+)
+
+
+def check_pool_entry(expected: tuple, got: tuple) -> None:
+    """Raise a field-by-field mismatch error if ``got`` cannot share the
+    pool's binding with ``expected`` (the signature fixed by the first admit)."""
+    if expected == got:
+        return
+    diffs = [
+        f"  {name}: pool has {a!r}, tenant has {b!r}"
+        for name, a, b in zip(_POOL_SIG_FIELDS, expected, got)
+        if a != b
+    ]
+    raise ValueError(
+        "tenant is not poolable with the sessions already admitted — every "
+        "tenant shares ONE round binding, so algo, round-body static config "
+        "and shapes must match (hyperparameters, seeds and horizons may "
+        "differ):\n" + "\n".join(diffs)
+    )
 
 
 # ------------------------------------------------------------------- RunSpec

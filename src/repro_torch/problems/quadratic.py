@@ -229,6 +229,40 @@ class ShiftedQuadraticProblem:
         return _mv(Q_m, _mv(Q_m.transpose(-1, -2), rhs) / (1.0 + e * (lam[m] + self._gamma(1))))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PooledQuadraticProblem(QuadraticProblem):
+    """P tenants' quadratics of one shape as one problem over lane groups.
+
+    The clients are the tenants' clients stacked in order (tenant i's client
+    m is client ``i M + m``), so every client-indexed oracle (``grad``, the
+    exact and spectral prox, ``local_oracle``) is the tenant's own, while
+    ``num_clients`` is a tenant's M (the rounds' comm accounting reads it).
+    The lanes come in P groups of ``B``, one a tenant, and ``full_grad``
+    gives each group its tenant's mean Hessian (``A_bars`` / ``b_bars``,
+    the tenants' own `A_bar` and `b_bar`)."""
+
+    A_bars: torch.Tensor = None  # (P, d, d)
+    b_bars: torch.Tensor = None  # (P, d)
+
+    @property
+    def num_clients(self) -> int:
+        return self.A.shape[0] // self.A_bars.shape[0]
+
+    def full_grad(self, x: torch.Tensor) -> torch.Tensor:
+        P = self.A_bars.shape[0]
+        xs = x.reshape(P, -1, x.shape[-1])
+        return (_mv(self.A_bars.unsqueeze(1), xs) - self.b_bars.unsqueeze(1)).reshape(x.shape)
+
+
+def stack_quadratics(problems) -> PooledQuadraticProblem:
+    """`PooledQuadraticProblem` of same-shaped quadratics, tenant order kept."""
+    return PooledQuadraticProblem(
+        A=torch.cat([q.A for q in problems]), b=torch.cat([q.b for q in problems]),
+        A_bars=torch.stack([q.A_bar for q in problems]),
+        b_bars=torch.stack([q.b_bar for q in problems]),
+    )
+
+
 def _random_orthogonal(rng: np.random.Generator, d: int) -> np.ndarray:
     q, r = np.linalg.qr(rng.standard_normal((d, d)))
     return q * np.sign(np.diag(r))

@@ -193,12 +193,14 @@ def test_unknown_substrate_error_text_matches(problems):
 
 
 @pytest.mark.parametrize("what", ["fused_false", "shard", "stop_eps", "theory", "sequential",
-                                  "quant8"])
+                                  "quant8", "clients"])
 def test_unported_paths_raise(problems, what):
-    """The paths the first slice left out: those still not ported raise
-    "not ported" and name their ROADMAP item; those ported since (the
-    registry substrate ``fused=False``, ``stepsize="theory"``,
-    `run_sequential` and the quant8 channel) return a sweep of the expected
+    """The paths the first slice left out: those still not ported (``shard=``
+    and the ``"clients"`` session substrate) raise "not ported" and name
+    their ROADMAP item; those ported since (the registry substrate
+    ``fused=False``, ``stepsize="theory"``, `run_sequential`, the quant8
+    channel and ``stop_eps=``, which runs on the session substrate and
+    equals `open_session(...).run_until`) return a sweep of the expected
     shape that agrees with the fused one's comm (quant8: and prices each
     vector at d int8 bytes plus one float32 scale a 256-value block)."""
     _, port_p = problems["quadratic"]
@@ -212,11 +214,23 @@ def test_unported_paths_raise(problems, what):
         np.testing.assert_array_equal(res.comm_bytes, fused.comm_bytes // (8 * d) * (d + 4))
         assert res.dist_sq.shape == (1, 4) and np.isfinite(res.dist_sq.numpy()).all()
         return
-    if what in ("shard", "stop_eps"):
-        extra = {"shard": dict(shard="data"), "stop_eps": dict(stop_eps=1e-6)}[what]
-        item = {"shard": "item 6", "stop_eps": "item 7"}[what]
-        with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
-            run_batch("svrp", port_p, fused=True, **extra, **kw)
+    if what == "shard":
+        with pytest.raises(NotImplementedError, match="not ported.*item 6"):
+            run_batch("svrp", port_p, fused=True, shard="data", **kw)
+        return
+    if what in ("stop_eps", "clients"):
+        from repro_torch.serve import open_session
+
+        kw = {k: v for k, v in kw.items() if k not in GD}
+        if what == "clients":
+            with pytest.raises(NotImplementedError, match="not ported.*item 6"):
+                open_session("svrp", port_p, substrate="clients", **kw)
+            return
+        res = run_batch("svrp", port_p, stop_eps=1e-6, **kw)
+        want = open_session("svrp", port_p, **kw).run_until(1e-6)
+        assert torch.equal(res.dist_sq, want.dist_sq) and torch.equal(res.comm, want.comm)
+        np.testing.assert_array_equal(res.stopped_round, want.stopped_round)
+        assert res.dist_sq.shape[0] == 1 and 1 <= res.dist_sq.shape[1] <= 4
         return
     fused = run_batch("svrp", port_p, fused=True, **kw)
     if what == "theory":

@@ -1218,3 +1218,69 @@ def test_dp_logistic_fused_sweep_on_the_card_matches_the_cpu(cuda):
         runs.append(run_batch("svrp", prob, device=dev, **kw))
     assert logistic_prox_gd_batched.launches == 20
     _same_run(runs[1], runs[0])
+
+
+@pytest.mark.gpu
+def test_deep_svrp_session_on_the_card_matches_run_batch(cuda):
+    """A deep_svrp session on the small federated LM, stepped 1 + 2 rounds,
+    equals run_batch (registry) over the same coins bit for bit, with K1
+    once a local step in both."""
+    from repro_torch.core import draw_schedule
+    from repro_torch.experiments import run_batch
+    from repro_torch.serve import open_session
+
+    prob, x0 = _fed_lm(cuda)
+    draws = draw_schedule([0, 1], 3, 3, 0.5, clients=False)
+    kw = dict(grid={"eta": 1.0, "local_lr": 0.2, "anchor_prob": 0.5}, seeds=2, num_steps=3,
+              local_steps=2, x0=x0, x_star=x0, draws=draws)
+    want = run_batch("deep_svrp", prob, **kw)
+    assert prox_update_batched.launches == 3 * 2
+    sess = open_session("deep_svrp", prob, **kw)
+    sess.step(1)
+    sess.step(2)
+    assert prox_update_batched.launches == 2 * 3 * 2
+    assert torch.equal(sess.dist_sq, want.dist_sq) and torch.equal(sess.comm, want.comm)
+    assert torch.equal(sess.x(), want.x_final)
+
+
+@pytest.mark.gpu
+def test_pool_on_the_card_matches_standalone_sessions(cuda):
+    """Two svrp tenants on distinct quadratics, stacked into one lane batch,
+    against their own sessions on the card (rtol 1e-5, comm exact)."""
+    from repro_torch.problems import make_synthetic_quadratic
+    from repro_torch.serve import SessionPool, open_session
+
+    probs = [make_synthetic_quadratic(20, 8, mu=1.0, L=300.0, delta=3.0, seed=s, device=cuda)
+             for s in (1, 2)]
+    kws = [dict(grid={"eta": e, "p": 0.1}, seeds=3, num_steps=30) for e in (0.05, 0.03)]
+    pool = SessionPool(capacity=3)
+    ids = [pool.admit("svrp", p, **kw) for p, kw in zip(probs, kws)]
+    assert pool.stacked
+    pool.step(10)
+    pool.step(20)
+    for tid, p, kw in zip(ids, probs, kws):
+        ref = open_session("svrp", p, **kw)
+        ref.step(30)
+        got = pool.result(tid)
+        assert torch.equal(got.comm, ref.comm)
+        torch.testing.assert_close(got.dist_sq, ref.dist_sq, rtol=1e-5, atol=1e-24)
+
+
+@pytest.mark.gpu
+def test_server_on_the_card_matches_the_cpu(cuda):
+    """The streaming server's draws are made on the host, so the card's
+    rounds and the CPU's take the same clients and coins: comm equal,
+    dist_sq within rtol 1e-9 over 20 rounds of churn."""
+    from repro_torch.problems import make_synthetic_quadratic
+    from repro_torch.serve import ClientStream, FedRoundServer
+
+    runs = []
+    for dev in ("cpu", cuda):
+        prob = make_synthetic_quadratic(30, 8, mu=1.0, L=300.0, delta=3.0, seed=4, device=dev)
+        srv = FedRoundServer("svrp_minibatch", prob, hparams={"eta": 0.05, "p": 0.1},
+                             batch_clients=4, stream=ClientStream(30, churn=0.2, seed=1), seed=2,
+                             device=dev)
+        runs.append(srv.run(20))
+    assert runs[0].comm == runs[1].comm
+    torch.testing.assert_close(torch.tensor(runs[1].dist_sq), torch.tensor(runs[0].dist_sq),
+                               rtol=1e-9, atol=0.0)
