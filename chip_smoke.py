@@ -5,14 +5,16 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives eight paths of the port: the paper's fused sweep (K1, K2), the
+It drives ten paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
 federated transformer through the engine (K1, K4, K4b), the online round
 engine (sessions, a pool, the streaming servers; K1, K4, K4b), dense-transformer
 serving on Llama-3.2-3B (K4, K5), hybrid serving on
-Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7) and DeepSVRP
-training on Qwen2-1.5B (K3, K4, K4b).
+Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7), DeepSVRP
+training on Qwen2-1.5B (K3, K4, K4b), the AdamW baseline and checkpoints on
+Qwen2-1.5B (K4, K4b), and int8 weight-only serving of the three families
+(K4, K5, K6, K7).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -224,7 +226,31 @@ Phases, each printed as one JSON line:
    float32: 10 rounds on 4 cohorts must bring the loss below 0.7 of its
    first value (the reference test's property);
 24. train profile — one plain round under torch.profiler;
-25. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
+25. optim — `make_adamw_train_step` on Qwen2-1.5B at full size in bf16
+   (float32 moments), the training phase's batch (4 x 1024) in one pass,
+   lr 3e-4, clip 1.0, 3 steps: K4 and K4b 28 times a step, exact; the loss
+   finite and falling; ms a step, tokens/s, peak memory.  The AdamW state
+   saved, restored onto the card and compared bit for bit (bytes, seconds).
+   Step 1 replayed with the plain attention (TRAIN_LOSS_REL_TOL on the loss,
+   TRAIN_GRAD_REL_TOL on the gradient norm and the float32 first moment),
+   which the planted K4b fault must exceed on the moment; the reduced qwen2
+   in float32, 3 steps on the card against the CPU (OPTIM_REDUCED_REL_TOL),
+   which AdamW without its bias correction must exceed; the DeepSVRP state
+   after two rounds saved and restored bit for bit, then a round from each
+   (the loss at w bit for bit, x' within CKPT_ROUND_REL_TOL);
+26. quant — int8 weight-only serving (`repro_torch.quant`): Llama-3.2-3B
+   int8 at most QUANT_BYTES_RATIO of bf16's bytes; prefill 4 x 2048 (K4 28 a
+   call) within QUANT_LOGIT_GAP of the bf16 logits, which a planted
+   dequantisation fault must exceed; `BatchServer(quantize=True).generate`
+   on the serving prompts (K5 28 a step) with a lower peak than bf16's in
+   the same run, both decode times, the greedy tokens' agreement; the int8
+   prefill replayed with the plain attention (SERVE_REL_TOL).
+   Zamba2-2.7B and rwkv6-1.6b int8: prefill 4 x 2048 (K6 45 + K4 9; K7 24),
+   every position replayed with the plain versions, a 2-prompt generate of
+   16 tokens, their bytes and logit gaps; the reduced llama3.2, zamba2 and
+   rwkv6 in float32, int8 on the card against the CPU
+   (QUANT_REDUCED_REL_TOL);
+27. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
    the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
@@ -385,6 +411,50 @@ RWKV = dict(arch="rwkv6-1.6b", prefill=(4, 2048), max_batch=8, cache_len=1024, n
 # fault (the state not carried across K7's 32-step tiles) 1.31 in both, so
 # it is held in both.
 RWKV_F32_REL_TOL = 1e-3
+# The AdamW baseline (`make_adamw_train_step`) on Qwen2-1.5B at full size:
+# the training phase's batch in one pass, lr 3e-4, clip 1.0, 3 steps.  Its
+# replay (step 1 with the plain attention on the card) is held to the
+# training replay's limits: the loss to TRAIN_LOSS_REL_TOL, the gradient
+# norm and the float32 first moment (a tenth of the clipped gradient after
+# one step) to TRAIN_GRAD_REL_TOL in relative L2, which the planted K4b
+# fault must exceed on the moment.  The reduced qwen2 in float32, 3 steps
+# on the card against the same 3 on the CPU (plain versions): the
+# parameter tree within OPTIM_REDUCED_REL_TOL in relative L2, the CPU
+# tests' per-leaf limit (tests/test_torch_optim.py: float32 summation
+# order, which Adam amplifies only at gradient elements as small as eps);
+# the planted fault, AdamW without its bias correction (first steps of
+# ~0.45 lr instead of lr), must exceed it.  Read on an H100 80GB HBM3 at
+# 700 W: the plain replay 8.8e-6 on the loss, 0 on the bf16 norm, 2.87e-2
+# on mu, the K4b fault 0.64 on mu; card against CPU 1.72e-6, the optimizer
+# fault 3.76e-3.
+OPTIM = dict(lr=3e-4, clip=1.0, steps=3)
+OPTIM_REDUCED_REL_TOL = 1e-5
+# Checkpoints at full size: the DeepSVRP state after 2 rounds (coins 1, 0:
+# x and w differ, gbar is nonzero) and the AdamW state after its 3 steps,
+# each saved, restored onto the card and compared bit for bit.  Then one
+# round (coin 0) from the live state and one from the restored state: the
+# loss at w bit for bit (K4's forward is deterministic), x' within
+# CKPT_ROUND_REL_TOL in relative L2 (K4b's dQ sums in no fixed order, and
+# bf16 rounds what differs to whole ulps; read on an H100 80GB HBM3 at
+# 700 W: 1.37e-4).
+CKPT_ROUND_REL_TOL = 1e-3
+# int8 weight-only serving (`repro_torch.quant`) at full size: the int8 tree
+# at most QUANT_BYTES_RATIO of the bf16 one (int8 values and float32
+# scales; norms and biases stay bf16); the int8 model's last-position
+# prefill logits within QUANT_LOGIT_GAP of the bf16 model's, as max |a - b|
+# / max |b|, the reference's own bound (tests/test_quant.py:56-61), which a
+# planted dequantisation fault (every column scaled by its matrix's first
+# column's scale) must exceed.  The int8 tree replayed with the plain
+# versions: SERVE_REL_TOL.  The reduced models in float32, int8 on the card
+# against the CPU: QUANT_REDUCED_REL_TOL in relative L2 (float32 summation
+# order; the quantized trees are equal bit for bit).  Read on an H100 80GB
+# HBM3 at 700 W: Llama's gap 7.1e-2, the planted fault 0.72; the plain
+# replays 1.9e-2 (Llama), 3.4e-2 (Zamba2), 3.9e-2 (rwkv6); card against CPU
+# at most 1.9e-6.
+QUANT_BYTES_RATIO = 0.51
+QUANT_LOGIT_GAP = 0.12
+QUANT_REDUCED_REL_TOL = 1e-5
+QUANT_SHORT = dict(prompts=2, prompt_len=64, new_tokens=16)  # the recurrent families' generate
 
 
 class SmokeFailure(Exception):
@@ -492,7 +562,9 @@ HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
 SWEEP_KERNELS = ("quadratic_prox_gd_batched", "prox_update_batched", "logistic_prox_gd_batched")
 DEEP_KERNELS = ("prox_update_batched", "flash_attention", "flash_attention_bwd")
-PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training")
+ADAMW_KERNELS = ("flash_attention", "flash_attention_bwd")
+PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training", "optim",
+         "quant")
 
 
 def _wrapper(name):
@@ -2066,19 +2138,25 @@ def phase_attention_parity() -> dict:
 
 # ------------------------------------------------------------------ serving
 @contextlib.contextmanager
+def rebind(module, **fns):
+    """Rebind names of ``module`` (looked up there at call time) for the
+    block's duration."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def rebind_ops(**fns):
     """Rebind kernel entry points of `repro_torch.kernels.ops` (the model and
     round code look them up there at call time) for the block's duration."""
     from repro_torch.kernels import ops
 
-    saved = {name: getattr(ops, name) for name in fns}
-    for name, fn in fns.items():
-        setattr(ops, name, fn)
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(ops, name, fn)
+    return rebind(ops, **fns)
 
 
 def plain_attention(fault: bool = False):
@@ -3269,28 +3347,42 @@ def train_ops(mode: str):
         fa._BWD_SKIP_KEY_TILES = 0
 
 
+def train_batch(cfg) -> dict:
+    """The training phase's tokens on the card: C cohorts of b x S from
+    `SyntheticLMDataset` (seed 0), cohort-major."""
+    import torch
+
+    from repro_torch.data import ShardedBatcher, SyntheticLMDataset
+
+    C = TRAIN["cohorts"]
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
+    batch = ShardedBatcher(ds, num_cohorts=C, per_cohort_batch=TRAIN["per_cohort_batch"],
+                           seq_len=TRAIN["seq_len"]).next_batch()
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def train_svrp():
+    from repro_torch.core.deep import DeepSVRPConfig
+
+    return DeepSVRPConfig(eta=TRAIN["eta"], local_lr=TRAIN["local_lr"],
+                          local_steps=TRAIN["local_steps"], anchor_prob=0.0625)
+
+
 def phase_train():
     """DeepSVRP training of Qwen2-1.5B at full size on the card."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core.deep import DeepSVRPConfig
-    from repro_torch.data import ShardedBatcher, SyntheticLMDataset
     from repro_torch.launch import make_svrp_train_step
     from repro_torch.utils.tree import tree_leaves
 
     cfg = get_config(TRAIN["arch"])
     C, b, S, K = TRAIN["cohorts"], TRAIN["per_cohort_batch"], TRAIN["seq_len"], TRAIN["local_steps"]
     t0 = time.perf_counter()
-    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
-    batch_np = ShardedBatcher(ds, num_cohorts=C, per_cohort_batch=b, seq_len=S).next_batch()
+    batch = train_batch(cfg)
     data_s = time.perf_counter() - t0
-    del ds
-    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
-    svrp = DeepSVRPConfig(eta=TRAIN["eta"], local_lr=TRAIN["local_lr"], local_steps=K,
-                          anchor_prob=0.0625)
-    step, helpers = make_svrp_train_step(cfg, svrp, cohorts=C)
+    step, helpers = make_svrp_train_step(cfg, train_svrp(), cohorts=C)
     t0 = time.perf_counter()
     state = helpers["init_state"]()  # seed 0 on the card
     torch.cuda.synchronize()
@@ -3473,13 +3565,518 @@ def phase_train_reduced() -> dict:
     return launches
 
 
+# ------------------------------------------------ optim (AdamW: K4, K4b)
+def adamw_no_bias_correction(grads, state, params, **kw):
+    """A planted optimizer fault: AdamW without its bias correction (the
+    real update at a step where 1 - b**t rounds to 1 in float32)."""
+    from repro_torch.optim import adamw_update
+
+    params, opt = adamw_update(grads, state._replace(step=10**6), params, **kw)
+    return params, opt._replace(step=state.step + 1)
+
+
+def _bits(t):
+    import torch
+
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    """Two states (NamedTuples, dicts, tensors, ints, generators) equal bit
+    for bit, tensors on the same device in the same dtype."""
+    import torch
+
+    if hasattr(a, "_fields"):
+        return type(a) is type(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.device == b.device and a.shape == b.shape
+                and torch.equal(_bits(a), _bits(b)))
+    if isinstance(a, torch.Generator):
+        return torch.equal(a.get_state(), b.get_state())
+    return a == b
+
+
+def state_bytes(node) -> int:
+    """Bytes of every tensor of a train state (NamedTuples and dicts)."""
+    import torch
+
+    if hasattr(node, "_fields"):
+        node = node._asdict()
+    if isinstance(node, dict):
+        return sum(state_bytes(v) for v in node.values())
+    return node.numel() * node.element_size() if isinstance(node, torch.Tensor) else 0
+
+
+def checkpoint_roundtrip(label: str, state, step: int):
+    """``state`` (a train state) saved with `save_checkpoint` into a fresh
+    temporary directory, restored onto the card with `restore_checkpoint`
+    and compared bit for bit; the files are deleted.  Returns the restored
+    state."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        need = state_bytes(state)
+        check(free > 1.1 * need, f"{label} checkpoint: {free / 1e9:.1f} GB free in {d}, "
+                                 f"the state takes {need / 1e9:.1f} GB")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, step, state._asdict())
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(d, step, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = same_bits(restored, state)
+    emit({"phase": f"{label}_checkpoint", "tmpdir": d, "tmp_free_gb": free / 1e9,
+          "state_gb": need / 1e9, "file_gb": nbytes / 1e9, "save_s": save_s,
+          "restore_s": restore_s, "save_gb_per_s": nbytes / 1e9 / save_s,
+          "restore_gb_per_s": nbytes / 1e9 / restore_s, "bit_for_bit": same,
+          "files_left": os.path.exists(d)})
+    check(same, f"{label} checkpoint: the restored state differs from the saved one")
+    return restored
+
+
+def phase_optim() -> dict:
+    """The AdamW baseline on Qwen2-1.5B at full size through K4 and K4b, and
+    its state's checkpoint round trip."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_adamw_train_step
+
+    cfg = get_config(TRAIN["arch"])
+    L = cfg.num_layers
+    batch = train_batch(cfg)
+    step, helpers = make_adamw_train_step(cfg, lr=OPTIM["lr"], clip=OPTIM["clip"])
+    t0 = time.perf_counter()
+    state = helpers["init_state"]()  # seed 0 on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ADAMW_KERNELS)
+    ms, losses, norms = [], [], []
+    for _ in range(OPTIM["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts(ADAMW_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: L * OPTIM["steps"] for k in ADAMW_KERNELS}
+    steady = float(np.mean(ms[1:]))
+    B, S = batch["tokens"].shape
+    emit({"phase": "adamw", "model": f"{cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_dtype} params, float32 moments", "batch": [B, S], **OPTIM,
+          "init_s": init_s, "losses": losses, "grad_norms": norms, "ms_per_step": ms,
+          "ms_per_step_after_first": steady, "trained_tokens_per_s": B * S / steady * 1e3,
+          "state_gb": state_bytes(state) / 1e9, "peak_mem_gb": peak / 1e9,
+          "launches": launches, "launches_expected": want})
+    check(launches == want, f"adamw launches {launches}, want {want} (one a layer a pass)")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"adamw losses {losses} or grad norms {norms} not finite")
+    check(losses[-1] < losses[0], f"adamw: the loss does not fall over 3 steps: {losses}")
+    checkpoint_roundtrip("adamw", state, OPTIM["steps"])
+    del state
+    torch.cuda.empty_cache()
+    phase_adamw_replay(cfg, batch)
+    torch.cuda.empty_cache()
+    phase_optim_reduced()
+    phase_svrp_checkpoint(cfg, batch)
+    return launches
+
+
+def phase_adamw_replay(cfg, batch) -> dict:
+    """AdamW step 1 again from the seed-0 state: with the kernels, with the
+    plain attention forward and backward on the card, and with K4b skipping
+    its first key tile; the loss, the gradient norm and the float32 first
+    moment against the kernels' run."""
+    import torch
+
+    from repro_torch.launch import make_adamw_train_step
+
+    step, helpers = make_adamw_train_step(cfg, lr=OPTIM["lr"], clip=OPTIM["clip"])
+    results, kept = {}, None
+    for mode in ("kernels", "plain", "k4b_fault"):
+        state = helpers["init_state"]()
+        with train_ops(mode):
+            state, metrics = step(state, batch)
+        mu = state.opt.mu
+        del state
+        entry = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item()}
+        if kept is None:
+            kept = mu
+        else:
+            ref = results["kernels"]
+            entry["loss_rel_err"] = abs(entry["loss"] - ref["loss"]) / abs(ref["loss"])
+            entry["grad_norm_rel_err"] = abs(entry["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            entry["mu_rel_l2"], entry["mu_worst_leaf_rel_l2"] = tree_rel_err(mu, kept)
+        results[mode] = entry
+        del mu
+        torch.cuda.empty_cache()
+    del kept
+    emit({"phase": "adamw_replay", "step": 1, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+          "grad_rel_tol": TRAIN_GRAD_REL_TOL, "note": "each run against the kernels' run",
+          **results})
+    plain, fault = results["plain"], results["k4b_fault"]
+    check(plain["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+          and plain["grad_norm_rel_err"] <= TRAIN_GRAD_REL_TOL
+          and plain["mu_rel_l2"] <= TRAIN_GRAD_REL_TOL,
+          f"adamw replay: the plain run differs from the kernels' by {plain}")
+    check(fault["mu_rel_l2"] > TRAIN_GRAD_REL_TOL,
+          f"adamw replay: a K4b skipping its first key tile moved mu by only {fault['mu_rel_l2']}")
+    return results
+
+
+def phase_optim_reduced() -> dict:
+    """The reduced qwen2 in float32: 3 AdamW steps through K4 and K4b on the
+    card against the same 3 steps on the CPU (plain versions), and on the
+    card with the planted fault (no bias correction)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import AdamWTrainState, make_adamw_train_step
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]).reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, (OPTIM["steps"], 4, 32))
+
+    def run(device, fault=False):
+        step, _ = make_adamw_train_step(cfg, lr=OPTIM["lr"], clip=OPTIM["clip"], device=device)
+        p = _tree(lambda t: t.to(device, copy=True), params)
+        state, losses = AdamWTrainState(p, adamw_init(p)), []
+        with rebind(steps_mod, adamw_update=adamw_no_bias_correction) if fault \
+                else contextlib.nullcontext():
+            for t in toks:
+                state, metrics = step(state, {"tokens": t, "labels": t})
+                losses.append(metrics["loss"].item())
+        return _tree(lambda t: t.cpu(), state.params), losses
+
+    zero_launch_counts(ADAMW_KERNELS)
+    card, card_losses = run("cuda")
+    launches = launch_counts(ADAMW_KERNELS)
+    cpu, cpu_losses = run("cpu")
+    faulted, _ = run("cuda", fault=True)
+    rel, worst = tree_rel_err(card, cpu)
+    res = {"phase": "adamw_reduced", "model": f"{cfg.name} reduced, float32",
+           "steps": OPTIM["steps"], "losses_card": card_losses, "losses_cpu": cpu_losses,
+           "params_rel_l2_vs_cpu": rel, "worst_leaf_rel_l2": worst,
+           "planted_fault_rel_l2": tree_rel_err(faulted, cpu)[0],
+           "rel_tol": OPTIM_REDUCED_REL_TOL, "launches": launches}
+    emit(res)
+    want = {k: cfg.num_layers * OPTIM["steps"] for k in ADAMW_KERNELS}
+    check(launches == want, f"adamw_reduced launches {launches}, want {want}")
+    check(rel <= OPTIM_REDUCED_REL_TOL, f"adamw_reduced: card and CPU differ by {rel}")
+    check(res["planted_fault_rel_l2"] > OPTIM_REDUCED_REL_TOL,
+          f"adamw_reduced: AdamW without bias correction moved the parameters by only "
+          f"{res['planted_fault_rel_l2']}")
+    return res
+
+
+def phase_svrp_checkpoint(cfg, batch) -> dict:
+    """The DeepSVRP state of Qwen2-1.5B after two rounds (coins 1, 0) saved
+    and restored bit for bit; then one round (coin 0) from each."""
+    import torch
+
+    from repro_torch.launch import make_svrp_train_step
+
+    step, helpers = make_svrp_train_step(cfg, train_svrp(), cohorts=TRAIN["cohorts"])
+    state = helpers["init_state"]()
+    for coin in (True, False):
+        state, _ = step(state, batch, refresh=coin)
+    restored = checkpoint_roundtrip("svrp", state, state.step)
+    live, live_m = step(state, batch, refresh=False)
+    del state
+    again, again_m = step(restored, batch, refresh=False)
+    del restored
+    rel, worst = tree_rel_err(again.params, live.params)
+    res = {"phase": "svrp_resume", "round": 3, "coin": 0,
+           "loss_live": live_m["loss"].item(), "loss_restored": again_m["loss"].item(),
+           "x_rel_l2": rel, "x_worst_leaf_rel_l2": worst, "rel_tol": CKPT_ROUND_REL_TOL,
+           "w_and_gbar_bit_for_bit": same_bits(again.anchor, live.anchor)
+           and same_bits(again.anchor_grad, live.anchor_grad)}
+    del live, again
+    torch.cuda.empty_cache()
+    emit(res)
+    check(res["loss_live"] == res["loss_restored"],
+          f"svrp resume: the loss at w differs: {res['loss_live']} != {res['loss_restored']}")
+    check(res["w_and_gbar_bit_for_bit"], "svrp resume: w or gbar differ after a plain round")
+    check(rel <= CKPT_ROUND_REL_TOL, f"svrp resume: x' differs by {rel} > {CKPT_ROUND_REL_TOL}")
+    return res
+
+
+# ---------------------------------------------------- int8 serving (quant)
+def max_rel_gap(a, b) -> float:
+    """max |a - b| / max |b| in float32 (the reference's int8 metric)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def dequant_fault():
+    """A planted dequantisation fault: every column of an int8 weight scaled
+    by its matrix's first column's scale."""
+    from repro_torch.models import layers
+
+    return rebind(layers, dequantize_weight=lambda w, dtype: w["q"].to(dtype)
+                  * w["s"][..., :1].to(dtype))
+
+
+def phase_quant_llama() -> dict:
+    """Llama-3.2-3B at full size: bf16 and int8 prefill (K4) and generate
+    (K5), the int8 tree's bytes, logits and peak memory against bf16's, the
+    int8 prefill replayed with the plain attention, the planted
+    dequantisation fault."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.utils.tree import tree_bytes
+
+    cfg = get_config("llama3.2-3b")
+    L = cfg.num_layers
+    params = init_params(cfg)  # seed 0 on the card
+    bf16_bytes = tree_bytes(params)
+    prefill = make_prefill_step(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 2048)))
+    tokens = tokens.cuda()
+    bf16_last = prefill(params, {"tokens": tokens})
+    prompts = serving_prompts(cfg.vocab_size)
+    new = 64
+    steps = max(len(p) for p in prompts) + new - 1
+    serve = ServeConfig(max_batch=8, cache_len=1024)
+
+    def generate(server):
+        """(tokens, seconds, peak bytes, resident bytes at the start, launches)"""
+        server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        zero_launch_counts(SERVE_KERNELS)
+        t0 = time.perf_counter()
+        out = server.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(), resident, \
+            launch_counts(SERVE_KERNELS)
+
+    out_bf16, bf16_s, bf16_peak, bf16_resident, _ = generate(BatchServer(cfg, params, serve))
+    server = BatchServer(cfg, params, dataclasses.replace(serve, quantize=True))
+    del params  # from here only the int8 tree is on the card
+    torch.cuda.empty_cache()
+    qparams = server.params
+    int8_bytes = tree_bytes(qparams)
+
+    prefill(qparams, {"tokens": tokens[:, :128]})  # warm-up
+    calls = 3
+    torch.cuda.synchronize()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        int8_last = prefill(qparams, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+    gap = max_rel_gap(int8_last, bf16_last)
+    with dequant_fault():
+        fault_gap = max_rel_gap(prefill(qparams, {"tokens": tokens}), bf16_last)
+    with plain_attention():
+        prefill_rel = rel_err(int8_last, prefill(qparams, {"tokens": tokens}))
+
+    out, int8_s, int8_peak, int8_resident, gen_counts = generate(server)
+    agree = float(np.mean([a == b for o, ob in zip(out, out_bf16) for a, b in zip(o, ob)]))
+    res = {"phase": "quant_llama", "model": f"{cfg.name}: {L} layers, int8 weights",
+           "bf16_tree_gb": bf16_bytes / 1e9, "int8_tree_gb": int8_bytes / 1e9,
+           "bytes_ratio": int8_bytes / bf16_bytes, "prefill_batch": list(tokens.shape),
+           "prefill_s_per_call": prefill_s, "prefill_tokens_per_s": tokens.numel() / prefill_s,
+           "prefill_launches": prefill_counts, "logit_gap_vs_bf16": gap,
+           "planted_dequant_fault_gap": fault_gap, "logit_gap_tol": QUANT_LOGIT_GAP,
+           "prefill_rel_err_vs_plain": prefill_rel, "rel_tol": SERVE_REL_TOL,
+           "decode_steps": steps, "ms_per_decode_step_int8": int8_s / steps * 1e3,
+           "ms_per_decode_step_bf16": bf16_s / steps * 1e3,
+           "decode_ratio_int8_over_bf16": int8_s / bf16_s, "generate_launches": gen_counts,
+           "peak_mem_gb_int8": int8_peak / 1e9, "peak_mem_gb_bf16": bf16_peak / 1e9,
+           "resident_gb_int8": int8_resident / 1e9, "resident_gb_bf16": bf16_resident / 1e9,
+           "greedy_tokens_agree_with_bf16": agree}
+    emit(res)
+    del server, qparams
+    torch.cuda.empty_cache()
+    check(res["bytes_ratio"] <= QUANT_BYTES_RATIO,
+          f"int8 tree {int8_bytes} bytes > {QUANT_BYTES_RATIO} x bf16's {bf16_bytes}")
+    check(prefill_counts == {"flash_attention": L * calls, "decode_attention": 0},
+          f"int8 prefill launches {prefill_counts}, want K4 {L * calls}")
+    check(gen_counts == {"flash_attention": 0, "decode_attention": L * steps},
+          f"int8 generate launches {gen_counts}, want K5 {L} x {steps} steps")
+    check(gap <= QUANT_LOGIT_GAP, f"int8 prefill logits {gap} from bf16's > {QUANT_LOGIT_GAP}")
+    check(fault_gap > QUANT_LOGIT_GAP, f"a planted dequantisation fault moved the logits by "
+                                       f"only {fault_gap}")
+    check(prefill_rel <= SERVE_REL_TOL, f"int8 prefill differs from its plain replay by "
+                                        f"{prefill_rel}")
+    check(int8_peak < bf16_peak, f"int8 generate peak {int8_peak} not below bf16's {bf16_peak}")
+    return res
+
+
+def phase_quant_recurrent(fam: Family) -> dict:
+    """A recurrent family at full size in int8 (`BatchServer(quantize=True)`):
+    prefill 4 x 2048 with exact launch counts, every position replayed with
+    the plain versions, the last position against the bf16 model's, and a
+    short generate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_bytes
+
+    cfg = get_config(fam.spec["arch"])
+    per_call, per_step = fam.counts(cfg)
+    params = init_params(cfg)  # seed 0 on the card
+    fam.randomize(params, cfg, seed=1)
+    bf16_bytes = tree_bytes(params)
+    B, S = fam.spec["prefill"]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S)))
+    tokens = tokens.cuda()
+    prefill = make_prefill_step(cfg)
+    bf16_last = prefill(params, {"tokens": tokens})
+    n, plen, new = QUANT_SHORT["prompts"], QUANT_SHORT["prompt_len"], QUANT_SHORT["new_tokens"]
+    server = BatchServer(cfg, params, ServeConfig(max_batch=n, cache_len=fam.spec["cache_len"],
+                                                  quantize=True))
+    del params
+    torch.cuda.empty_cache()
+    qparams = server.params
+    prefill(qparams, {"tokens": tokens[:, :128]})  # warm-up
+    calls = 3
+    zero_launch_counts(fam.kernels)
+    for _ in range(calls):
+        int8_last = prefill(qparams, {"tokens": tokens})
+    prefill_counts = launch_counts(fam.kernels)
+    with torch.inference_mode():
+        kern = M.forward(qparams, cfg, {"tokens": tokens})[0]
+        with fam.plain():
+            plain_rel = rel_err(kern, M.forward(qparams, cfg, {"tokens": tokens})[0])
+    del kern
+    prompts = [p[:plen] for p in serving_prompts(cfg.vocab_size)[:n]]
+    zero_launch_counts(fam.kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new)
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(fam.kernels)
+    steps = plen + new - 1
+    res = {"phase": f"quant_{fam.label}", "model": f"{cfg.name}, int8 weights",
+           "bf16_tree_gb": bf16_bytes / 1e9, "int8_tree_gb": tree_bytes(qparams) / 1e9,
+           "bytes_ratio": tree_bytes(qparams) / bf16_bytes, "prefill_batch": [B, S],
+           "prefill_launches": prefill_counts, "logit_gap_vs_bf16": max_rel_gap(int8_last,
+                                                                               bf16_last),
+           "prefill_rel_err_vs_plain": plain_rel, "rel_tol": SERVE_REL_TOL,
+           "generate": {"prompts": n, "prompt_len": plen, "new_tokens": new, "steps": steps,
+                        "ms_per_decode_step": gen_s / steps * 1e3, "launches": gen_counts}}
+    emit(res)
+    del server, qparams
+    torch.cuda.empty_cache()
+    want = {k: v * calls for k, v in per_call.items()}
+    check(prefill_counts == want, f"int8 {fam.label} prefill launches {prefill_counts}, "
+                                  f"want {want}")
+    want = {k: v * steps for k, v in per_step.items()}
+    check(gen_counts == want, f"int8 {fam.label} generate launches {gen_counts}, want {want}")
+    check(len(out) == n and all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+                                for o in out), f"int8 {fam.label} generate: malformed tokens")
+    check(plain_rel <= SERVE_REL_TOL, f"int8 {fam.label} prefill differs from its plain "
+                                      f"replay by {plain_rel}")
+    return res
+
+
+def phase_quant_reduced() -> dict:
+    """The reduced llama3.2, zamba2 and rwkv6 in float32 and int8: quantized
+    on the card and on the CPU (equal bit for bit), prefill of 2 x 32
+    tokens and 8 decode steps on each, held to QUANT_REDUCED_REL_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_decode_cache, init_params
+    from repro_torch.models import model as M
+    from repro_torch.quant import quantize_params
+
+    results = {}
+    for arch, randomize in (("llama3.2-3b", None), ("zamba2-2.7b", randomize_hybrid),
+                            ("rwkv6-1.6b", randomize_rwkv)):
+        cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="float32",
+                                  compute_dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        if randomize is not None:
+            randomize(params, cfg, seed=2)
+        q_cpu = quantize_params(params)
+        q_card = quantize_params(_tree(lambda t: t.cuda(), params))
+        tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 32))
+
+        @torch.inference_mode()
+        def run(q, device):
+            tok = torch.from_numpy(tokens).to(device)
+            pre = M.forward(q, cfg, {"tokens": tok})[0]
+            cache = init_decode_cache(cfg, 2, 16, dtype=torch.float32, device=device)
+            for t in range(8):
+                logits, cache = M.decode_step(q, cfg, tok[:, t], cache, t)
+            return pre.cpu(), logits.cpu()
+
+        (pre_card, dec_card), (pre_cpu, dec_cpu) = run(q_card, "cuda"), run(q_cpu, "cpu")
+        results[arch] = {"quantized_trees_bit_for_bit": same_bits(
+                             _tree(lambda t: t.cpu(), q_card), q_cpu),
+                         "prefill_rel_err": rel_err(pre_card, pre_cpu),
+                         "decode_rel_err": rel_err(dec_card, dec_cpu)}
+    emit({"phase": "quant_reduced", "float32, int8, card against CPU": results,
+          "rel_tol": QUANT_REDUCED_REL_TOL})
+    for arch, r in results.items():
+        check(r["quantized_trees_bit_for_bit"], f"{arch} reduced: card and CPU quantize apart")
+        check(max(r["prefill_rel_err"], r["decode_rel_err"]) <= QUANT_REDUCED_REL_TOL,
+              f"{arch} reduced int8: card and CPU differ by {r}")
+    return results
+
+
+def phase_quant() -> None:
+    phase_quant_llama()
+    for fam in (HYBRID_FAMILY, RWKV_FAMILY):
+        phase_quant_recurrent(fam)
+    phase_quant_reduced()
+
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "eight and prints the kernels line")
+                         "ten and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3554,6 +4151,12 @@ def main(argv=None) -> int:
             phase_train_reduced()
             phase_train_replay(cfg_train, step, helpers, batch)
             del cfg_train, step, helpers, batch
+            torch.cuda.empty_cache()
+        if run["optim"]:
+            phase_optim()
+            torch.cuda.empty_cache()
+        if run["quant"]:
+            phase_quant()
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

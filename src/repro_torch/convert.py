@@ -8,9 +8,10 @@ problem, and ``dp_shift`` with the DP metadata for a DP-ERM one),
 reference's parameter tree, `hparams_from_numpy` a per-trial hparam table,
 `dense_params_from_numpy`, `hybrid_params_from_numpy` and
 `ssm_params_from_numpy` a dense, hybrid (zamba2) or ssm (rwkv6) model's
-parameter tree and `svrp_state_from_numpy` a DeepSVRP train state,
-so both packages compute on the same data, the same weights and the same
-state; `state_to_numpy` takes a state back out for comparison.
+parameter tree, `svrp_state_from_numpy` a DeepSVRP train state and
+`adamw_state_from_numpy` an AdamW train state, so both packages compute on
+the same data, the same weights and the same state; `state_to_numpy`
+takes a state back out for comparison.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.experiments.spec import resolve_algo
-from repro_torch.launch.steps import SVRPServerState
+from repro_torch.launch.steps import AdamWTrainState, SVRPServerState
 from repro_torch.models import model as M
+from repro_torch.optim import OptState
 from repro_torch.problems import LogisticProblem, QuadraticProblem
 from repro_torch.problems.dp_erm import DPLogisticProblem, DPQuadraticProblem
 
@@ -151,6 +153,22 @@ def svrp_state_from_numpy(state_tree, cfg: ModelConfig, device=None,
     return SVRPServerState(params=params, anchor=anchor, anchor_grad=gbar,
                            step=int(np.asarray(state_tree.get("step", 0))),
                            rng=rng if rng is not None else torch.Generator().manual_seed(0))
+
+
+def adamw_state_from_numpy(tree, cfg: ModelConfig, device=None) -> AdamWTrainState:
+    """The port's AdamW train state from the reference's with numpy leaves
+    (``jax.tree.map(np.asarray, state)``, or its ``_asdict()``): params in
+    ``cfg.param_dtype``, the moments ``mu`` and ``nu`` in float32, the step
+    counter."""
+    def field(node, name):
+        return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+    opt = field(tree, "opt")
+    params = dense_params_from_numpy(field(tree, "params"), cfg, device)
+    mu, nu = (dense_params_from_numpy(field(opt, k), cfg, device, dtype=torch.float32)
+              for k in ("mu", "nu"))
+    return AdamWTrainState(params, OptState(step=int(np.asarray(field(opt, "step"))), mu=mu,
+                                            nu=nu))
 
 
 def state_to_numpy(state) -> dict:

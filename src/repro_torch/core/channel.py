@@ -101,7 +101,10 @@ def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     even).  The scale is ``max(amax, 1e-12) / 127`` as the reference's
     compiled rounds take it: XLA folds the division by the constant into a
     product with its float32 reciprocal, and so does this, so that the round
-    trip is the reference's bit for bit."""
+    trip is the reference's bit for bit.  The serving weights' rule
+    (`repro_torch.quant.quantize_params`) divides truly instead, as the
+    reference's eager `quantize_params` does; the two differ in a few
+    percent of the scales."""
     w32 = w.to(torch.float32)
     amax = w32.abs().amax(dim=-1, keepdim=True)
     s = torch.clamp(amax, min=1e-12) * _INV_127

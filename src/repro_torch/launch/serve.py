@@ -17,10 +17,14 @@ scan kernel K7 with T = 1 in every time-mix layer, from the carried state
 (the family's cache is that state and ignores ``cache_len`` and
 ``cache_dtype``).
 
+With ``quantize=True`` the server quantizes the weights once, at
+construction (`repro_torch.quant.quantize_params`: int8 with per-channel
+float32 scales), and every step dequantises one layer's matrix at a time
+just before its product; the tree on the card is about half the bf16 one.
+
 Differences from the reference: the KV cache (and the ssm state) is written in place
 (``k_cache[:, slot] = k``) instead of by `dynamic_update_slice`; temperature
-sampling draws from a `torch.Generator` instead of a jax key; int8
-weight-only serving (`repro.quant`) is not ported and `quantize=True` raises.
+sampling draws from a `torch.Generator` instead of a jax key.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.quant import quantize_params
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -45,19 +51,18 @@ class ServeConfig:
 
 
 class BatchServer:
-    """Serves ``cfg`` with ``params`` (already on ``device``, default CUDA)."""
+    """Serves ``cfg`` with ``params`` (already on ``device``, default CUDA;
+    a bf16 / float32 tree, or with ``quantize`` one that is quantized here)."""
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig | None = None, *,
                  device=None):
         self.cfg = cfg
         self.serve = serve or ServeConfig()
-        if self.serve.quantize:
-            raise NotImplementedError("int8 serving (repro.quant) not ported yet")
         self.device = resolve_device(device)
-        on = params["embed"]["emb"].device
+        on = tree_leaves(params)[0].device
         if on != self.device:
             raise ValueError(f"params are on {on}, the server runs on {self.device}")
-        self.params = params
+        self.params = quantize_params(params) if self.serve.quantize else params
 
     def _fresh_cache(self, batch: int):
         return M.init_decode_cache(self.cfg, batch, self.serve.cache_len,

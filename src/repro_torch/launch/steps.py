@@ -7,10 +7,14 @@ maths is the same:
     step, helpers = make_svrp_train_step(cfg, svrp, cohorts=C)
     state = helpers["init_state"]()             # SVRPServerState: bf16 x, w; float32 gbar
     state, metrics = step(state, batch)         # one DeepSVRP round over C cohorts
+    step, helpers = make_adamw_train_step(cfg)  # the "ordinary distributed SGD" baseline
+    state = helpers["init_state"]()             # AdamWTrainState: params, float32 moments
+    state, metrics = step(state, batch)         # {"loss", "grad_norm"}; state updated in place
     prefill = make_prefill_step(cfg)            # (params, {"tokens": (B, S)}) -> (B, V)
     serve = make_serve_step(cfg)                # (params, cache, token, pos) -> (logits, cache)
 
-The AdamW baseline step waits for the port of `optim/`.
+The prefill and serve steps take a parameter tree or its int8 form
+(`repro_torch.quant.quantize_params`).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.core.deep import DeepSVRPConfig, draw_refresh, grad_of
 from repro_torch.core.rounds import local_prox_gd_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.optim import OptState, adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.utils.tree import tree_map, value_and_grad
 
 PyTree = Any
@@ -36,6 +41,16 @@ class SVRPServerState(NamedTuple):
     anchor_grad: PyTree
     step: int
     rng: torch.Generator  # the refresh coins of a native run (host)
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is not "
+                                  f"ported yet (ROADMAP §1 item 8)")
+
+
+def _device_batch(batch, dev) -> dict:
+    return {k: torch.as_tensor(batch[k], device=dev).long() for k in ("tokens", "labels")}
 
 
 def _accumulate(acc, tree):
@@ -70,9 +85,7 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     attention through K4 and K4b (``ops.attention``): C (1 + K) forward and
     backward passes a round, plus C on an "exact" refresh round.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is not "
-                                  f"ported yet")
+    _check_trainable(cfg)
     dev = resolve_device(device)
     if cohorts < 1:
         raise ValueError(f"cohorts must be >= 1, got {cohorts}")
@@ -83,8 +96,8 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
         return M.loss_fn(params, cfg, batch)
 
     def split(batch):
-        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        batch = _device_batch(batch, dev)
+        tokens, labels = batch["tokens"], batch["labels"]
         if tokens.shape[0] % cohorts:
             raise ValueError(f"batch of {tokens.shape[0]} rows does not split over "
                              f"{cohorts} cohorts")
@@ -140,6 +153,40 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     return step, {"init_state": init_state}
 
 
+class AdamWTrainState(NamedTuple):
+    params: PyTree
+    opt: OptState
+
+
+def make_adamw_train_step(cfg: ModelConfig, *, lr: float = 3e-4, clip: float = 1.0,
+                          device=None):
+    """The AdamW baseline on one card: ``(step, helpers)``.
+
+    ``step(state, batch) -> (state, {"loss", "grad_norm"})``: one
+    ``value_and_grad`` of the model's loss over the whole batch (the
+    reference's data axis collapses on one card), `clip_by_global_norm` to
+    ``clip``, then `adamw_update` at ``lr``, which writes the new parameters
+    and moments into ``state``'s tensors.  Attention runs through K4 and K4b
+    (one forward and one backward pass a step).
+    ``helpers["init_state"](generator=None)`` gives the weights from
+    ``generator`` (default seed 0 on the card) and zero moments."""
+    _check_trainable(cfg)
+    dev = resolve_device(device)
+
+    def step(state: AdamWTrainState, batch):
+        loss, grads = value_and_grad(lambda p, b: M.loss_fn(p, cfg, b), state.params,
+                                     _device_batch(batch, dev))
+        grads, gnorm = clip_by_global_norm(grads, clip)
+        params, opt = adamw_update(grads, state.opt, state.params, lr=lr)
+        return AdamWTrainState(params, opt), {"loss": loss, "grad_norm": gnorm}
+
+    def init_state(generator: torch.Generator | None = None) -> AdamWTrainState:
+        params = M.init_params(cfg, generator, device=dev)
+        return AdamWTrainState(params, adamw_init(params))
+
+    return step, {"init_state": init_state}
+
+
 def make_prefill_step(cfg: ModelConfig, *, device=None):
     """Full-sequence forward: flash attention (K4) at every attention layer
     or site of the dense and hybrid families, the Mamba-2 scan (K6) in every
@@ -151,7 +198,7 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
     @torch.inference_mode()
     def step(params, batch):
         logits, _ = M.forward(params, cfg, {"tokens": torch.as_tensor(batch["tokens"], device=dev)})
-        return logits[:, -1]
+        return logits[:, -1].clone()  # a view would keep all B x S x V logits alive
 
     return step
 

@@ -9,9 +9,13 @@
         --device cpu --cohorts 2 --rounds 2 --per-cohort-batch 2 --seq-len 32
 
 Wires: config -> the one-card SVRP train step (C cohorts in turn) ->
-heterogeneous-client data.  The reference's ``--mesh DxM`` becomes
-``--cohorts C``, its data axis on one card; ``--device`` defaults to the card.
-Checkpoints wait for the port of `checkpoint/`.
+heterogeneous-client data -> checkpointing.  The reference's ``--mesh DxM``
+becomes ``--cohorts C``, its data axis on one card; ``--device`` defaults to
+the card.  With ``--ckpt-dir D --ckpt-every N`` the state (``state._asdict()``:
+x, w, gbar, the step and the coins' generator) is saved to
+``D/ckpt_{round:08d}.npz`` every N rounds (`repro_torch.checkpoint`, the
+reference's layout).  As in the reference there is no resume flag; a saved
+state comes back with ``restore_checkpoint(D, round, helpers["init_state"]())``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import argparse
 import dataclasses
 import time
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.deep import DeepSVRPConfig
 from repro_torch.data import ShardedBatcher, SyntheticLMDataset
@@ -44,8 +49,6 @@ def main(argv=None) -> list[float]:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported yet")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -70,6 +73,8 @@ def main(argv=None) -> list[float]:
         losses.append(float(metrics["loss"]))
         if r % max(args.rounds // 10, 1) == 0 or r == 1:
             print(f"round {r:5d}  loss {losses[-1]:.4f}  {(time.time() - t0) / r:.2f}s/round")
+        if args.ckpt_dir and args.ckpt_every and r % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, r, state._asdict())
     print("done.")
     return losses
 

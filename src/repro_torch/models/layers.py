@@ -9,7 +9,9 @@ dicts of tensors), the same maths and the same dtype casts:
 Attention goes through `kernels.ops`: the hand-written kernels for CUDA
 tensors (K4 for a full sequence, K5 for one decode token), their plain
 PyTorch versions for CPU tensors.  The large projections stay
-`torch.matmul`, as the reference leaves them to XLA.
+`torch.matmul`, as the reference leaves them to XLA; an int8 weight
+(`repro_torch.quant`) is dequantised into the compute dtype just before its
+product.
 """
 from __future__ import annotations
 
@@ -64,8 +66,17 @@ def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False, dtype=torch.f
     return p
 
 
+def dequantize_weight(w, dtype):
+    """The matrix of an int8 ``{"q", "s"}`` weight (`repro_torch.quant`) in
+    ``dtype``: ``q`` and ``s`` each cast to ``dtype``, their product rounded
+    there, as the reference's `linear_apply` computes it (the product in
+    place: one matrix in ``dtype`` at a time, not two)."""
+    return w["q"].to(dtype).mul_(w["s"].to(dtype))
+
+
 def linear_apply(p, x):
-    y = x @ p["w"].to(x.dtype)
+    w = p["w"]
+    y = x @ (dequantize_weight(w, x.dtype) if isinstance(w, dict) else w.to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -185,7 +196,12 @@ def embed_init(gen, vocab: int, d_model: int, dtype=torch.float32, device=None):
 
 
 def embed_apply(p, tokens):
-    return p["emb"][tokens]
+    """The rows of ``tokens``; for int8 rows (per-row scales) their float32
+    values ``q s``, which the callers cast to the compute dtype."""
+    emb = p["emb"]
+    if isinstance(emb, dict):
+        return emb["q"][tokens].to(torch.float32) * emb["s"][:, 0][tokens][..., None]
+    return emb[tokens]
 
 
 def unembed_apply(p_head, x):

@@ -49,6 +49,37 @@ def tree_axpy(alpha, x, y):
     return tree_map(lambda u, v: alpha * u + v, x, y)
 
 
+def tree_dot(a, b):
+    """The sum over leaves of ``vdot(x, y)``, each leaf's product in the
+    leaf's own dtype, as the reference's `tree_dot`: its running sum starts
+    from a weakly typed zero, so it runs in the dtype the leaves' products
+    promote to (bfloat16 for an all-bf16 tree, float32 once a float32 leaf
+    joins); an empty tree gives a float32 zero."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        v = torch.vdot(x.reshape(-1), y.reshape(-1))
+        total = v if total is None else total + v
+    return torch.zeros((), dtype=torch.float32) if total is None else total
+
+
+def tree_sqnorm(a):
+    return tree_dot(a, a)
+
+
+def tree_norm(a):
+    return torch.sqrt(tree_sqnorm(a))
+
+
+def tree_size(a) -> int:
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def tree_bytes(a) -> int:
+    """Bytes of every leaf: an int8 ``{"q", "s"}`` weight counts its int8
+    values and its float32 scales."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(a))
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 

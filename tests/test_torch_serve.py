@@ -93,9 +93,18 @@ def test_temperature_sampling_varies(setup):
 
 
 def test_server_refuses_what_is_not_ported(setup):
-    _, _, tcfg, tparams = setup
-    with pytest.raises(NotImplementedError, match="int8 serving"):
-        BatchServer(tcfg, tparams, ServeConfig(quantize=True), device="cpu")
+    """int8 serving, ported since, quantizes at construction (the MLP
+    weights: the other matrices of this width-64 model are below the
+    1 << 14 elements quantization starts at) and serves the reference's
+    quantized server's greedy tokens; what stays refused: a cache too short,
+    the card by default when there is none."""
+    jcfg, jparams, tcfg, tparams = setup
+    srv = _server(setup, max_batch=2, quantize=True)
+    assert set(srv.params["layers"]["mlp"]["up"]["w"]) == {"q", "s"}
+    assert isinstance(srv.params["layers"]["attn"]["wq"]["w"], torch.Tensor)
+    want = JaxServer(jcfg, jparams, JaxServeConfig(max_batch=2, cache_len=64, quantize=True)
+                     ).generate(PROMPTS, max_new_tokens=7)
+    assert srv.generate(PROMPTS, max_new_tokens=7) == want
     with pytest.raises(ValueError, match="cache too short"):
         _server(setup).generate([[1] * 60], max_new_tokens=8)
     if not torch.cuda.is_available():
@@ -111,6 +120,8 @@ def test_prefill_and_serve_steps_match_reference(setup):
     got = make_prefill_step(tcfg, device="cpu")(tparams, {"tokens": tokens})
     want = JM.forward(jparams, jcfg, {"tokens": jnp.asarray(tokens, jnp.int32)})[0][:, -1]
     assert got.shape == (3, SMALL["vocab_size"])
+    # its own storage: a view of the last position would keep every position's logits alive
+    assert got.untyped_storage().nbytes() == got.numel() * got.element_size()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
     step = make_serve_step(tcfg, device="cpu")

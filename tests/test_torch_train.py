@@ -12,6 +12,8 @@ Tolerances: the model's loss rtol 1e-5 and every gradient leaf atol 1e-5,
 rtol 1e-4 (float32, summation order only); x, w, gbar and the loss after
 each round rtol 1e-4, atol 1e-6.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -183,13 +185,17 @@ def test_data_equals_reference():
 
 
 # ------------------------------------------------------------------ (h)
-def test_train_launcher_runs(capsys):
+def test_train_launcher_runs(capsys, tmp_path):
     losses = train_main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--rounds", "2",
                          "--cohorts", "2", "--per-cohort-batch", "2", "--seq-len", "16"])
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "2 client cohorts" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--ckpt-dir", "x"])
+    # --ckpt-dir, ported since: a checkpoint every round (tests/test_torch_checkpoint.py
+    # restores them)
+    train_main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--rounds", "2",
+                "--cohorts", "1", "--per-cohort-batch", "1", "--seq-len", "8",
+                "--local-steps", "1", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"])
+    assert sorted(os.listdir(tmp_path)) == ["ckpt_00000001.npz", "ckpt_00000002.npz"]
     # The flat-vector DeepSVRP driver, ported since, runs one trial.
     from repro_torch.problems import make_synthetic_quadratic
 
