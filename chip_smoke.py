@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives ten paths of the port: the paper's fused sweep (K1, K2), the
+It drives eleven paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
 federated transformer through the engine (K1, K4, K4b), the online round
@@ -13,8 +13,9 @@ engine (sessions, a pool, the streaming servers; K1, K4, K4b), dense-transformer
 serving on Llama-3.2-3B (K4, K5), hybrid serving on
 Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7), DeepSVRP
 training on Qwen2-1.5B (K3, K4, K4b), the AdamW baseline and checkpoints on
-Qwen2-1.5B (K4, K4b), and int8 weight-only serving of the three families
-(K4, K5, K6, K7).
+Qwen2-1.5B (K4, K4b), int8 weight-only serving of the three families
+(K4, K5, K6, K7), and DeepSVRP and AdamW training of Zamba2-2.7B (K6, K6b,
+K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -250,8 +251,41 @@ Phases, each printed as one JSON line:
    16 tokens, their bytes and logit gaps; the reduced llama3.2, zamba2 and
    rwkv6 in float32, int8 on the card against the CPU
    (QUANT_REDUCED_REL_TOL);
-27. the `kernels` line (nine rows: K1, its loop form, K2-K7 and K4b), then
-   the `ok` line.
+27. recurrent bwd parity — K6b and K7b (the scans' backwards) against
+   their plain backwards on the card at each family's training shape
+   (Zamba2: B 2, T 1024, H 80, P 64, N 64; rwkv6: B 2, T 1024, H 32, K 64),
+   bf16 and float32, the relative L2 of every gradient within K6B_REL_TOL /
+   K7B_REL_TOL, timed beside the bound and the plain backward, two launches
+   bit for bit; smaller cases with state0 and a final-state cotangent
+   (P 128 / N 16; strong and weak decay); K4b at Zamba2's attention shape
+   (2 x 1024, 32/32 heads, Dh 80, bf16); planted faults that must fail: K6b
+   without the carry between chunks, K7b's dw from S_t, K7b skipping one
+   tile's recompute;
+28. hybrid / rwkv train — `make_svrp_train_step` on Zamba2-2.7B and
+   rwkv6-1.6b at full width and depth in bf16 (seed-0 weights), TRAIN's
+   settings for 2 rounds (C 2 cohorts of 2 x 1024, K 4, coins [1, 0]; 1 x
+   1024 a cohort if 2 x 1024 does not fit, said in a line): ms a round, trained
+   tokens/s, peak memory; exact counts: K6 and K6b 45, K4 and K4b 9 a pass
+   (Zamba2), K7 and K7b 24 a pass (rwkv6), K3 2 C K a round (two dtype
+   groups: the float32 A_log, dt_bias, D, w0, u);
+29. their profiles — one plain round each under torch.profiler (device
+   activity only);
+30. their replays — round 1 again with the plain K3, attention and scans
+   (forward and backward) on the card (at RTRAIN_REPLAY_SEQ tokens a row),
+   the gradient at x0, the loss and the update against the kernels' run at
+   the training replay's limits (bf16 hides the planted backward faults
+   there: they are held in float32 below);
+31. their AdamW — 2 steps of `make_adamw_train_step` at full size on the
+   4 x 1024 batch in one pass: ms a step, peak memory, exact counts;
+32. their reduced checks — the reduced models in float32: one DeepSVRP
+   round and 3 AdamW steps on the card against the CPU
+   (RTRAIN_REDUCED_REL_TOL), and the round with the planted backward fault,
+   which must exceed it;
+33. their federated LM — 2 rounds of `run_batch("deep_svrp")` (fused, 2
+   trials) on a `FedLMProblem` over the reduced models, exact counts, the
+   loss against the CPU's (RTRAIN_FEDLM's rel_tol) and comm equal;
+34. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
+   K7b), then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -455,6 +489,41 @@ QUANT_BYTES_RATIO = 0.51
 QUANT_LOGIT_GAP = 0.12
 QUANT_REDUCED_REL_TOL = 1e-5
 QUANT_SHORT = dict(prompts=2, prompt_len=64, new_tokens=16)  # the recurrent families' generate
+# Recurrent training.  K6b and K7b against their plain backwards on the
+# card: the relative L2 of every gradient.  Read on an H100 80GB HBM3 at
+# 700 W: K6b at most 1.1e-5 (f32) and 5.9e-5 (bf16: dx, dB and dC rounded
+# to bf16 in both), its planted fault (no carry) 0.04-0.14 on dx, ddt, dA
+# and dB; K7b at most 8.5e-7 (f32) and 3.3e-5 (bf16), its planted faults
+# 1.0 (dw from S_t) and 0.25 (a tile not recomputed) on dw.
+K6B_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+K7B_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+RTRAIN_SSM_SHAPE = (2, 1024, 80, 64, 64)  # Zamba2's training shape (B, T, H, P, N)
+RTRAIN_RWKV_SHAPE = (2, 1024, 32, 64)  # rwkv6-1.6b's (B, T, H, K)
+RTRAIN_ATTN_SHAPE = (2, 1024, 1024, 32, 32, 80)  # Zamba2's attention (B, Sq, Skv, H, KVH, Dh)
+# DeepSVRP at full width and depth: the training phase's settings, for 2
+# rounds (a refresh and a plain one) to keep the script inside its time.
+RTRAIN = {**{k: v for k, v in TRAIN.items() if k != "arch"}, "coins": (True, False)}
+# Round 1 replayed with the plain versions on the card, at the training
+# replay's limits (TRAIN_*_REL_TOL), on the first RTRAIN_REPLAY_SEQ tokens
+# of every row: four of K6b's 64-step chunks (Zamba2) and two of K7b's
+# 32-step tiles (rwkv6), so both backwards carry their state across a chunk
+# or a checkpoint.  The plain WKV scan steps one token at a time from the
+# host (~100 launches a step and layer, forward and backward), the plain
+# attention backward forms whole score matrices.  Read on an H100 80GB
+# HBM3 at 700 W at these lengths: the plain run 5.1e-2 / 7.7e-2 on the
+# gradient, 6.3e-6 / 3.5e-5 on the loss, 0.78 / 0.31 on the update.  The
+# planted backward faults (K6b without the carry, K7b's dw from S_t) moved
+# the gradient by only 1.9e-2 / 2.3e-2 at 1024 / 256 tokens (worst leaf
+# 0.14 / 0.13): bf16 rounding hides them, so they are held in float32 on the
+# reduced models (`phase_recurrent_reduced`), as the serving phases hold
+# K6's.
+RTRAIN_REPLAY_SEQ = {"hybrid": 256, "rwkv": 64}
+# The reduced models in float32, card against CPU: one DeepSVRP round and 3
+# AdamW steps, relative L2 of the parameters (and gbar, the loss).
+RTRAIN_REDUCED_REL_TOL = {"hybrid": 1e-4, "rwkv": 1e-5}
+RTRAIN_ADAMW_STEPS = 2
+RTRAIN_FEDLM = dict(clients=3, batch=2, seq=64, rounds=2, local_steps=2, seeds=2,
+                    anchor_prob=0.5, rel_tol=1e-4)
 
 
 class SmokeFailure(Exception):
@@ -498,14 +567,16 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def kernel_times_us(prof) -> dict[str, tuple[float, int]]:
-    """Device time (us) and launch count of every kernel in a profiler trace."""
+    """Device time (us) and launch count of every kernel in a profiler trace,
+    read from the raw trace: building the profiler's event list
+    (``prof.events()``) takes seconds for a training round's ~10^5 kernels."""
     import torch
 
     out: dict[str, tuple[float, int]] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, c = out.get(e.name, (0.0, 0))
-            out[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            t, c = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (t + e.duration_ns() / 1e3, c + 1)
     return out
 
 
@@ -523,13 +594,16 @@ def profiled(fn, reps: int):
 
     The profiler loses a few device events at the edges of a session (10
     calls of K4 read as 5), so throwaway spin kernels pad both edges, outside
-    the timed window, and are left out of the kernel times."""
+    the timed window, and are left out of the kernel times.  It records
+    device activity alone: the kernel times are all it returns, and host-side
+    op events (~10^5 in a training round) would take the profiler tens of
+    seconds to gather and stretch the timed window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _spin()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -555,7 +629,8 @@ WRAPPERS = {"prox_update": "prox_update", "prox_update_batched": "prox_update",
             "quadratic_prox_gd_batched": "prox_update",
             "logistic_prox_gd_batched": "logistic_prox", "flash_attention": "flash_attention",
             "flash_attention_bwd": "flash_attention", "decode_attention": "decode_attention",
-            "ssm_scan": "ssm_scan", "rwkv6_scan": "rwkv6_scan"}
+            "ssm_scan": "ssm_scan", "rwkv6_scan": "rwkv6_scan", "ssm_scan_bwd": "ssm_scan",
+            "rwkv6_scan_bwd": "rwkv6_scan"}
 SERVE_KERNELS = ("flash_attention", "decode_attention")
 TRAIN_KERNELS = ("prox_update", "flash_attention", "flash_attention_bwd")
 HYBRID_KERNELS = ("ssm_scan", "flash_attention", "decode_attention")
@@ -563,8 +638,10 @@ RWKV_KERNELS = ("rwkv6_scan",)
 SWEEP_KERNELS = ("quadratic_prox_gd_batched", "prox_update_batched", "logistic_prox_gd_batched")
 DEEP_KERNELS = ("prox_update_batched", "flash_attention", "flash_attention_bwd")
 ADAMW_KERNELS = ("flash_attention", "flash_attention_bwd")
+HYBRID_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd", "flash_attention", "flash_attention_bwd")
+RWKV_TRAIN_KERNELS = ("rwkv6_scan", "rwkv6_scan_bwd")
 PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training", "optim",
-         "quant")
+         "quant", "recurrent_train")
 
 
 def _wrapper(name):
@@ -2844,14 +2921,16 @@ def phase_recurrent_paths(fam: Family) -> dict:
 # ------------------------------------------------------------ rwkv6 (K7)
 def rwkv_inputs(gen, shape, dtype, *, decay="sigmoid", with_state=False):
     """K7's operands: r, k, v normal; w = sigmoid(normal) (the reference's
-    test draw) or, with ``decay="strong"``, uniform in [0.03, 0.07]; u
-    normal; an optional normal state0."""
+    test draw) or, with ``decay="strong"``, uniform in [0.03, 0.07] (``"weak"``:
+    [0.99, 0.999]); u normal; an optional normal state0."""
     import torch
 
     Bb, T, H, K = shape
     r, k, v = (torch.randn(Bb, T, H, K, generator=gen, device="cuda").to(dtype) for _ in range(3))
     if decay == "strong":
         w = torch.rand(Bb, T, H, K, generator=gen, device="cuda") * 0.04 + 0.03
+    elif decay == "weak":
+        w = torch.rand(Bb, T, H, K, generator=gen, device="cuda") * 0.009 + 0.99
     else:
         w = torch.sigmoid(torch.randn(Bb, T, H, K, generator=gen, device="cuda"))
     u = torch.randn(H, K, generator=gen, device="cuda")
@@ -3425,7 +3504,7 @@ def phase_train():
     return cfg, step, helpers, batch, launches
 
 
-def phase_train_profile(step, helpers, batch) -> None:
+def phase_train_profile(step, helpers, batch, label: str = "train_profile") -> None:
     """Where a training round's time goes: one plain round (no refresh)
     under torch.profiler, after one unprofiled."""
     state = helpers["init_state"]()
@@ -3437,7 +3516,7 @@ def phase_train_profile(step, helpers, batch) -> None:
     del state
     busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "train_profile", "run": "one plain round, C = 2, K = 4", "wall_ms": wall_ms,
+    emit({"phase": label, "run": "one plain round, C = 2, K = 4", "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
           "kernel_launches": sum(c for _, c in kernels.values()),
@@ -4070,13 +4149,610 @@ def phase_quant() -> None:
 
 
 
+# ------------------------------- recurrent training (K6, K6b, K4, K4b, K7, K7b, K3)
+def _grad_errors(got, want, names) -> dict:
+    """Relative L2 (and max abs) of every gradient against its plain one."""
+    import torch
+
+    out = {}
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            continue
+        a64, b64 = a.double(), b.double()
+        den = torch.linalg.vector_norm(b64).item()
+        num = torch.linalg.vector_norm(a64 - b64).item()
+        out[name] = dict(rel_l2=num / den if den > 0 else num,
+                         max_abs_err=(a64 - b64).abs().max().item(),
+                         finite=bool(torch.isfinite(a).all()))
+    return out
+
+
+def _grads_ok(errs: dict, tol: float) -> bool:
+    return all(e["finite"] and e["rel_l2"] <= tol for e in errs.values())
+
+
+def k6b_case(gen, shape, dtype, *, with_state=False, timed=False) -> dict:
+    """K6b against the plain backward on one input (x, B and C column views of
+    one tensor, as the model hands them); with ``timed``, K6b timed beside its
+    bound and the plain backward, two launches compared bit for bit, and the
+    planted fault (the state's cotangent not carried across chunks)."""
+    import torch
+
+    from repro_torch.kernels import ssm_scan as ssm
+
+    dname = str(dtype).split(".")[-1]
+    x, dt, A, Bm, Cm, D, s0 = ssm_inputs(gen, shape, dtype, with_state=with_state)
+    Bb, T, H, P, N = shape
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    dh = (torch.randn((Bb, H, P, N), generator=gen, device="cuda") if with_state else None)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dstate0")
+    got = ssm.ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    want = ssm.ssm_scan_bwd_plain(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    errs = _grad_errors(got, want, names)
+    tol = K6B_REL_TOL[dname]
+    check(_grads_ok(errs, tol), f"ssm_scan_bwd {dname} {list(shape)}: {errs} (tol {tol})")
+    res = dict(shape=list(shape), dtype=dname, state0=with_state, rel_tol=tol, errors=errs,
+               max_abs_err=max(e["max_abs_err"] for e in errs.values()))
+    if not timed:
+        return res
+    again = ssm.ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    res["bit_identical_launches"] = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    check(res["bit_identical_launches"], "ssm_scan_bwd: two launches differ")
+    ssm._BWD_DROP_CARRY = True
+    try:
+        planted = _grad_errors(ssm.ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh), want, names)
+    finally:
+        ssm._BWD_DROP_CARRY = False
+    res["planted_fault_no_carry"] = planted
+    check(not _grads_ok(planted, tol), f"ssm_scan_bwd: a dropped carry passed: {planted}")
+    del got, want, again
+    esz = x.element_size()
+    nc = -(-T // K6_CHUNK)
+    Q = K6_CHUNK
+    nbytes = (2 * x.numel() * esz + 2 * dt.numel() * 4 + 4 * Bm.numel() * esz + 4 * H * 4
+              + (3 * s0.numel() * 4 if with_state else 0))
+    flops = Bb * H * nc * (2 * Q * Q * (3 * N + 2 * P) + 10 * Q * P * N)
+    b_ms, b_by = bound_ms(nbytes, flops, dname)
+
+    def k6b():
+        return ssm.ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh)
+
+    def plain():
+        return ssm.ssm_scan_bwd_plain(x, dt, A, Bm, Cm, D, s0, dy, dh)
+
+    res.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops, ms=time_ms(k6b, 10),
+               plain_ms=time_ms(plain, 3, 1), device_ms=device_ms(k6b, 3), library_ms=None,
+               fwd_ms=time_ms(lambda: ssm.ssm_scan(x, dt, A, Bm, Cm, D, s0), 10))
+    res["bound_share"] = b_ms / res["ms"]
+    return res
+
+
+def k7b_case(gen, shape, dtype, *, decay="sigmoid", with_state=False, timed=False) -> dict:
+    """K7b against the plain backward on one input; with ``timed``, K7b timed
+    beside its bound and the plain backward, two launches compared bit for
+    bit, and the planted faults (dw reading S_t for S_{t-1}; one tile's
+    states not recomputed)."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    dname = str(dtype).split(".")[-1]
+    r, k, v, w, u, s0 = rwkv_inputs(gen, shape, dtype, decay=decay, with_state=with_state)
+    Bb, T, H, K = shape
+    dy = torch.randn(r.shape, generator=gen, device="cuda").to(dtype)
+    dS = torch.randn((Bb, H, K, K), generator=gen, device="cuda") if with_state else None
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    got = rw.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+    want = rw.rwkv6_scan_bwd_plain(r, k, v, w, u, s0, dy, dS)
+    errs = _grad_errors(got, want, names)
+    tol = K7B_REL_TOL[dname]
+    check(_grads_ok(errs, tol), f"rwkv6_scan_bwd {dname} {list(shape)} {decay}: {errs} "
+                                f"(tol {tol})")
+    res = dict(shape=list(shape), dtype=dname, decay=decay, state0=with_state, rel_tol=tol,
+               errors=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()))
+    if not timed:
+        return res
+    again = rw.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+    res["bit_identical_launches"] = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    check(res["bit_identical_launches"], "rwkv6_scan_bwd: two launches differ")
+    for fault, attr, value in (("dw_from_next_state", "_BWD_DW_FROM_NEXT_STATE", True),
+                               ("skip_recompute_tile", "_BWD_SKIP_RECOMPUTE_TILE",
+                                (T // K7_TILE) // 2)):
+        setattr(rw, attr, value)
+        try:
+            planted = _grad_errors(rw.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS), want, names)
+        finally:
+            rw._BWD_DW_FROM_NEXT_STATE, rw._BWD_SKIP_RECOMPUTE_TILE = False, -1
+        res[f"planted_fault_{fault}"] = planted
+        check(not _grads_ok(planted, tol), f"rwkv6_scan_bwd: the {fault} fault passed: {planted}")
+    del got, want, again
+    esz = r.element_size()
+    nbytes = 9 * r.numel() * esz + 2 * u.numel() * 4 + (3 * s0.numel() * 4 if with_state else 0)
+    flops = 14 * Bb * T * H * K * K
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")  # the recurrence is elementwise float32
+
+    def k7b():
+        return rw.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+
+    def plain():
+        return rw.rwkv6_scan_bwd_plain(r, k, v, w, u, s0, dy, dS)
+
+    res.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops, ms=time_ms(k7b, 10),
+               plain_ms=time_ms(plain, 1, 1), device_ms=device_ms(k7b, 3), library_ms=None,
+               fwd_ms=time_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, s0), 10))
+    res["bound_share"] = b_ms / res["ms"]
+    return res
+
+
+def phase_recurrent_bwd_parity() -> dict:
+    """K6b and K7b against their plain versions at each family's training
+    shape in bf16 and float32 (timed, with the planted faults) and at smaller
+    cases with state0 and a final-state cotangent; K4b at Zamba2's attention
+    shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bf16, f32 = torch.bfloat16, torch.float32
+    k6b = {str(dt).split(".")[-1]: k6b_case(gen, RTRAIN_SSM_SHAPE, dt, timed=True)
+           for dt in (bf16, f32)}
+    k6b_cases = [k6b_case(gen, shape, dt, with_state=True)
+                 for dt in (bf16, f32) for shape in ((2, 300, 4, 64, 64), (1, 129, 3, 128, 16))]
+    torch.cuda.empty_cache()
+    k7b = {str(dt).split(".")[-1]: k7b_case(gen, RTRAIN_RWKV_SHAPE, dt, timed=True)
+           for dt in (bf16, f32)}
+    k7b_cases = [k7b_case(gen, (2, 300, 4, 64), dt, decay=decay, with_state=True)
+                 for dt in (bf16, f32) for decay in ("strong", "weak")]
+    torch.cuda.empty_cache()
+    k4b = k4b_case(gen, *RTRAIN_ATTN_SHAPE, bf16, timed=True)
+    emit({"phase": "recurrent_bwd_parity", "ssm_scan_bwd": list(k6b.values()),
+          "ssm_scan_bwd_cases": k6b_cases, "rwkv6_scan_bwd": list(k7b.values()),
+          "rwkv6_scan_bwd_cases": k7b_cases, "flash_attention_bwd_zamba2": k4b,
+          "library": "K6b, K7b: none (no PyTorch call computes a scan's gradient)"})
+    return {"ssm_scan_bwd": k6b["bfloat16"], "rwkv6_scan_bwd": k7b["bfloat16"]}
+
+
+class TrainFamily(NamedTuple):
+    """What the recurrent training phases need of a model family."""
+    label: str
+    arch: str
+    kernels: tuple  # the wrappers whose launches are counted and checked
+    per_pass: Callable  # cfg -> launches of one forward and backward pass
+    per_forward: Callable  # cfg -> launches of one forward pass without a gradient
+    describe: Callable  # (cfg, params) -> the model line; checks the model's size
+    randomize: Callable  # (params, cfg, seed)
+    scan_fault: Callable  # () -> context: the family's planted backward fault
+    replay_seq: int  # the replay's sequence length
+    reduced_tol: float  # the reduced float32 card-against-CPU limit
+    reduced_seq: int  # the reduced check's tokens a row (K6b: three chunks)
+
+
+def _hybrid_pass(cfg) -> dict:
+    per_call, _ = hybrid_counts(cfg)
+    n, G = per_call["ssm_scan"], per_call["flash_attention"]
+    return {"ssm_scan": n, "ssm_scan_bwd": n, "flash_attention": G, "flash_attention_bwd": G}
+
+
+def _hybrid_forward(cfg) -> dict:
+    return {**_hybrid_pass(cfg), "ssm_scan_bwd": 0, "flash_attention_bwd": 0}
+
+
+def _rwkv_pass(cfg) -> dict:
+    return {"rwkv6_scan": cfg.num_layers, "rwkv6_scan_bwd": cfg.num_layers}
+
+
+def _rwkv_forward(cfg) -> dict:
+    return {"rwkv6_scan": cfg.num_layers, "rwkv6_scan_bwd": 0}
+
+
+def _kernel_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+HYBRID_TRAIN = TrainFamily(
+    label="hybrid", arch=HYBRID["arch"], kernels=HYBRID_TRAIN_KERNELS, per_pass=_hybrid_pass,
+    per_forward=_hybrid_forward, describe=hybrid_model, randomize=randomize_hybrid,
+    scan_fault=lambda: rebind(_kernel_module("ssm_scan"), _BWD_DROP_CARRY=True),
+    replay_seq=RTRAIN_REPLAY_SEQ["hybrid"], reduced_tol=RTRAIN_REDUCED_REL_TOL["hybrid"],
+    reduced_seq=160)
+RWKV_TRAIN = TrainFamily(
+    label="rwkv", arch=RWKV["arch"], kernels=RWKV_TRAIN_KERNELS, per_pass=_rwkv_pass,
+    per_forward=_rwkv_forward, describe=rwkv_model, randomize=randomize_rwkv,
+    scan_fault=lambda: rebind(_kernel_module("rwkv6_scan"), _BWD_DW_FROM_NEXT_STATE=True),
+    replay_seq=RTRAIN_REPLAY_SEQ["rwkv"], reduced_tol=RTRAIN_REDUCED_REL_TOL["rwkv"],
+    reduced_seq=64)
+
+
+@contextlib.contextmanager
+def recurrent_train_ops(mode: str):
+    """The training path's ops: "plain" the plain K3, attention and scans
+    (forward and backward) on the card; the scans through `SSMScan` and
+    `RWKV6Scan` with the kernel wrappers they call rebound to the plain
+    versions."""
+    if mode == "kernels":
+        yield
+        return
+    ssm, rw = _kernel_module("ssm_scan"), _kernel_module("rwkv6_scan")
+    with train_ops("plain"), \
+            rebind(ssm, ssm_scan=ssm.ssm_scan_plain, ssm_scan_bwd=ssm.ssm_scan_bwd_plain), \
+            rebind(rw, rwkv6_scan=rw.rwkv6_scan_plain, rwkv6_scan_bwd=rw.rwkv6_scan_bwd_plain):
+        yield
+
+
+def recurrent_batch(cfg, per_cohort_batch: int, seq_len: int) -> dict:
+    """C cohorts of b x S tokens from `SyntheticLMDataset` (seed 0), cohort-major, on the card."""
+    import torch
+
+    from repro_torch.data import ShardedBatcher, SyntheticLMDataset
+
+    C = RTRAIN["cohorts"]
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
+    batch = ShardedBatcher(ds, num_cohorts=C, per_cohort_batch=per_cohort_batch,
+                           seq_len=seq_len).next_batch()
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _svrp_config():
+    from repro_torch.core.deep import DeepSVRPConfig
+
+    return DeepSVRPConfig(eta=RTRAIN["eta"], local_lr=RTRAIN["local_lr"],
+                          local_steps=RTRAIN["local_steps"], anchor_prob=0.0625)
+
+
+def _round_launches(fam, cfg, coins, dtype_groups: int) -> dict:
+    C, K = RTRAIN["cohorts"], RTRAIN["local_steps"]
+    passes = sum(C * (1 + K) + C * int(coin) for coin in coins)
+    want = {k: n * passes for k, n in fam.per_pass(cfg).items()}
+    want["prox_update"] = dtype_groups * C * K * len(coins)
+    return want, passes
+
+
+def phase_recurrent_train(fam: TrainFamily):
+    """DeepSVRP training of the family's model at full width and depth in
+    bf16 (weights from seed 0 on the card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_svrp_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(fam.arch)
+    C, K, S = RTRAIN["cohorts"], RTRAIN["local_steps"], RTRAIN["seq_len"]
+    step, helpers = make_svrp_train_step(cfg, _svrp_config(), cohorts=C)
+    state = helpers["init_state"]()
+    model = fam.describe(cfg, state.params)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    groups = len({t.dtype for t in tree_leaves(state.params)})
+    kernels = fam.kernels + ("prox_update",)
+    for b in (RTRAIN["per_cohort_batch"], 1):
+        batch = recurrent_batch(cfg, b, S)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts(kernels)
+        ms, losses = [], []
+        try:
+            for coin in RTRAIN["coins"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, metrics = step(state, batch, refresh=coin)
+                losses.append(metrics["loss"].item())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                state = new
+                del new
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(b > 1, f"{cfg.name}: DeepSVRP does not fit the card at 1 x {S} a cohort")
+            emit({"phase": f"{fam.label}_train_oom", "per_cohort_batch": b,
+                  "note": f"out of memory at {b} x {S} a cohort: dropping to 1 x {S}"})
+            state = helpers["init_state"]()
+    launches = launch_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    want, passes = _round_launches(fam, cfg, RTRAIN["coins"], groups)
+    tokens = C * b * S
+    steady = float(np.mean(ms[1:]))
+    emit({"phase": f"{fam.label}_train", "model": model, "params": n_params,
+          "batch": list(batch["tokens"].shape), "cohorts": C, "local_steps": K,
+          "eta": RTRAIN["eta"], "local_lr": RTRAIN["local_lr"], "coins": list(RTRAIN["coins"]),
+          "losses": losses, "ms_per_round": ms, "ms_per_round_after_first": steady,
+          "tokens_per_round": tokens, "trained_tokens_per_s": tokens / steady * 1e3,
+          "passes": passes, "dtype_groups": groups, "peak_mem_gb": peak / 1e9,
+          "launches": launches, "launches_expected": want})
+    check(launches == want, f"{fam.label} train launches {launches}, want {want} ({passes} "
+                            f"passes; K3 {groups} dtype groups x C K a round)")
+    check(all(np.isfinite(losses)), f"{fam.label} train losses {losses} not finite")
+    del state
+    torch.cuda.empty_cache()
+    return cfg, step, helpers, batch, launches
+
+
+def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch) -> dict:
+    """Round 1 again from the seed-0 state with the kernels and with the
+    plain K3, attention and scans (forward and backward) on the card, at
+    ``fam.replay_seq`` tokens a row: the cohort-mean gradient at x0 with the
+    loss there, and the round's update."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import value_and_grad
+
+    C = RTRAIN["cohorts"]
+    b = batch["tokens"].shape[0] // C
+    S = fam.replay_seq
+    shards = [{k: v[c * b:(c + 1) * b, :S].long() for k, v in batch.items()} for c in range(C)]
+    cut = {k: v[:, :S] for k, v in batch.items()}
+
+    def loss(params, shard):
+        return M.loss_fn(params, cfg, shard)
+
+    results, kept = {}, {}
+    for mode in ("kernels", "plain"):
+        state = helpers["init_state"]()
+        x0 = state.params
+        g0, loss0 = None, 0.0
+        t0 = time.perf_counter()
+        with recurrent_train_ops(mode):
+            for shard in shards:
+                l, g = value_and_grad(loss, x0, shard)
+                loss0 += l.item() / C
+                g0 = _tree(lambda t: t.float() / C, g) if g0 is None else \
+                    _tree(lambda a, t: a.add_(t.float() / C), g0, g)
+                del g
+            new, _ = step(state, cut, refresh=False)
+        torch.cuda.synchronize()
+        entry = {"wall_s": time.perf_counter() - t0, "loss_at_x0": loss0}
+        if mode == "kernels":
+            kept = {"grad": g0, "x": new.params}
+            entry["update_norm"] = tree_dist(new.params, x0)
+        else:
+            entry["grad_rel_l2"], entry["grad_worst_leaf_rel_l2"] = tree_rel_err(g0, kept["grad"])
+            entry["update_rel_l2"] = tree_dist(new.params, kept["x"]) / \
+                results["kernels"]["update_norm"]
+            entry["loss_rel_err"] = abs(loss0 - results["kernels"]["loss_at_x0"]) / \
+                abs(results["kernels"]["loss_at_x0"])
+        results[mode] = entry
+        del state, new, x0, g0
+        torch.cuda.empty_cache()
+    del kept
+    emit({"phase": f"{fam.label}_train_replay", "round": 1, "tokens_per_row": S,
+          "grad_rel_tol": TRAIN_GRAD_REL_TOL, "update_rel_tol": TRAIN_UPDATE_REL_TOL,
+          "loss_rel_tol": TRAIN_LOSS_REL_TOL, "note": "each run against the kernels' run",
+          **results})
+    plain = results["plain"]
+    check(plain["grad_rel_l2"] <= TRAIN_GRAD_REL_TOL
+          and plain["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+          and plain["update_rel_l2"] <= TRAIN_UPDATE_REL_TOL,
+          f"{fam.label} replay: the plain run differs from the kernels' by {plain}")
+    return results
+
+
+def _reduced_f32(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(), param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def phase_recurrent_reduced(fam: TrainFamily) -> dict:
+    """The reduced model in float32 (weights randomised where init hides
+    faults), 4 x ``fam.reduced_seq`` tokens: one DeepSVRP round (C 2, K 2, a refresh, gbar =
+    the gradient at x0) and 3 AdamW steps on the card against the same on
+    the CPU; the round again on the card with the family's planted backward
+    fault, which must leave the limit on gbar."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.deep import DeepSVRPConfig, grad_of
+    from repro_torch.launch import make_adamw_train_step, make_svrp_train_step
+    from repro_torch.launch.steps import AdamWTrainState, SVRPServerState
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    cfg = _reduced_f32(fam.arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    fam.randomize(params, cfg, 5)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, fam.reduced_seq))
+    batch_cpu = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)}
+    C = 2
+    svrp = DeepSVRPConfig(eta=1.0, local_lr=0.05, local_steps=2, anchor_prob=0.5)
+    gbar = _tree(lambda t: t / C, grad_of(lambda p, b: M.loss_fn(p, cfg, b),
+                                          {k: v[:2] for k, v in batch_cpu.items()})(params))
+    _tree(lambda a, t: a.add_(t / C), gbar, grad_of(lambda p, b: M.loss_fn(p, cfg, b),
+                                                     {k: v[2:] for k, v in batch_cpu.items()})(params))
+    def svrp_round(dev):
+        p = _tree(lambda t: t.to(dev, copy=True), params)
+        g = _tree(lambda t: t.to(dev, copy=True), gbar)
+        batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+        step, _ = make_svrp_train_step(cfg, svrp, cohorts=C, device=dev)
+        state = SVRPServerState(params=p, anchor=p, anchor_grad=g, step=0,
+                                rng=torch.Generator().manual_seed(0))
+        return (*step(state, batch, refresh=True), batch)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        zero_launch_counts(fam.kernels)
+        state, metrics, batch = svrp_round(dev)
+        svrp_launches = launch_counts(fam.kernels)
+        astep, _ = make_adamw_train_step(cfg, lr=OPTIM["lr"], clip=OPTIM["clip"], device=dev)
+        p2 = _tree(lambda t: t.to(dev, copy=True), params)
+        astate = AdamWTrainState(p2, adamw_init(p2))
+        losses = []
+        for _ in range(3):
+            astate, am = astep(astate, batch)
+            losses.append(am["loss"].item())
+        out[dev] = dict(svrp=state, svrp_loss=metrics["loss"].item(), adamw=astate.params,
+                        adamw_losses=losses, svrp_launches=svrp_launches)
+    card, cpu = out["cuda"], out["cpu"]
+    res = {"model": f"{cfg.name} reduced, float32, {cfg.num_layers} layers, d_model "
+                    f"{cfg.d_model}", "rel_tol": fam.reduced_tol,
+           "svrp_loss_rel_err": abs(card["svrp_loss"] - cpu["svrp_loss"]) / abs(cpu["svrp_loss"]),
+           "adamw_losses_card": card["adamw_losses"], "adamw_losses_cpu": cpu["adamw_losses"],
+           "svrp_launches_card": card["svrp_launches"]}
+    for field in ("params", "anchor", "anchor_grad"):
+        res[f"svrp_{field}_rel_l2"], res[f"svrp_{field}_worst_leaf"] = tree_rel_err(
+            _tree(lambda t: t.cpu(), getattr(card["svrp"], field)), getattr(cpu["svrp"], field))
+    res["adamw_params_rel_l2"], res["adamw_params_worst_leaf"] = tree_rel_err(
+        _tree(lambda t: t.cpu(), card["adamw"]), cpu["adamw"])
+    with fam.scan_fault():
+        faulted, _, _ = svrp_round("cuda")
+    res["planted_fault_svrp_anchor_grad_rel_l2"], _ = tree_rel_err(
+        _tree(lambda t: t.cpu(), faulted.anchor_grad), cpu["svrp"].anchor_grad)
+    del faulted
+    emit({"phase": f"{fam.label}_train_reduced", **res})
+    worst = max(res["svrp_params_rel_l2"], res["svrp_anchor_grad_rel_l2"],
+                res["adamw_params_rel_l2"], res["svrp_loss_rel_err"])
+    check(worst <= fam.reduced_tol, f"{fam.label} reduced: card against CPU {worst} > "
+                                    f"{fam.reduced_tol}: {res}")
+    check(res["planted_fault_svrp_anchor_grad_rel_l2"] > fam.reduced_tol,
+          f"{fam.label} reduced: the planted backward fault moved gbar by only "
+          f"{res['planted_fault_svrp_anchor_grad_rel_l2']}")
+    check(all(v > 0 for k, v in card["svrp_launches"].items() if "prox" not in k),
+          f"{fam.label} reduced: the card's round launched {card['svrp_launches']}")
+    return res
+
+
+def phase_recurrent_adamw(fam: TrainFamily) -> dict:
+    """2 AdamW steps on the family's model at full size in bf16 (float32
+    moments) over the training batch in one pass: ms a step, peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_adamw_train_step
+
+    cfg = get_config(fam.arch)
+    batch = recurrent_batch(cfg, RTRAIN["per_cohort_batch"], RTRAIN["seq_len"])
+    step, helpers = make_adamw_train_step(cfg, lr=OPTIM["lr"], clip=OPTIM["clip"])
+    state = helpers["init_state"]()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(fam.kernels)
+    ms, losses, norms = [], [], []
+    for _ in range(RTRAIN_ADAMW_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts(fam.kernels)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * RTRAIN_ADAMW_STEPS for k, n in fam.per_pass(cfg).items()}
+    B, S = batch["tokens"].shape
+    emit({"phase": f"{fam.label}_adamw", "model": cfg.name, "batch": [B, S],
+          "steps": RTRAIN_ADAMW_STEPS, "lr": OPTIM["lr"], "clip": OPTIM["clip"],
+          "losses": losses, "grad_norms": norms, "ms_per_step": ms,
+          "trained_tokens_per_s_step2": B * S / ms[-1] * 1e3, "state_gb": state_bytes(state) / 1e9,
+          "peak_mem_gb": peak / 1e9, "launches": launches, "launches_expected": want})
+    check(launches == want, f"{fam.label} adamw launches {launches}, want {want}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{fam.label} adamw losses {losses} or norms {norms} not finite")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recurrent_fed_lm(fam: TrainFamily) -> dict:
+    """2 rounds of run_batch("deep_svrp") on a FedLMProblem over the reduced
+    model (float32) on the card, launch counts exact, the losses against the
+    same rounds on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Draws, draw_schedule
+    from repro_torch.experiments import run_batch
+    from repro_torch.problems.fed_lm import make_fed_lm_problem
+
+    cfg = _reduced_f32(fam.arch)
+    fl = RTRAIN_FEDLM
+    seeds, M, R, K = list(range(fl["seeds"])), fl["clients"], fl["rounds"], fl["local_steps"]
+    draws = draw_schedule(seeds, M, R, fl["anchor_prob"], clients=False)
+    draws = Draws(None, draws.coins[:R])
+    grid = dict(eta=1.0, local_lr=0.2, anchor_prob=fl["anchor_prob"])
+    res = {}
+    x0_card = None
+    for dev in ("cuda", "cpu"):
+        problem, x0 = make_fed_lm_problem(cfg, num_clients=M, per_client_batch=fl["batch"],
+                                          seq_len=fl["seq"], seed=0, device=dev)
+        # the CPU starts from the card's x0 (a generator's draws differ by device)
+        x0_card = x0 if x0_card is None else x0_card
+        x0 = x0_card.to(dev)
+        zero_launch_counts(fam.kernels + ("prox_update_batched",))
+        out, wall = _timed(lambda: run_batch(
+            "deep_svrp", problem, grid=grid, seeds=seeds, x0=x0, x_star=x0, num_steps=R,
+            local_steps=K, fused=True, draws=draws, device=dev))
+        res[dev] = (out, wall, launch_counts(fam.kernels + ("prox_update_batched",)))
+    card, wall, launched = res["cuda"]
+    cpu = res["cpu"][0]
+    B = len(seeds)
+    refresh = int(draws.refresh[:R].sum())
+    grads = M + R * B * M * (1 + K) + refresh * B * M
+    metric = R * B * M
+    want = {k: n * grads for k, n in fam.per_pass(cfg).items()}
+    for k, n in fam.per_forward(cfg).items():
+        want[k] += n * metric
+    want["prox_update_batched"] = K * R
+    loss, loss_cpu = card.dist_sq.cpu().numpy(), cpu.dist_sq.numpy()
+    rel = float(np.max(np.abs(loss - loss_cpu) / np.abs(loss_cpu)))
+    emit({"phase": f"{fam.label}_fed_lm", "model": f"{cfg.name} reduced, float32",
+          "params": problem.dim, "clients": M, "tokens_per_client": [fl["batch"], fl["seq"]],
+          "trials": B, "rounds": R, "local_steps": K, "coins": draws.coins.tolist(),
+          "wall_s": wall, "loss": loss.tolist(), "loss_cpu": loss_cpu.tolist(),
+          "loss_max_rel_diff": rel, "rel_tol": fl["rel_tol"],
+          "comm_equal": bool(np.array_equal(card.comm.cpu().numpy(), cpu.comm.numpy())),
+          "launches": launched, "launches_expected": want,
+          "launch_formula": f"grads G = M + R B M (1+K) + F B M = {grads}, metric passes "
+                            f"R B M = {metric}"})
+    check(launched == want, f"{fam.label} fed_lm launches {launched}, want {want}")
+    check(np.isfinite(loss).all() and rel <= fl["rel_tol"],
+          f"{fam.label} fed_lm: card against CPU {rel} > {fl['rel_tol']}")
+    check(np.array_equal(card.comm.cpu().numpy(), cpu.comm.numpy()),
+          f"{fam.label} fed_lm: comm differs between card and CPU")
+    return res
+
+
+def phase_recurrent_training() -> dict:
+    """The recurrent_train path: the backward kernels' parity, then each
+    family's full-size DeepSVRP rounds, their replay, a profile, the reduced
+    card-against-CPU checks, the AdamW steps and the federated LM."""
+    import torch
+
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    parity = timed("bwd_parity", phase_recurrent_bwd_parity)
+    launches = {}
+    for fam in (HYBRID_TRAIN, RWKV_TRAIN):
+        cfg, step, helpers, batch, launches[fam.label] = timed(
+            f"{fam.label}_train", phase_recurrent_train, fam)
+        timed(f"{fam.label}_profile", phase_train_profile, step, helpers, batch,
+              label=f"{fam.label}_train_profile")
+        timed(f"{fam.label}_replay", phase_recurrent_replay, fam, cfg, step, helpers, batch)
+        del cfg, step, helpers, batch
+        timed(f"{fam.label}_adamw", phase_recurrent_adamw, fam)
+        timed(f"{fam.label}_reduced", phase_recurrent_reduced, fam)
+        timed(f"{fam.label}_fed_lm", phase_recurrent_fed_lm, fam)
+    emit({"phase": "recurrent_train_seconds", **seconds, "total": sum(seconds.values())})
+    return {"parity": parity, "launches": {**launches["hybrid"], **launches["rwkv"]}}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "ten and prints the kernels line")
+                         "eleven and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4157,6 +4833,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if run["quant"]:
             phase_quant()
+            torch.cuda.empty_cache()
+        if run["recurrent_train"]:
+            rtrain = phase_recurrent_training()
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4193,6 +4872,12 @@ def main(argv=None) -> int:
                      "src/repro/kernels/ssm_scan.py:68", hybrid_launches, ssm),
         "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan.py:58", rwkv_launches, rwkv),
+        "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                         "src/repro/kernels/_ssm_chunked.py:18", rtrain["launches"],
+                         rtrain["parity"]["ssm_scan_bwd"]),
+        "rwkv6_scan_bwd": ("src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                           "src/repro/kernels/ref.py:58", rtrain["launches"],
+                           rtrain["parity"]["rwkv6_scan_bwd"]),
     }
     kernels = []
     for name, (source, replaces, counts, p) in rows.items():

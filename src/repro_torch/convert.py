@@ -8,7 +8,8 @@ problem, and ``dp_shift`` with the DP metadata for a DP-ERM one),
 reference's parameter tree, `hparams_from_numpy` a per-trial hparam table,
 `dense_params_from_numpy`, `hybrid_params_from_numpy` and
 `ssm_params_from_numpy` a dense, hybrid (zamba2) or ssm (rwkv6) model's
-parameter tree, `svrp_state_from_numpy` a DeepSVRP train state and
+parameter tree (`params_from_numpy` any of the three by ``cfg.family``),
+`svrp_state_from_numpy` a DeepSVRP train state and
 `adamw_state_from_numpy` an AdamW train state, so both packages compute on
 the same data, the same weights and the same state; `state_to_numpy`
 takes a state back out for comparison.
@@ -70,7 +71,7 @@ def fed_lm_x0_from_numpy(tree, cfg: ModelConfig, device=None) -> torch.Tensor:
     the reference's ravelled ``x0`` bit for bit."""
     from repro_torch.problems.fed_lm import ravel_params
 
-    return ravel_params(dense_params_from_numpy(tree, cfg, device, dtype=torch.float32))
+    return ravel_params(params_from_numpy(tree, cfg, device, dtype=torch.float32))
 
 
 def hparams_from_numpy(algo: str, values: Mapping[str, np.ndarray], *, device=None):
@@ -140,16 +141,24 @@ def ssm_params_from_numpy(tree, cfg: ModelConfig, device=None):
     return _params_from_numpy(tree, cfg, "ssm", device, None)
 
 
+def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The port's parameters of ``cfg`` from the reference's, by ``cfg.family``
+    (`dense_params_from_numpy`, `hybrid_params_from_numpy`,
+    `ssm_params_from_numpy`): every leaf in ``dtype``, or, with ``dtype``
+    None, in the dtype `init_params` gives it."""
+    return _params_from_numpy(tree, cfg, cfg.family, device, dtype)
+
+
 def svrp_state_from_numpy(state_tree, cfg: ModelConfig, device=None,
                           rng: torch.Generator | None = None) -> SVRPServerState:
     """The port's DeepSVRP train state from the reference's, with numpy
-    leaves (``jax.tree.map(np.asarray, state._asdict())``): x and w in
-    ``cfg.param_dtype``, gbar in float32, the step counter, and ``rng`` for
-    the coins of a native run (default seed 0; the reference's key does not
-    cross)."""
-    params = dense_params_from_numpy(state_tree["params"], cfg, device)
-    anchor = dense_params_from_numpy(state_tree["anchor"], cfg, device)
-    gbar = dense_params_from_numpy(state_tree["anchor_grad"], cfg, device, dtype=torch.float32)
+    leaves (``jax.tree.map(np.asarray, state._asdict())``), for any ported
+    family: x and w in their leaves' dtypes (`params_from_numpy`), gbar in
+    float32, the step counter, and ``rng`` for the coins of a native run
+    (default seed 0; the reference's key does not cross)."""
+    params = params_from_numpy(state_tree["params"], cfg, device)
+    anchor = params_from_numpy(state_tree["anchor"], cfg, device)
+    gbar = params_from_numpy(state_tree["anchor_grad"], cfg, device, dtype=torch.float32)
     return SVRPServerState(params=params, anchor=anchor, anchor_grad=gbar,
                            step=int(np.asarray(state_tree.get("step", 0))),
                            rng=rng if rng is not None else torch.Generator().manual_seed(0))
@@ -157,15 +166,15 @@ def svrp_state_from_numpy(state_tree, cfg: ModelConfig, device=None,
 
 def adamw_state_from_numpy(tree, cfg: ModelConfig, device=None) -> AdamWTrainState:
     """The port's AdamW train state from the reference's with numpy leaves
-    (``jax.tree.map(np.asarray, state)``, or its ``_asdict()``): params in
-    ``cfg.param_dtype``, the moments ``mu`` and ``nu`` in float32, the step
-    counter."""
+    (``jax.tree.map(np.asarray, state)``, or its ``_asdict()``), for any
+    ported family: params in their leaves' dtypes (`params_from_numpy`), the
+    moments ``mu`` and ``nu`` in float32, the step counter."""
     def field(node, name):
         return node[name] if isinstance(node, Mapping) else getattr(node, name)
 
     opt = field(tree, "opt")
-    params = dense_params_from_numpy(field(tree, "params"), cfg, device)
-    mu, nu = (dense_params_from_numpy(field(opt, k), cfg, device, dtype=torch.float32)
+    params = params_from_numpy(field(tree, "params"), cfg, device)
+    mu, nu = (params_from_numpy(field(opt, k), cfg, device, dtype=torch.float32)
               for k in ("mu", "nu"))
     return AdamWTrainState(params, OptState(step=int(np.asarray(field(opt, "step"))), mu=mu,
                                             nu=nu))

@@ -23,12 +23,16 @@ module                      replaces (TPU kernel)                       route
                             `decode_attention`
 `ssm_scan` (K6)             kernels/ssm_scan.py:68 `ssm_scan`           CUDA
 `rwkv6_scan` (K7)           kernels/rwkv6_scan.py:58 `rwkv6_scan`       CUDA
+`ssm_scan` (K6b)            kernels/_ssm_chunked.py:18, its autodiff    CUDA
+                            (no TPU kernel)
+`rwkv6_scan` (K7b)          kernels/ref.py:58 `rwkv6_scan`, the         CUDA
+                            autodiff of its lax.scan (no TPU kernel)
 ==========================  ==========================================  =====
 
 `ops` names the kernels as the model and round code calls them: attention
 (K4, or K4 and K4b under autograd), decode attention (K5), the Mamba-2 scan
-(K6), the RWKV-6 WKV scan (K7) and the tree step (K3, one launch per dtype
-group).
+(K6, or K6 and K6b under autograd), the RWKV-6 WKV scan (K7, or K7 and K7b
+under autograd) and the tree step (K3, one launch per dtype group).
 
 Sources live in `csrc/`; `_build` compiles them with `nvcc` at first use and
 binds them with `ctypes`.  Each wrapper runs its plain version for CPU

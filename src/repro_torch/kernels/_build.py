@@ -26,13 +26,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("prox_update", "logistic_prox", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "ssm_scan", "rwkv6_scan")
+           "decode_attention", "ssm_scan", "ssm_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 DTYPES = (torch.float32, torch.float64)  # K1 and K2
-ATTENTION_DTYPES = (torch.bfloat16, torch.float32)  # K4, K5, K6 and K7
+ATTENTION_DTYPES = (torch.bfloat16, torch.float32)  # K4, K5, K6, K6b, K7 and K7b
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -108,6 +108,11 @@ def stream_of(t: torch.Tensor) -> int:
     if _raw_stream is not None:
         return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether grad mode is on and a given tensor (None skipped) requires a gradient."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def check_cuda_operands(kernel: str, *, dtypes=DTYPES, **tensors: torch.Tensor) -> torch.dtype:

@@ -30,8 +30,23 @@ decode steps each layer's state in place) and returned as it.
 `rwkv6_scan` launches K7 for CUDA tensors and counts each launch in
 ``rwkv6_scan.launches``; for CPU tensors it runs `rwkv6_scan_plain` (and
 counts nothing).  A CUDA tensor the kernel does not take raises; nothing
-falls back.  K7 has no backward: under autograd a CUDA input that needs a
-gradient raises.
+falls back.
+
+* `rwkv6_scan_bwd` (K7b) is the backward, written by hand
+  (`csrc/rwkv6_scan_bwd.cu`).  The reference has no TPU kernel for it: its
+  gradient is autodiff through `ref.rwkv6_scan`'s `lax.scan`.  A forward
+  pass writes dr and a checkpoint of the state at every 32-step tile; a
+  reverse pass recomputes each tile's states from its checkpoint and steps
+  the state's cotangent back through it (dw reads S_{t-1}, never S_t / w_t,
+  since w can be ~0); du is summed over the batch rows by a second launch.
+  `rwkv6_scan_bwd_plain` is its plain version: the reverse recurrence
+  written out in PyTorch (not autograd), every state of the forward kept.
+* `RWKV6Scan` is the `torch.autograd.Function` of the two, which
+  `kernels.ops.rwkv6_scan` takes when an input needs a gradient: K7 forward
+  and K7b backward on the card, the plain versions of both on the CPU (in
+  float64 for float64 inputs).  Called directly on CUDA tensors that need a
+  gradient, `rwkv6_scan` raises rather than return an output autograd
+  cannot follow.
 
 Decode calls K7 24 times a step at T = 1, where the device takes a few
 microseconds a call, so the wrapper keeps its host time small: the operand
@@ -52,6 +67,13 @@ SHAPES = (8, 16, 32, 64)  # K = V built: rwkv6's head size 64 and the reference'
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _ARGTYPES = {"rwkv6_scan_fwd": [_P] * 8 + [ctypes.POINTER(_L), _P]}
+_BWD_ARGTYPES = {"rwkv6_scan_bwd": [_P] * 15 + [ctypes.POINTER(_L), _P]}
+K7_TILE = 32  # csrc/rwkv6_scan_bwd.cu kT: K7b's checkpoint interval
+# Planted faults for chip_smoke.py's checks (-1 and False in every real
+# run): K7b does not recompute the states of this tile (it reads the tile
+# after it's), and K7b's dw reads S_t for S_{t-1}.
+_BWD_SKIP_RECOMPUTE_TILE = -1
+_BWD_DW_FROM_NEXT_STATE = False
 _SIGNATURES: dict = {}  # operand signature -> (state shape, packed dims)
 _MAX_SIGNATURES = 256
 
@@ -150,12 +172,9 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
             _SIGNATURES.clear()
         Bb, _, H, K = r.shape
         entry = _SIGNATURES[key] = ((Bb, H, K, K), _packed(r, k, v, w))
-    if torch.is_grad_enabled() and (
-            r.requires_grad or k.requires_grad or v.requires_grad or w.requires_grad
-            or u.requires_grad or (state0 is not None and state0.requires_grad)
-            or (out_state is not None and out_state.requires_grad)):
-        raise NotImplementedError(f"{name}: K7 has no backward yet; the ssm family's "
-                                  f"training is not ported")
+    if _build.needs_grad(r, k, v, w, u, state0, out_state):
+        raise RuntimeError(f"{name}: an input needs a gradient; differentiate through "
+                           f"ops.rwkv6_scan (RWKV6Scan: K7 forward, K7b backward)")
     # Each block reads its (b, h) state before its time loop and writes it
     # after, so the output may be state0 itself; a partial overlap would let
     # one block read what another wrote.
@@ -190,3 +209,111 @@ def _kernel():
 
 
 rwkv6_scan.launches = 0
+
+
+def rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dstate=None, *, acc_dtype=torch.float32):
+    """The plain backward: the gradients of `rwkv6_scan_plain` at its inputs
+    for the cotangents ``dy`` of y and ``dstate`` of the final state (None:
+    zero), by the reverse recurrence K7b runs (csrc/rwkv6_scan_bwd.cu),
+    written out in PyTorch in ``acc_dtype`` with every state of the forward
+    kept.  Returns ``(dr, dk, dv, dw, du, dstate0)``, each in its input's
+    dtype (du summed over B and T; dstate0 None without state0)."""
+    Bb, T, H, K = r.shape
+    V = v.shape[-1]
+    f = acc_dtype
+    r_, k_, v_, w_, dy_ = (a.to(f) for a in (r, k, v, w, dy))
+    u_ = u.to(f)
+    S = (torch.zeros((Bb, H, K, V), dtype=f, device=r.device) if state0 is None
+         else state0.to(f))
+    prev = []  # S_{t-1} of every step
+    for t in range(T):
+        prev.append(S)
+        S = w_[:, t, :, :, None] * S + k_[:, t, :, :, None] * v_[:, t, :, None, :]
+    dS = torch.zeros((Bb, H, K, V), dtype=f, device=r.device) if dstate is None else dstate.to(f)
+    dr, dk, dv, dw = (torch.empty((Bb, T, H, n), dtype=f, device=r.device) for n in (K, K, V, K))
+    du = torch.zeros((H, K), dtype=f, device=r.device)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, dyt = r_[:, t], k_[:, t], v_[:, t], w_[:, t], dy_[:, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)  # (B, H, 1)
+        dr[:, t] = torch.einsum("bhkv,bhv->bhk", prev[t], dyt) + u_ * kt * vdy
+        dk[:, t] = torch.einsum("bhkv,bhv->bhk", dS, vt) + u_ * rt * vdy
+        dv[:, t] = (torch.einsum("bhkv,bhk->bhv", dS, kt)
+                    + (rt * u_ * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, t] = (dS * prev[t]).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        dS = wt[..., None] * dS + rt[..., None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype),
+            None if state0 is None else dS.to(state0.dtype))
+
+
+def _bwd_dims(r, k, v, w):
+    dims = [*_packed(r, k, v, w), int(_BWD_SKIP_RECOMPUTE_TILE), int(_BWD_DW_FROM_NEXT_STATE)]
+    return (_L * len(dims))(*dims)
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dstate=None):
+    """The gradients of `rwkv6_scan` at its inputs for the cotangents ``dy``
+    (B, T, H, V) of y and ``dstate`` (B, H, K, V, or None: zero) of the final
+    state: ``(dr, dk, dv, dw, du, dstate0)`` (see `rwkv6_scan_bwd_plain`),
+    one call of K7b (two launches: the scan, then du's sum over batch rows)."""
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dstate)
+    name = "rwkv6_scan_bwd"
+    if r.device.type != "cuda":
+        raise ValueError(f"{name}: r is on {r.device}, expected a CUDA tensor")
+    Bb, T, H, K = _check(name, r, k, v, w, u, state0)
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
+        raise ValueError(f"{name}: dy is {dy.dtype} {tuple(dy.shape)} on {dy.device}; it must "
+                         f"be {r.dtype} {tuple(r.shape)} on {r.device}")
+    dy = dy.contiguous()
+    if dstate is not None:
+        _build.check_cuda_operands(name, dtypes=(torch.float32,), dstate=dstate)
+        if dstate.shape != (Bb, H, K, K):
+            raise ValueError(f"{name}: dstate {tuple(dstate.shape)} must be ({Bb}, {H}, {K}, {K})")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    grads = torch.empty((4, Bb, T, H, K), dtype=r.dtype, device=r.device)
+    du = torch.empty((H, K), **f32)
+    ds0 = None if state0 is None else torch.empty((Bb, H, K, K), **f32)
+    n_tiles = -(-T // K7_TILE)
+    scratch = torch.empty(Bb * H * K * ((n_tiles + K7_TILE) * K + 1), **f32)
+    fn = _build.load("rwkv6_scan_bwd", _BWD_ARGTYPES).rwkv6_scan_bwd
+    status = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                None if state0 is None else state0.data_ptr(), dy.data_ptr(),
+                None if dstate is None else dstate.data_ptr(), grads[0].data_ptr(),
+                grads[1].data_ptr(), grads[2].data_ptr(), grads[3].data_ptr(), du.data_ptr(),
+                None if ds0 is None else ds0.data_ptr(), scratch.data_ptr(),
+                _bwd_dims(r, k, v, w), _build.stream_of(r))
+    _build.check_status(name, status)
+    rwkv6_scan_bwd.launches += 1
+    return grads[0], grads[1], grads[2], grads[3], du, ds0
+
+
+rwkv6_scan_bwd.launches = 0
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The WKV scan with a gradient: K7 forward, K7b backward; on CPU tensors
+    the plain versions of both (float64 arithmetic for float64 inputs).
+    Returns ``(y, state)``; either output may carry a cotangent."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        if r.device.type == "cpu":
+            acc = torch.float64 if r.dtype == torch.float64 else torch.float32
+            y, S = rwkv6_scan_plain(r, k, v, w, u, state0, acc_dtype=acc)
+            ctx.acc = acc
+        else:
+            y, S = rwkv6_scan(r, k, v, w, u, state0)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        ctx.set_materialize_grads(False)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype)
+        if r.device.type == "cpu":
+            return rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dstate, acc_dtype=ctx.acc)
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        return rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dstate)

@@ -32,8 +32,22 @@ float32.
 `ssm_scan` launches K6 for CUDA tensors and counts each launch in
 ``ssm_scan.launches``; for CPU tensors it runs `ssm_scan_plain` (and counts
 nothing).  A CUDA tensor the kernel does not take raises; nothing falls
-back.  K6 has no backward: under autograd a CUDA input that needs a
-gradient raises.
+back.
+
+* `ssm_scan_bwd` (K6b) is the backward, written by hand
+  (`csrc/ssm_scan_bwd.cu`).  The reference has no TPU kernel for it: its
+  gradient is autodiff through `ssm_scan_chunked`.  It recomputes the state
+  entering every 64-step chunk in a first pass, then walks the chunks in
+  reverse carrying the state's cotangent; dB, dC, dA and dD are summed from
+  per-block float32 partials by a second launch (bit-reproducible).
+  `ssm_scan_bwd_plain` is its plain version, the same chunked formulas in
+  PyTorch (not autograd), at the plain forward's 128-step chunk.
+* `SSMScan` is the `torch.autograd.Function` of the two, which
+  `kernels.ops.ssm_scan` takes when an input needs a gradient: K6 forward and
+  K6b backward on the card, the plain versions of both on the CPU (in
+  float64 for float64 inputs, so `torch.autograd.gradcheck` can hold them).
+  Called directly on CUDA tensors that need a gradient, `ssm_scan` raises
+  rather than return an output autograd cannot follow.
 """
 from __future__ import annotations
 
@@ -52,10 +66,14 @@ _P = ctypes.c_void_p
 _i = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {"ssm_scan_fwd": [_P] * 9 + [_i] * 6 + [_L] * 13 + [_i, _P]}
+_BWD_ARGTYPES = {"ssm_scan_bwd": [_P] * 17 + [_i] * 6 + [_L] * 13 + [_i, _P]}
 
 # Planted fault for chip_smoke.py's checks: the tensor-core route leaves out
 # the low bf16 parts of its split operands (False in every real run).
 _DROP_LOW_HALF = False
+# Planted fault for chip_smoke.py's checks: K6b does not carry the state's
+# cotangent from a chunk to the one before (False in every real run).
+_BWD_DROP_CARRY = False
 
 
 def scan_route(dtype: torch.dtype, P: int, N: int) -> str:
@@ -65,12 +83,13 @@ def scan_route(dtype: torch.dtype, P: int, N: int) -> str:
     return "tensor_core" if dtype == torch.bfloat16 and (P, N) == TENSOR_CORE_SHAPE else "fma_f32"
 
 
-def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, state0=None):
+def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, state0=None, *, acc_dtype=torch.float32):
     """The plain version: the reference's `ssm_scan_chunked`, chunk by
-    chunk in float32 (intra-chunk products masked before the exponent)."""
+    chunk in float32 (intra-chunk products masked before the exponent); with
+    ``acc_dtype=torch.float64`` in float64, the state returned in it."""
     Bb, T, H, P = x.shape
     N = B_mat.shape[-1]
-    f32 = torch.float32
+    f32 = acc_dtype
     Q = min(PLAIN_CHUNK, T)
     pad = (-T) % Q
     xf, dtf, Bm, Cm = x.to(f32), dt.to(f32), B_mat.to(f32), C_mat.to(f32)
@@ -200,9 +219,6 @@ def _check(name, x, dt, A, B_mat, C_mat, D, state0):
         _build.check_cuda_operands(name, dtypes=(torch.float32,), state0=state0)
         if state0.shape != (Bb, H, P, N):
             raise ValueError(f"{name}: state0 {tuple(state0.shape)} must be ({Bb}, {H}, {P}, {N})")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(f"{name}: K6 has no backward yet; the hybrid family's "
-                                  f"training is not ported")
     return Bb, T, H, P, N
 
 
@@ -214,6 +230,9 @@ def ssm_scan(x, dt, A, B_mat, C_mat, D, state0=None):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x is on {x.device}, expected a CUDA tensor")
     Bb, T, H, P, N = _check(name, x, dt, A, B_mat, C_mat, D, state0)
+    if _build.needs_grad(x, dt, A, B_mat, C_mat, D, state0):
+        raise RuntimeError(f"{name}: an input needs a gradient; differentiate through "
+                           f"ops.ssm_scan (SSMScan: K6 forward, K6b backward)")
     y = torch.empty((Bb, T, H, P), dtype=x.dtype, device=x.device)
     h_out = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
     fn = _build.load("ssm_scan", _ARGTYPES).ssm_scan_fwd
@@ -228,3 +247,163 @@ def ssm_scan(x, dt, A, B_mat, C_mat, D, state0=None):
 
 
 ssm_scan.launches = 0
+
+
+def ssm_scan_bwd_plain(x, dt, A, B_mat, C_mat, D, state0, dy, dstate=None, *,
+                       chunk=PLAIN_CHUNK, acc_dtype=torch.float32):
+    """The plain backward: the gradients of `ssm_scan_plain` at its inputs
+    for the cotangents ``dy`` of y and ``dstate`` of the final state (None:
+    zero), by the chunked formulas K6b runs (csrc/ssm_scan_bwd.cu), written
+    out in PyTorch, at ``chunk`` steps a chunk, in ``acc_dtype``.  Returns
+    ``(dx, ddt, dA, dB_mat, dC_mat, dD, dstate0)``, each in its input's
+    dtype (dstate0 None without state0)."""
+    Bb, T, H, P = x.shape
+    N = B_mat.shape[-1]
+    f = acc_dtype
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    xf, dtf, Bm, Cm = x.to(f), dt.to(f), B_mat.to(f), C_mat.to(f)
+    dyf = dy.to(f)
+    if pad:
+        xf, dyf = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (xf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+    A_, D_ = A.to(f), D.to(f)
+    dev = x.device
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()[None, :, :, None]
+    below = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril(-1)[None, :, :, None]
+    chunks = range(0, T + pad, Q)
+
+    def decay(dtq):
+        cum = torch.cumsum(A_ * dtq, dim=1)  # (B, Q, H), inclusive
+        last = cum[:, -1]  # (B, H)
+        return cum, last, torch.exp(last[:, None] - cum) * dtq  # ws (B, Q, H)
+
+    # the state entering every chunk
+    h = torch.zeros((Bb, H, P, N), dtype=f, device=dev) if state0 is None else state0.to(f)
+    states = []
+    for c0 in chunks:
+        states.append(h)
+        _, last, ws = decay(dtf[:, c0:c0 + Q])
+        h = (torch.exp(last)[:, :, None, None] * h
+             + torch.einsum("bshp,bsn->bhpn", ws[..., None] * xf[:, c0:c0 + Q], Bm[:, c0:c0 + Q]))
+
+    dh = torch.zeros((Bb, H, P, N), dtype=f, device=dev) if dstate is None else dstate.to(f)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    dA = torch.zeros((H,), dtype=f, device=dev)
+    dD = torch.zeros((H,), dtype=f, device=dev)
+    for c0, h in zip(reversed(chunks), reversed(states)):
+        xq, dyq, dtq = xf[:, c0:c0 + Q], dyf[:, c0:c0 + Q], dtf[:, c0:c0 + Q]
+        Bq, Cq = Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
+        cum, last, ws = decay(dtq)
+        ec = torch.exp(cum)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, t, s, H)
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        CB = torch.einsum("btn,bsn->bts", Cq, Bq)[..., None]
+        M = torch.einsum("bthp,bshp->btsh", dyq, xq)
+        dts = dtq[:, None, :, :]
+        G, Fm, LCM = L * CB * dts, L * M * dts, L * CB * M
+        dxs.append(torch.einsum("btsh,bthp->bshp", G, dyq) + D_[:, None] * dyq
+                   + ws[..., None] * torch.einsum("bsn,bhpn->bshp", Bq, dh))
+        dyh = torch.einsum("bthp,bhpn->bthn", dyq, h)
+        dCs.append(torch.einsum("btsh,bsn->btn", Fm, Bq) + torch.einsum("bth,bthn->btn", ec, dyh))
+        xdh = torch.einsum("bshp,bhpn->bshn", xq, dh)
+        dBs.append(torch.einsum("btsh,btn->bsn", Fm, Cq) + torch.einsum("bsh,bshn->bsn", ws, xdh))
+        dws = torch.einsum("bsn,bshn->bsh", Bq, xdh)
+        direct = LCM.sum(1)  # (B, s, H)
+        # da[j]: E's rectangle t >= j, s < j; dws ws over s < j; the reads of
+        # exp(cum[t]) over t >= j; exp(cum[-1]) (see csrc/ssm_scan_bwd.cu)
+        E = torch.where(below, LCM * dts, 0.0)
+        suffix = torch.flip(torch.cumsum(torch.flip(E, (1,)), 1), (1,))  # over t' >= t
+        rect = torch.where(below, suffix, 0.0).sum(2)  # (B, t, H)
+        qv = dws * ws
+        dcum = ec * torch.einsum("btn,bthn->bth", Cq, dyh)
+        dcum[:, -1] += torch.exp(last) * (dh * h).sum((-2, -1))
+        da = (torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,)) + rect
+              + torch.cumsum(qv, 1) - qv)
+        ddts.append(direct + dws * torch.exp(last[:, None] - cum) + A_ * da)
+        dA += (da * dtq).sum((0, 1))
+        dD += (dyq * xq).sum((0, 1, 3))
+        dh = (torch.exp(last)[:, :, None, None] * dh
+              + torch.einsum("bth,bthp,btn->bhpn", ec, dyq, Cq))
+
+    def cat(parts, like):
+        return torch.cat(parts[::-1], dim=1)[:, :T].to(like.dtype)
+
+    return (cat(dxs, x), cat(ddts, dt), dA.to(A.dtype), cat(dBs, B_mat), cat(dCs, C_mat),
+            dD.to(D.dtype), None if state0 is None else dh.to(state0.dtype))
+
+
+def ssm_scan_bwd(x, dt, A, B_mat, C_mat, D, state0, dy, dstate=None):
+    """The gradients of `ssm_scan` at its inputs for the cotangents ``dy``
+    (B, T, H, P) of y and ``dstate`` (B, H, P, N, or None: zero) of the final
+    state: ``(dx, ddt, dA, dB_mat, dC_mat, dD, dstate0)`` (see
+    `ssm_scan_bwd_plain`), one call of K6b (two launches: the scan, then the
+    sums over heads and batch rows)."""
+    if x.device.type == "cpu":
+        return ssm_scan_bwd_plain(x, dt, A, B_mat, C_mat, D, state0, dy, dstate)
+    name = "ssm_scan_bwd"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x is on {x.device}, expected a CUDA tensor")
+    Bb, T, H, P, N = _check(name, x, dt, A, B_mat, C_mat, D, state0)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"{name}: dy is {dy.dtype} {tuple(dy.shape)} on {dy.device}; it must "
+                         f"be {x.dtype} {tuple(x.shape)} on {x.device}")
+    dy = dy.contiguous()
+    if dstate is not None:
+        _build.check_cuda_operands(name, dtypes=(torch.float32,), dstate=dstate)
+        if dstate.shape != (Bb, H, P, N):
+            raise ValueError(f"{name}: dstate {tuple(dstate.shape)} must be ({Bb}, {H}, {P}, {N})")
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((Bb, T, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bb, T, H), **f32)
+    dBC = torch.empty((2, Bb, T, N), dtype=x.dtype, device=dev)
+    dAD = torch.empty((2, H), **f32)
+    dh0 = None if state0 is None else torch.empty((Bb, H, P, N), **f32)
+    nc = -(-T // K6_CHUNK)
+    scratch = torch.empty(Bb * H * (nc * P * N + 2 * T * N + 2), **f32)
+    fn = _build.load("ssm_scan_bwd", _BWD_ARGTYPES).ssm_scan_bwd
+    status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
+                D.data_ptr(), None if state0 is None else state0.data_ptr(), dy.data_ptr(),
+                None if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                dBC[0].data_ptr(), dBC[1].data_ptr(), dAD[0].data_ptr(), dAD[1].data_ptr(),
+                None if dh0 is None else dh0.data_ptr(), scratch.data_ptr(),
+                int(x.dtype == torch.bfloat16), Bb, T, H, P, N,
+                *x.stride(), *dt.stride(), *B_mat.stride(), *C_mat.stride(),
+                int(_BWD_DROP_CARRY), _build.stream_of(x))
+    _build.check_status(name, status)
+    ssm_scan_bwd.launches += 1
+    return dx, ddt, dAD[0], dBC[0], dBC[1], dAD[1], dh0
+
+
+ssm_scan_bwd.launches = 0
+
+
+class SSMScan(torch.autograd.Function):
+    """The scan with a gradient: K6 forward, K6b backward; on CPU tensors the
+    plain versions of both (float64 arithmetic for float64 inputs).  Returns
+    ``(y, state)``; either output may carry a cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_mat, C_mat, D, state0):
+        if x.device.type == "cpu":
+            acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+            y, h = ssm_scan_plain(x, dt, A, B_mat, C_mat, D, state0, acc_dtype=acc)
+            ctx.acc = acc
+        else:
+            y, h = ssm_scan(x, dt, A, B_mat, C_mat, D, state0)
+        ctx.save_for_backward(x, dt, A, B_mat, C_mat, D, state0)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B_mat, C_mat, D, state0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        if x.device.type == "cpu":
+            return ssm_scan_bwd_plain(x, dt, A, B_mat, C_mat, D, state0, dy, dstate,
+                                      acc_dtype=ctx.acc)
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        return ssm_scan_bwd(x, dt, A, B_mat, C_mat, D, state0, dy, dstate)

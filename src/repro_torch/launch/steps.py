@@ -44,9 +44,8 @@ class SVRPServerState(NamedTuple):
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} family is not "
-                                  f"ported yet (ROADMAP §1 item 8)")
+    """Raise unless ``cfg``'s family is ported (`models.model`)."""
+    M._family(cfg)
 
 
 def _device_batch(batch, dev) -> dict:
@@ -81,9 +80,11 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     The coin is ``refresh`` when given (tests inject the reference's), else a
     draw from ``state.rng``; it is drawn before the round, so a plain round
     skips the refresh gradients the reference computes and discards.  The
-    reported loss is the cohort mean of ``loss_at_w``.  Every pass runs
-    attention through K4 and K4b (``ops.attention``): C (1 + K) forward and
-    backward passes a round, plus C on an "exact" refresh round.
+    reported loss is the cohort mean of ``loss_at_w``.  C (1 + K) forward and
+    backward passes a round, plus C on an "exact" refresh round; every pass
+    runs attention through K4 and K4b (``ops.attention``), the Mamba-2 scans
+    of the hybrid family through K6 and K6b (``ops.ssm_scan``), the WKV scans
+    of the ssm family through K7 and K7b (``ops.rwkv6_scan``).
     """
     _check_trainable(cfg)
     dev = resolve_device(device)
@@ -166,8 +167,9 @@ def make_adamw_train_step(cfg: ModelConfig, *, lr: float = 3e-4, clip: float = 1
     ``value_and_grad`` of the model's loss over the whole batch (the
     reference's data axis collapses on one card), `clip_by_global_norm` to
     ``clip``, then `adamw_update` at ``lr``, which writes the new parameters
-    and moments into ``state``'s tensors.  Attention runs through K4 and K4b
-    (one forward and one backward pass a step).
+    and moments into ``state``'s tensors.  One forward and one backward pass
+    a step: attention through K4 and K4b, the Mamba-2 scans through K6 and
+    K6b, the WKV scans through K7 and K7b.
     ``helpers["init_state"](generator=None)`` gives the weights from
     ``generator`` (default seed 0 on the card) and zero moments."""
     _check_trainable(cfg)

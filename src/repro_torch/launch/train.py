@@ -4,6 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --cohorts 2 \\
         --rounds 3 --per-cohort-batch 2 --seq-len 1024
 
+    # the hybrid (K6, K6b, K4, K4b) and ssm (K7, K7b) families likewise:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --cohorts 2 \\
+        --rounds 3 --per-cohort-batch 2 --seq-len 1024
+
     # the CPU, at the reduced size in float32 (plain kernel versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
         --device cpu --cohorts 2 --rounds 2 --per-cohort-batch 2 --seq-len 32

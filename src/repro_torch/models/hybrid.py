@@ -13,7 +13,9 @@ stacked ``(G, per_group, ...)``, ``loras`` leaves ``(G, ...)``; its
 stacks.  Attention goes through `kernels.ops`: K4 over a full sequence, K5
 at decode; the Mamba-2 scan through K6 (`models.ssm`).  The LoRA products
 and the projections stay `torch.matmul`, as the reference leaves them to
-XLA.  Remat (training) is not carried: the hybrid family serves only.
+XLA.  Training differentiates the scan through K6 and K6b and attention
+through K4 and K4b; remat is not carried: a backward pass keeps every
+layer's activations.
 """
 from __future__ import annotations
 

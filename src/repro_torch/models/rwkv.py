@@ -17,8 +17,10 @@ is stacked ``(L, ...)`` and the reference's `lax.scan` over layers is a
 Python loop over views of the stacks.  Precision follows the reference: the
 decay is formed in float32 from bf16 products and rounded to the compute
 dtype before the scan; ``w0`` and ``u`` are float32 leaves; the decode
-shift states and ``wkv`` are float32.  Remat (training) and the sharding
-annotations are not carried: the ssm family serves only.
+shift states and ``wkv`` are float32.  Training differentiates the scan
+through K7 and K7b (`kernels.ops.rwkv6_scan`); remat and the sharding
+annotations are not carried: a backward pass keeps every layer's
+activations.
 """
 from __future__ import annotations
 

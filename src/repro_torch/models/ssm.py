@@ -3,9 +3,9 @@
 Selective state space with a scalar decay per head, a causal depthwise conv
 on (x, B, C), a gated output.  The full-sequence scan goes through
 `kernels.ops.ssm_scan` (K6 on the card, its plain chunked version on the
-CPU); this module is the projections, the conv, the gating and the
-decode-time one-step recurrence, which stays plain PyTorch as the reference
-leaves it to XLA.
+CPU; under autograd K6 and its backward K6b); this module is the
+projections, the conv, the gating and the decode-time one-step recurrence,
+which stays plain PyTorch as the reference leaves it to XLA.
 
 Precision follows the reference: the full-sequence conv runs in the compute
 dtype, the decode conv in float32 against a float32 conv state; dt, A, D

@@ -21,9 +21,10 @@ A gradient is taken with respect to the flat vector itself: one leaf
 ``x.detach().requires_grad_()``, the tree built as views of it, and
 ``torch.autograd.grad`` to that leaf.  Over lanes ``S + (d,)`` with ``m``
 of shape ``S`` the rows are taken one at a time: each row has its own
-parameters, and the attention kernels (K4 forward, K4b backward on the
-card) are `autograd.Function`s.  A forward without a gradient (``loss``,
-``metric``) runs K4 alone.
+parameters, and the kernels with a backward (on the card: K4 and K4b for
+attention, K6 and K6b for the Mamba-2 scan, K7 and K7b for the WKV scan)
+are `autograd.Function`s.  A forward without a gradient (``loss``,
+``metric``) runs the forward kernels alone.
 """
 from __future__ import annotations
 

@@ -15,10 +15,13 @@ per-trial drivers.
 For the DeepSVRP training tests: `deep_coins` replays the refresh coins the
 reference flips from ``fold_in(rng, step)``, `mixed_coin_prob` picks an
 anchor probability whose first rounds hold both kinds of round, and the
-reduced qwen2 configs, a cohort-major batch and tree comparisons are shared.
+reduced qwen2 configs, a cohort-major batch and tree comparisons are shared;
+`deep_step_matches_reference` runs one cohort's train step in both packages
+from given weights (the recurrent families' tests).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
@@ -105,6 +108,7 @@ def replay_trial(algo: str, seed: int, M: int, cfg: dict, p=None) -> Draws:
 
 # ------------------------------------------------------- DeepSVRP training
 ROUND_TOL = {"float32": dict(rtol=1e-4, atol=1e-6), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # a float32 gradient leaf (tests/test_torch_train.py)
 
 
 def qwen2_configs(dtype="float32"):
@@ -156,3 +160,130 @@ def mixed_coin_prob(key, steps=3):
         if any(coins) and not all(coins):
             return p, coins
     raise AssertionError("no anchor probability mixes the coins")
+
+
+# A local step at which Algorithm 7's iteration contracts on the reduced
+# models (tests/test_torch_deepsvrp_step.py).
+SVRP_KW = dict(eta=1.0, local_lr=0.05, local_steps=3)
+
+
+def deep_step_matches_reference(jcfg, tcfg, tree, dtype="float32", rounds=2, seq=16):
+    """One cohort of 2 x ``seq`` tokens: the port's `make_svrp_train_step`
+    against the reference's on a 1 x 1 debug mesh, ``rounds`` rounds from the
+    weights ``tree`` (numpy) with gbar = the gradient at x0 (SVRP's
+    invariant; the port's, handed to both), the reference's refresh coins
+    injected (a refresh and a plain round among them).  The reference's state
+    is built as its ``init_state`` builds it, without its eager init, and
+    placed on the step's shardings (its second round would compile the step
+    again for unplaced inputs).  After
+    every round the loss, x and w are held to ``ROUND_TOL[dtype]``, gbar (a
+    gradient, taken at x after a refresh) to the gradient tolerance of the
+    float32 model tests, ``GRAD_TOL``: the Mamba-2 model's gradients reach
+    ~0.5, and its refresh gradient at the new x reads up to 6.2e-6 apart
+    (0.35% of the embedding's elements over ROUND_TOL's atol of 1e-6), as far
+    as its gradient at one point is between the packages (8e-7) grown by the
+    round's step."""
+    from repro.core import deep as jdeep
+    from repro.launch.mesh import make_debug_mesh
+    from repro.launch.steps import SVRPServerState as JState
+    from repro.launch.steps import make_svrp_train_step as ref_make_svrp_train_step
+    from repro.models import model as JM
+    from repro_torch import convert
+    from repro_torch.core import deep as tdeep
+    from repro_torch.launch import make_svrp_train_step
+    from repro_torch.models import model as TM
+    from repro_torch.utils.tree import tree_map
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    key = jax.random.key(0)
+    p, coins = mixed_coin_prob(key, rounds)
+    svrp_kw = dict(SVRP_KW, anchor_prob=p)
+    batch = lm_batch(tcfg.vocab_size, 1, b=2, seq=seq)
+    mesh = make_debug_mesh(data=1, model=1)
+    make_step, helpers = ref_make_svrp_train_step(jcfg, mesh, jdeep.DeepSVRPConfig(**svrp_kw))
+    jstep = make_step(jax_batch(batch))
+    shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k), key)
+    jparams = jax.tree.map(lambda like, a: jnp.asarray(a, like.dtype), shapes, tree)
+    x0 = np_tree(jparams)
+    params = convert.params_from_numpy(x0, tcfg, device="cpu")
+    grads = tdeep.grad_of(lambda q, b: TM.loss_fn(q, tcfg, b), torch_batch(batch))(params)
+    gbar = tree_map(lambda g: g.detach().float().numpy(), grads)
+    jstate = JState(params=jparams, anchor=jparams, anchor_grad=jax.tree.map(jnp.asarray, gbar),
+                    step=jnp.zeros((), jnp.int32), rng=jax.random.key_data(key))
+    zero = jax.tree.map(lambda spec: NamedSharding(mesh, spec), helpers["zero_specs"],
+                        is_leaf=lambda x: isinstance(x, P))
+    jstate = jax.device_put(jstate, JState(zero, zero, zero, NamedSharding(mesh, P()),
+                                           NamedSharding(mesh, P())))
+    assert deep_coins(jax.random.wrap_key_data(jstate.rng), rounds, p) == coins
+    step, _ = make_svrp_train_step(tcfg, tdeep.DeepSVRPConfig(**svrp_kw), device="cpu")
+    state = convert.svrp_state_from_numpy(
+        {"params": x0, "anchor": x0, "anchor_grad": gbar, "step": 0}, tcfg, device="cpu")
+    tol = ROUND_TOL[dtype]
+    for r, coin in enumerate(coins):
+        jstate, metrics = jstep(jstate, jax_batch(batch))
+        state, tmetrics = step(state, batch, refresh=coin)
+        np.testing.assert_allclose(tmetrics["loss"].item(), float(metrics["loss"]), **tol)
+        for field in ("params", "anchor", "anchor_grad"):
+            got = getattr(state, field)
+            assert_tree_close(got, np_tree(getattr(jstate, field)),
+                              GRAD_TOL if field == "anchor_grad" and dtype == "float32" else tol,
+                              f"round {r} {field}")
+        assert state.step == int(jstate.step) == r + 1
+
+
+def reference_params(jcfg, seed: int = 0):
+    """The reference's `init_params(jcfg, key(seed))` as numpy leaves,
+    jitted: eager init of the recurrent layers compiles op by op, seconds
+    more on the CPU."""
+    from repro.models import model as JM
+
+    init = jax.jit(lambda key: JM.init_params(jcfg, key))
+    return jax.tree.map(np.asarray, init(jax.random.key(seed)))
+
+
+def randomize_recurrent(tree, family: str, seed: int):
+    """Fill, in a reference parameter tree of numpy leaves, the leaves whose
+    init values hide wiring faults (zeros and ones; a decay nearly constant
+    and a small bonus) with seeded values, as tests/test_torch_hybrid.py and
+    tests/test_torch_rwkv.py do: hybrid LoRA ``b`` normal * rank**-0.5,
+    ``conv_b`` normal * 0.1, ``D`` normal; ssm ``w0`` uniform in [-6, 1],
+    ``w_b`` normal * 64**-0.5, ``u`` normal.  Returns the tree."""
+    rng = np.random.default_rng(seed)
+
+    def fill(a, scale, shift=0.0):
+        return (rng.standard_normal(a.shape) * scale + shift).astype(a.dtype)
+
+    if family == "hybrid":
+        for site in tree["loras"].values():
+            site["b"] = fill(site["b"], site["b"].shape[-2] ** -0.5)
+        tree["mamba_layers"]["conv_b"] = fill(tree["mamba_layers"]["conv_b"], 0.1)
+        tree["mamba_layers"]["D"] = fill(tree["mamba_layers"]["D"], 1.0)
+    elif family == "ssm":
+        tm = tree["layers"]["tm"]
+        tm["w0"] = rng.uniform(-6.0, 1.0, tm["w0"].shape).astype(tm["w0"].dtype)
+        tm["w_b"]["w"] = fill(tm["w_b"]["w"], 64**-0.5)
+        tm["u"] = fill(tm["u"], 1.0)
+    return tree
+
+
+class _Float64Numpy:
+    """`jax.numpy` with ``float32`` read as ``float64``."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def reference_in_float64(module):
+    """Run a `repro` module's code with its float32 casts read as float64:
+    the module's ``jnp`` seen through a proxy (nothing in `repro` is edited),
+    for float64 references of functions that cast to float32 inside."""
+    saved = module.jnp
+    module.jnp = _Float64Numpy()
+    try:
+        yield
+    finally:
+        module.jnp = saved

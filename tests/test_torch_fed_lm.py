@@ -26,7 +26,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_replay import ROUND_TOL, replay_draws  # noqa: E402
+from _torch_replay import (  # noqa: E402
+    ROUND_TOL,
+    randomize_recurrent,
+    reference_params,
+    replay_draws,
+)
 from repro.configs import REGISTRY as JREG  # noqa: E402
 from repro.experiments import run_batch as ref_run_batch  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -163,6 +168,48 @@ def test_deep_svrp_matches_the_reference_run_batch(fed, ref_runs, channel, subst
     np.testing.assert_allclose(got.dist_sq.numpy(), np.asarray(ref.dist_sq), **tol)
     loss = got.dist_sq.numpy()
     assert (loss[:, -1] < loss[:, 0]).all()
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_deep_svrp_on_the_recurrent_families_matches_the_reference(name):
+    """run_batch("deep_svrp") on the FedLM over the reduced zamba2 and rwkv6
+    in float32 (3 clients of 2 x 16 tokens; the weights' zeros and ones
+    randomised, `randomize_recurrent`), 2 rounds of 2 local steps, against
+    the reference's run_batch with its coins replayed: every gradient
+    through the plain K6b and K4b, or K7b; the loss rtol 1e-5, comm and
+    comm_bytes equal.  The reference's problem is built as its
+    `make_fed_lm_problem` builds it, from the same tokens, around the
+    randomised weights (its own eager init of these layers takes seconds)."""
+    from jax.flatten_util import ravel_pytree
+    from repro.data import SyntheticLMDataset as JDataset
+    from repro.problems.fed_lm import FedLMProblem
+
+    kw = dict(param_dtype="float32", compute_dtype="float32")
+    jcfg = dataclasses.replace(JREG[name].reduced(), **kw)
+    tcfg = dataclasses.replace(REGISTRY[name].reduced(), **kw)
+    data = dict(num_clients=M_CLIENTS, per_client_batch=BSZ, seq_len=SEQ, alpha=0.3, seed=SEED)
+    tree = randomize_recurrent(reference_params(jcfg, SEED), tcfg.family, 100)
+    jx0, unravel = ravel_pytree(jax.tree.map(jnp.asarray, tree))
+    ds = JDataset(vocab_size=jcfg.vocab_size, num_clients=M_CLIENTS, alpha=0.3, seed=SEED)
+    toks = np.stack([ds.sample(m, BSZ, SEQ) for m in range(M_CLIENTS)])
+    jprob = FedLMProblem(tokens=jnp.asarray(toks[:, :, :-1], jnp.int32),
+                         labels=jnp.asarray(toks[:, :, 1:], jnp.int32), cfg=jcfg,
+                         unravel=unravel, num_params=int(jx0.size))
+    tprob, _ = make_fed_lm_problem(tcfg, device="cpu", **data)
+    np.testing.assert_array_equal(tprob.tokens.numpy(), np.asarray(jprob.tokens))
+    tx0 = fed_lm_x0_from_numpy(tree, tcfg, device="cpu")
+    np.testing.assert_array_equal(tx0.numpy(), np.asarray(jx0))
+    rounds = 2
+    ref = ref_run_batch("deep_svrp", jprob, grid=GRID, seeds=[1], x0=jx0, x_star=jx0,
+                        num_steps=rounds, local_steps=LOCAL_STEPS)
+    _, coins = replay_draws("deep_svrp", ref.seeds, M_CLIENTS, {"num_steps": rounds},
+                            ref.hparams["anchor_prob"], dtype=jnp.float32)
+    got = run_batch("deep_svrp", tprob, grid=GRID, seeds=[1], x0=tx0, x_star=tx0,
+                    num_steps=rounds, local_steps=LOCAL_STEPS, draws=Draws(None, torch.tensor(coins)),
+                    device="cpu")
+    np.testing.assert_array_equal(got.comm.numpy(), np.asarray(ref.comm))
+    np.testing.assert_array_equal(got.comm_bytes, np.asarray(ref.comm_bytes))
+    np.testing.assert_allclose(got.dist_sq.numpy(), np.asarray(ref.dist_sq), rtol=1e-5)
 
 
 def test_quant8_prices_a_flat_model_at_a_quarter(fed):

@@ -63,9 +63,21 @@ from repro_torch.kernels.prox_update import (  # noqa: E402
     quadratic_prox_gd_batched,
     quadratic_prox_gd_batched_plain,
 )
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rwkv_module  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_scan,
+    rwkv6_scan_bwd,
+    rwkv6_scan_bwd_plain,
+    rwkv6_scan_plain,
+)
 from repro_torch.kernels import ssm_scan as ssm_module  # noqa: E402
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, ssm_scan_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ssm_scan,
+    ssm_scan_bwd,
+    ssm_scan_bwd_plain,
+    ssm_scan_plain,
+    ssm_scan_ref,
+)
 
 K1_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=0.0)}
 K2_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13)}
@@ -83,6 +95,10 @@ K6_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=5
 K6_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 K7_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 K7_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+# The scan backwards K6b and K7b against their plain versions: relative L2
+# on every gradient (chip_smoke.py's K6B_REL_TOL and K7B_REL_TOL).
+K6B_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+K7B_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
 
 @pytest.fixture
@@ -94,6 +110,7 @@ def cuda():
     flash_attention.launches = decode_attention.launches = 0
     prox_update.launches = flash_attention_bwd.launches = 0
     ssm_scan.launches = rwkv6_scan.launches = 0
+    ssm_scan_bwd.launches = rwkv6_scan_bwd.launches = 0
     return torch.device("cuda")
 
 
@@ -901,8 +918,10 @@ def test_ssm_scan_refuses_what_it_does_not_take(cuda):
         ssm_scan(x, dt, A, Bm, Cm, D, torch.zeros((1, 2, 64, 64), device=cuda).transpose(2, 3))
     with pytest.raises(ValueError, match="is on cpu"):
         ssm_scan(x, dt, A.cpu(), Bm, Cm, D)
-    with pytest.raises(NotImplementedError, match="no backward"):
+    with pytest.raises(RuntimeError, match="ops.ssm_scan"):
         ssm_scan(x.float().requires_grad_(), dt, A, Bm.float(), Cm.float(), D)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_bwd(x, dt, A, Bm, Cm, D, None, torch.zeros_like(x, dtype=torch.float32))
     assert ssm_scan.launches == 0
 
 
@@ -1079,8 +1098,13 @@ def test_rwkv6_scan_refuses_what_it_does_not_take(cuda):
         rwkv6_scan(r, k, v, w, u, torch.zeros((1, 2, 64, 64), device=cuda).transpose(2, 3))
     with pytest.raises(ValueError, match="is on cpu"):
         rwkv6_scan(r, k, v, w, u.cpu())
-    with pytest.raises(NotImplementedError, match="no backward"):
+    with pytest.raises(RuntimeError, match="ops.rwkv6_scan"):
         rwkv6_scan(r.float().requires_grad_(), k.float(), v.float(), w.float(), u)
+    with pytest.raises(ValueError, match="out_state"):
+        ops.rwkv6_scan(r.float().requires_grad_(), k.float(), v.float(), w.float(), u,
+                       out_state=torch.zeros((1, 2, 64, 64), device=cuda))
+    with pytest.raises(ValueError, match="dy"):
+        rwkv6_scan_bwd(r, k, v, w, u, None, torch.zeros_like(r, dtype=torch.float32))
     with pytest.raises(ValueError, match="out_state"):
         rwkv6_scan(r, k, v, w, u, out_state=torch.zeros((1, 2, 64, 63), device=cuda))
     with pytest.raises(TypeError, match="float32"):
@@ -1284,3 +1308,162 @@ def test_server_on_the_card_matches_the_cpu(cuda):
     assert runs[0].comm == runs[1].comm
     torch.testing.assert_close(torch.tensor(runs[1].dist_sq), torch.tensor(runs[0].dist_sq),
                                rtol=1e-9, atol=0.0)
+
+
+# ------------------------------------------------ scan backwards (K6b, K7b)
+def _rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    den = torch.linalg.vector_norm(want).item()
+    num = torch.linalg.vector_norm(got - want).item()
+    return num / den if den > 0 else num
+
+
+def _assert_grads_close(got, want, tol, names):
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape, a.dtype, b.dtype)
+        assert bool(torch.isfinite(a).all()), name
+        rel = _rel_l2(a, b)
+        assert rel <= tol, (name, rel)
+
+
+SSM_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dstate0")
+SSM_BWD_CASES = [  # (B, T, H, P, N), strong decay, state0 (and a final-state cotangent)
+    ((2, 300, 4, 64, 64), False, True),
+    ((1, 65, 3, 64, 64), True, False),
+    ((1, 129, 3, 128, 16), False, True),
+    ((2, 1, 2, 128, 16), False, True),
+    ((2, 1024, 80, 64, 64), False, False),  # Zamba2's training shape
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SSM_BWD_CASES, ids=lambda c: "x".join(map(str, c[0])) +
+                         ("_strong" if c[1] else "") + ("_state0" if c[2] else ""))
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype):
+    """K6b against the plain backward: T off the 64-step chunk, strong decay
+    (no NaN), state0 with a cotangent on the final state, x, B and C read
+    through their strides; two launches give the same bits."""
+    shape, strong, with_state = case
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs(shape, dtype, cuda, strong=strong,
+                                          with_state=with_state, seed=3)
+    gen = torch.Generator().manual_seed(5)
+    dy = _randn(gen, x.shape, dtype, cuda)
+    dh = _randn(gen, (shape[0], shape[2], shape[3], shape[4]), torch.float32, cuda) \
+        if with_state else None
+    got = ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    again = ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == 2
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    want = ssm_scan_bwd_plain(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    _assert_grads_close(got, want, K6B_REL[dtype], SSM_GRAD_NAMES)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_bwd_rejects_a_dropped_carry(cuda, monkeypatch):
+    """The planted fault (the state's cotangent not carried from a chunk to
+    the one before) leaves the tolerance."""
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs((1, 300, 4, 64, 64), torch.float32, cuda,
+                                          with_state=True, seed=3)
+    dy = torch.randn(x.shape, device=cuda)
+    want = ssm_scan_bwd_plain(x, dt, A, Bm, Cm, D, s0, dy)
+    monkeypatch.setattr(ssm_module, "_BWD_DROP_CARRY", True)
+    got = ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy)
+    assert _rel_l2(got[0], want[0]) > K6B_REL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_gradient_goes_through_the_kernels(cuda, dtype):
+    """`ops.ssm_scan` under autograd: K6 and K6b once each, the gradients
+    those of `ssm_scan_bwd` bit for bit; y's and the state's cotangents both
+    reach it."""
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs((2, 200, 4, 64, 64), dtype, cuda, with_state=True,
+                                          seed=4)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D, s0)]
+    y, h = ops.ssm_scan(*leaves)
+    gen = torch.Generator().manual_seed(6)
+    dy, dh = _randn(gen, y.shape, dtype, cuda), _randn(gen, h.shape, torch.float32, cuda)
+    grads = torch.autograd.grad([y, h], leaves, [dy, dh])
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == 1 and ssm_scan_bwd.launches == 1
+    want = ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy, dh)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+RWKV_GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
+RWKV_BWD_CASES = [  # (B, T, H, K), decay, state0 (and a final-state cotangent), packed
+    ((2, 1024, 32, 64), "sigmoid", False, False),  # rwkv6-1.6b's training shape
+    ((2, 300, 4, 64), "strong", True, False),
+    ((2, 300, 4, 64), "weak", True, True),
+    ((1, 33, 2, 8), "sigmoid", True, False),  # the reference's shapes
+    ((2, 100, 3, 16), "sigmoid", False, True),
+    ((1, 64, 4, 32), "sigmoid", True, False),
+    ((2, 1, 3, 64), "sigmoid", True, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", RWKV_BWD_CASES, ids=lambda c: "x".join(map(str, c[0])) +
+                         f"_{c[1]}" + ("_state0" if c[2] else "") + ("_packed" if c[3] else ""))
+def test_rwkv6_scan_bwd_kernel_matches_plain(cuda, case, dtype):
+    """K7b against the plain backward: T off the 32-step tile, strong and weak
+    decay, K 8 to 64, state0 with a final-state cotangent, operands read
+    through their strides; two launches give the same bits."""
+    shape, decay, with_state, packed = case
+    r, k, v, w, u, s0 = _rwkv_inputs(shape, dtype, cuda, decay=decay, with_state=with_state,
+                                     packed=packed, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    dy = _randn(gen, r.shape, dtype, cuda)
+    Bb, _, H, K = shape
+    dS = _randn(gen, (Bb, H, K, K), torch.float32, cuda) if with_state else None
+    got = rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+    again = rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_bwd.launches == 2
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    want = rwkv6_scan_bwd_plain(r, k, v, w, u, s0, dy, dS)
+    _assert_grads_close(got, want, K7B_REL[dtype], RWKV_GRAD_NAMES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["dw_from_next_state", "skip_recompute"])
+def test_rwkv6_scan_bwd_rejects_planted_faults(cuda, monkeypatch, fault):
+    """dw reading S_t for S_{t-1}, and one tile's states not recomputed
+    (read from the tile after it), each leave the tolerance on dw."""
+    r, k, v, w, u, s0 = _rwkv_inputs((2, 300, 4, 64), torch.float32, cuda, with_state=True,
+                                     seed=9)
+    dy = torch.randn(r.shape, device=cuda)
+    want = rwkv6_scan_bwd_plain(r, k, v, w, u, s0, dy)
+    if fault == "dw_from_next_state":
+        monkeypatch.setattr(rwkv_module, "_BWD_DW_FROM_NEXT_STATE", True)
+    else:
+        monkeypatch.setattr(rwkv_module, "_BWD_SKIP_RECOMPUTE_TILE", 4)
+    got = rwkv6_scan_bwd(r, k, v, w, u, s0, dy)
+    assert _rel_l2(got[3], want[3]) > K7B_REL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv_gradient_goes_through_the_kernels(cuda, dtype):
+    """`ops.rwkv6_scan` under autograd: K7 and K7b once each, the gradients
+    those of `rwkv6_scan_bwd` bit for bit."""
+    r, k, v, w, u, s0 = _rwkv_inputs((2, 100, 4, 64), dtype, cuda, with_state=True, seed=10)
+    leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    y, S = ops.rwkv6_scan(*leaves)
+    gen = torch.Generator().manual_seed(11)
+    dy, dS = _randn(gen, y.shape, dtype, cuda), _randn(gen, S.shape, torch.float32, cuda)
+    grads = torch.autograd.grad([y, S], leaves, [dy, dS])
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == 1 and rwkv6_scan_bwd.launches == 1
+    want = rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)

@@ -37,6 +37,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_replay import (  # noqa: E402
+    deep_step_matches_reference,
+    np_tree,
+    randomize_recurrent,
+)
 from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
 from repro.launch.serve import BatchServer as JaxServer  # noqa: E402
 from repro.launch.serve import ServeConfig as JaxServeConfig  # noqa: E402
@@ -71,24 +76,10 @@ def _configs(dtype, **extra):
             dataclasses.replace(REGISTRY[NAME].reduced(), **kw))
 
 
-def _randomize(tree, seed):
-    """LoRA b, conv_b and D (zeros / ones at init) filled with seeded values."""
-    rng = np.random.default_rng(seed)
-
-    def fill(a, scale, shift=0.0):
-        return (rng.standard_normal(a.shape) * scale + shift).astype(a.dtype)
-
-    for site in tree["loras"].values():
-        site["b"] = fill(site["b"], site["b"].shape[-2] ** -0.5)
-    tree["mamba_layers"]["conv_b"] = fill(tree["mamba_layers"]["conv_b"], 0.1)
-    tree["mamba_layers"]["D"] = fill(tree["mamba_layers"]["D"], 1.0)
-    return tree
-
-
 def _models(dtype, variant="reduced", seed=0):
     jcfg, tcfg = _configs(dtype, **VARIANTS[variant])
     tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.key(seed)))
-    tree = _randomize(tree, seed + 100)
+    tree = randomize_recurrent(tree, "hybrid", seed + 100)
     jparams = jax.tree.map(jnp.asarray, tree)
     return jcfg, jparams, tcfg, convert.hybrid_params_from_numpy(tree, tcfg, device="cpu")
 
@@ -271,16 +262,29 @@ def test_prefill_and_serve_steps_match_reference():
 
 
 def test_what_is_not_ported_is_refused():
-    """Training the hybrid family (K6 has no backward yet); the card by
-    default when there is none."""
+    """A family the port has not taken (moe) by both train steps; the card
+    by default when there is none."""
     from repro_torch.core.deep import DeepSVRPConfig
-    from repro_torch.launch import make_svrp_train_step
+    from repro_torch.launch import make_adamw_train_step, make_svrp_train_step
 
     _, tcfg = _configs("float32")
-    with pytest.raises(NotImplementedError, match="training the hybrid family"):
-        make_svrp_train_step(tcfg, DeepSVRPConfig(), device="cpu")
+    moe = dataclasses.replace(tcfg, family="moe")
+    with pytest.raises(NotImplementedError, match="the moe family is not ported"):
+        make_svrp_train_step(moe, DeepSVRPConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="the moe family is not ported"):
+        make_adamw_train_step(moe, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TM.init_params(tcfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TM.init_decode_cache(tcfg, 1, 8)
+
+
+def test_train_step_one_cohort_matches_reference():
+    """The DeepSVRP train step (one cohort, the scan's gradient through
+    `SSMScan`: K6 and K6b on the card, their plain versions here; attention's
+    through `FlashAttention`) against the
+    reference's on a 1 x 1 debug mesh, 2 rounds with its coins injected,
+    from the randomised weights: x, w, gbar and the loss at rtol 1e-4."""
+    jcfg, jparams, tcfg, _ = _models("float32")
+    deep_step_matches_reference(jcfg, tcfg, np_tree(jparams))

@@ -38,6 +38,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_replay import randomize_recurrent, reference_params  # noqa: E402
 from repro import optim as jopt  # noqa: E402
 from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
 from repro.data import ShardedBatcher as JBatcher  # noqa: E402
@@ -50,6 +51,10 @@ from repro_torch.launch import make_adamw_train_step  # noqa: E402
 from repro_torch.utils.tree import tree_map  # noqa: E402
 
 F32_RTOL = 1e-6
+# The gradient norm of the hybrid family: its float32 gradients lie ~2e-6
+# apart between the packages (summation order of the chunked scan; the
+# model tests' gradient tolerance is 1e-4), and the norm reads 1.4e-6.
+NORM_RTOL = {"hybrid": 1e-5}
 KEY_BIAS = ("layers", "attn", "wk", "b")
 BIAS_REL = 1e-3
 SHAPES = {"a": (7, 5), "blk": {"b": (13,), "c": (3, 4, 2)}}
@@ -202,11 +207,13 @@ def _configs(name):
             dataclasses.replace(REGISTRY[name].reduced(), **kw))
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "llama3.2-3b"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "llama3.2-3b", "zamba2-2.7b", "rwkv6-1.6b"])
 def test_adamw_train_step_matches_reference(name):
     """3 steps over 3 batches of the synthetic federated data (2 x 16
     tokens), lr 3e-4, clip 1.0: the loss, the gradient norm (clipping
-    active) and every parameter after each step."""
+    active) and every parameter after each step.  The hybrid and ssm
+    families (their scans' gradients through `SSMScan` and `RWKV6Scan`) from
+    weights whose zeros and ones are randomised (`randomize_recurrent`)."""
     jcfg, tcfg = _configs(name)
     lr, clip = 3e-4, 1.0
 
@@ -218,7 +225,11 @@ def test_adamw_train_step_matches_reference(name):
         params, opt = jopt.adamw_update(grads, state["opt"], state["params"], lr=lr)
         return {"params": params, "opt": opt}, loss, gnorm, exact
 
-    jparams = JM.init_params(jcfg, jax.random.key(0))
+    if tcfg.family == "dense":
+        jparams = JM.init_params(jcfg, jax.random.key(0))
+    else:
+        tree = randomize_recurrent(reference_params(jcfg), tcfg.family, 100)
+        jparams = jax.tree.map(jnp.asarray, tree)
     jstate = {"params": jparams, "opt": jopt.adamw_init(jparams)}
     tstate = convert.adamw_state_from_numpy(jax.tree.map(np.asarray, jstate), tcfg, device="cpu")
     step, _ = make_adamw_train_step(tcfg, lr=lr, clip=clip, device="cpu")
@@ -230,7 +241,8 @@ def test_adamw_train_step_matches_reference(name):
                                                       for k, v in batch.items()})
         tstate, metrics = step(tstate, batch)
         np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-6)
-        np.testing.assert_allclose(metrics["grad_norm"].item(), float(jexact), rtol=1e-6)
+        np.testing.assert_allclose(metrics["grad_norm"].item(), float(jexact),
+                                   rtol=NORM_RTOL.get(tcfg.family, 1e-6))
         assert float(jnorm) > clip  # the clip acts
         want = jax.tree.map(np.asarray, jstate["params"])
         for path, got in _paths(tstate.params):
@@ -245,8 +257,7 @@ def test_adamw_train_step_matches_reference(name):
         assert tstate.opt.step == t + 1
 
 
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-1.6b"])
-def test_adamw_step_refuses_the_recurrent_families(name):
-    with pytest.raises(NotImplementedError, match="training the .* family is not ported yet "
-                                                  r"\(ROADMAP §1 item 8\)"):
-        make_adamw_train_step(_configs(name)[1], device="cpu")
+def test_adamw_step_refuses_an_unported_family():
+    moe = dataclasses.replace(_configs("qwen2-1.5b")[1], family="moe")
+    with pytest.raises(NotImplementedError, match="the moe family is not ported yet"):
+        make_adamw_train_step(moe, device="cpu")

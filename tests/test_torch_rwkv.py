@@ -31,6 +31,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_replay import (  # noqa: E402
+    deep_step_matches_reference,
+    np_tree,
+    randomize_recurrent,
+)
 from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
 from repro.launch.serve import BatchServer as JaxServer  # noqa: E402
 from repro.launch.serve import ServeConfig as JaxServeConfig  # noqa: E402
@@ -65,21 +70,10 @@ def _configs(dtype, **extra):
             dataclasses.replace(REGISTRY[NAME].reduced(), **kw))
 
 
-def _randomize(tree, seed):
-    """w0 uniform in [-6, 1], w_b normal * 64**-0.5, u N(0, 1) (see the docstring)."""
-    rng = np.random.default_rng(seed)
-    tm = tree["layers"]["tm"]
-    tm["w0"] = rng.uniform(-6.0, 1.0, tm["w0"].shape).astype(tm["w0"].dtype)
-    wb = tm["w_b"]["w"]
-    tm["w_b"]["w"] = (rng.standard_normal(wb.shape) * 64**-0.5).astype(wb.dtype)
-    tm["u"] = rng.standard_normal(tm["u"].shape).astype(tm["u"].dtype)
-    return tree
-
-
 def _models(dtype, seed=0, **extra):
     jcfg, tcfg = _configs(dtype, **extra)
     tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.key(seed)))
-    tree = _randomize(tree, seed + 100)
+    tree = randomize_recurrent(tree, "ssm", seed + 100)
     jparams = jax.tree.map(jnp.asarray, tree)
     return jcfg, jparams, tcfg, convert.ssm_params_from_numpy(tree, tcfg, device="cpu")
 
@@ -291,16 +285,28 @@ def test_prefill_and_serve_steps_match_reference():
 
 
 def test_what_is_not_ported_is_refused():
-    """Training the ssm family (K7 has no backward yet); the card by default
-    when there is none."""
+    """A family the port has not taken (moe) by both train steps; the card
+    by default when there is none."""
     from repro_torch.core.deep import DeepSVRPConfig
-    from repro_torch.launch import make_svrp_train_step
+    from repro_torch.launch import make_adamw_train_step, make_svrp_train_step
 
     _, tcfg = _configs("float32")
-    with pytest.raises(NotImplementedError, match="training the ssm family"):
-        make_svrp_train_step(tcfg, DeepSVRPConfig(), device="cpu")
+    moe = dataclasses.replace(tcfg, family="moe")
+    with pytest.raises(NotImplementedError, match="the moe family is not ported"):
+        make_svrp_train_step(moe, DeepSVRPConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="the moe family is not ported"):
+        make_adamw_train_step(moe, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TM.init_params(tcfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TM.init_decode_cache(tcfg, 1, 8)
+
+
+def test_train_step_one_cohort_matches_reference():
+    """The DeepSVRP train step (one cohort, the scan's gradient through
+    `RWKV6Scan`: K7 and K7b on the card, their plain versions here) against the
+    reference's on a 1 x 1 debug mesh, 2 rounds with its coins injected,
+    from the randomised weights: x, w, gbar and the loss at rtol 1e-4."""
+    jcfg, jparams, tcfg, _ = _models("float32")
+    deep_step_matches_reference(jcfg, tcfg, np_tree(jparams))

@@ -205,6 +205,59 @@ def test_train_launcher_runs(capsys, tmp_path):
     assert res.dist_sq.shape == (5,) and float(res.dist_sq[-1]) < float(res.dist_sq[0])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_train_launcher_runs_the_recurrent_families(capsys, arch):
+    """launch/train.py --reduced on the hybrid and ssm families: one round
+    (the scans' gradients through the plain K6b and K7b)."""
+    losses = train_main(["--arch", arch, "--reduced", "--device", "cpu", "--rounds", "1",
+                         "--cohorts", "1", "--per-cohort-batch", "2", "--seq-len", "16",
+                         "--local-steps", "2"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert f"{arch} on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "zamba2-2.7b", "rwkv6-1.6b"])
+def test_state_converters_follow_the_family(name):
+    """`convert.svrp_state_from_numpy` and `adamw_state_from_numpy` on each
+    ported family's reduced bf16 tree (seeded values in the shapes and dtypes
+    the reference's `init_params` gives, read by `eval_shape`): every leaf in
+    the dtype the port's `init_params` gives it (the hybrid's A_log, D and
+    dt_bias and the ssm's w0 and u stay float32), gbar and the moments in
+    float32, the values the reference's."""
+    from repro import optim as jopt
+    from repro.configs import REGISTRY as JREG
+    from repro_torch.configs import REGISTRY as TREG
+
+    jcfg, tcfg = JREG[name].reduced(), TREG[name].reduced()
+    assert tcfg.param_dtype == "bfloat16"
+    rng = np.random.default_rng(0)
+    shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k), jax.random.key(0))
+    jparams = jax.tree.map(lambda s: jnp.asarray(rng.standard_normal(s.shape), s.dtype), shapes)
+    tree = np_tree(jparams)
+    gbar = jax.tree.map(lambda a: a * np.float32(0.5), tree)
+    want = TM.init_params(tcfg, torch.Generator(), device="meta")
+    exact = dict(rtol=0, atol=0)
+
+    def same_dtypes(got, like, dtype=None):
+        tree_map(lambda g, w: None if g.dtype == (dtype or w.dtype) else pytest.fail(
+            f"{name}: {g.dtype} where {dtype or w.dtype}"), got, like)
+
+    state = convert.svrp_state_from_numpy({"params": tree, "anchor": tree, "anchor_grad": gbar,
+                                           "step": 3}, tcfg, device="cpu")
+    assert state.step == 3
+    for field, ref in (("params", tree), ("anchor", tree), ("anchor_grad", gbar)):
+        got = getattr(state, field)
+        same_dtypes(got, want, torch.float32 if field == "anchor_grad" else None)
+        assert_tree_close(got, ref, exact, f"{name} {field}")
+    jstate = jax.tree.map(np.asarray, {"params": jparams, "opt": jopt.adamw_init(jparams)})
+    adamw = convert.adamw_state_from_numpy(jstate, tcfg, device="cpu")
+    same_dtypes(adamw.params, want)
+    same_dtypes(adamw.opt.mu, want, torch.float32)
+    same_dtypes(adamw.opt.nu, want, torch.float32)
+    assert_tree_close(adamw.params, tree, exact, f"{name} adamw params")
+    assert adamw.opt.step == 0
+
+
 # ------------------------------------------------------------------ (i)
 def test_unbind_forward_equals_per_layer_selects():
     """The forward takes its layers from one unbind per leaf: serving's
