@@ -203,10 +203,10 @@ Phases, each printed as one JSON line:
    and log-sum-exp at Qwen2's group of 6; K4b (the attention backward) in bf16 and f32 at the
    training shape (B 2, S 1024, 12/2 heads, Dh 128, causal) and at a
    sliding-window, a q_offset (Sq != Skv), a no-key-rows and Dh 80 / 64
-   case, with groups of 6 and of 1 at Dh 64 and 128 (bf16 there takes the
-   wgmma + TMA route, Dh 80 the mma.sync one); each against its plain
+   case, with groups of 6 and of 1 (bf16 there takes the wgmma + TMA route,
+   Dh 80 too); each against its plain
    version on the card, timed beside its bound and (K4b) SDPA's forward +
-   backward, with two launches of the wgmma route compared (dK and dV bit
+   backward and its backward alone, with two launches of the wgmma route compared (dK and dV bit
    for bit, dQ's spread in relative L2); two planted K4b faults must fail
    the check: the first 64-key tile skipped, and one query head of each
    group left out of dK and dV (the wgmma route's group sum);
@@ -257,10 +257,16 @@ Phases, each printed as one JSON line:
    bf16 and float32, the relative L2 of every gradient within K6B_REL_TOL /
    K7B_REL_TOL, timed beside the bound and the plain backward, two launches
    bit for bit; smaller cases with state0 and a final-state cotangent
-   (P 128 / N 16; strong and weak decay); K4b at Zamba2's attention shape
-   (2 x 1024, 32/32 heads, Dh 80, bf16); planted faults that must fail: K6b
-   without the carry between chunks, K7b's dw from S_t, K7b skipping one
-   tile's recompute;
+   (P 128 / N 16; strong and weak decay; K6b's tensor-core route with
+   strong decay and x, B, C at an inner stride of 2, and with 80 heads);
+   K4b at Zamba2's attention shape (2 x 1024, 32/32 heads, Dh 80, bf16; the
+   wgmma route) timed beside SDPA's forward + backward and its backward
+   alone, and at Dh 80 with a sliding window and with a query offset; K4
+   at Dh 80 (its mma.sync route) timed beside SDPA's forward at Zamba2's
+   prefill (4 x 2048) and training (2 x 1024) shapes; planted faults that
+   must fail: K6b without the carry between chunks (on either route), K4b
+   skipping a key tile and leaving a group rank out, K7b's dw from S_t,
+   K7b skipping one tile's recompute;
 28. hybrid / rwkv train — `make_svrp_train_step` on Zamba2-2.7B and
    rwkv6-1.6b at full width and depth in bf16 (seed-0 weights), TRAIN's
    settings for 2 rounds (C 2 cohorts of 2 x 1024, K 4, coins [1, 0]; 1 x
@@ -285,7 +291,8 @@ Phases, each printed as one JSON line:
    trials) on a `FedLMProblem` over the reduced models, exact counts, the
    loss against the CPU's (RTRAIN_FEDLM's rel_tol) and comm equal;
 34. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
-   K7b), then the `ok` line.
+   K7b, each with the design it ran on the main path as `kernel_route`),
+   then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -558,6 +565,25 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps: int, hold_cycles: int = 200_000_000) -> float:
+    """Device ms a call of ``fn`` with its host time taken out: a spin kernel
+    (~0.1 s) holds the stream while the host enqueues ``reps`` calls between
+    two events, so the events time the calls back to back on the device even
+    where the host issues them more slowly than the card runs them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -3271,6 +3297,11 @@ def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         return torch.autograd.grad(o, (qt, kt, vt), dot)
 
+    o_kept = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_bwd():  # the backward alone: one forward's graph, kept
+        return torch.autograd.grad(o_kept, (qt, kt, vt), dot, retain_graph=True)
+
     def k4b():
         return fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
@@ -3280,10 +3311,16 @@ def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_
     big = dtype == torch.float32
     res.update(planted_fault=planted, bound_ms=b_ms, bound_by=b_by, pairs=pairs,
                ms=time_ms(k4b, 5 if big else 20), plain_ms=time_ms(plain, 3, 1),
-               library_ms=time_ms(sdpa_fwd_bwd, 20), device_ms=device_ms(k4b, 5),
+               library_ms=time_ms(sdpa_fwd_bwd, 20), library_bwd_ms=time_ms(sdpa_bwd, 20),
+               queued_ms=queued_ms(k4b, 20), library_bwd_queued_ms=queued_ms(sdpa_bwd, 20),
+               library_note="library_ms: SDPA forward + backward; library_bwd_ms: its "
+                            "backward alone (one forward's graph kept); *_queued_ms: K4b and "
+                            "that backward enqueued behind a spin kernel (no host time)",
+               device_ms=device_ms(k4b, 5),
                fwd_ms=time_ms(lambda: fa.flash_attention(q, k, v, with_lse=True, **kw),
                               5 if big else 20))
     res["bound_share"] = b_ms / res["ms"]
+    del o_kept
     return res
 
 
@@ -3504,9 +3541,24 @@ def phase_train():
     return cfg, step, helpers, batch, launches
 
 
-def phase_train_profile(step, helpers, batch, label: str = "train_profile") -> None:
+# The port's kernels in a training profile, by the substrings of their
+# names: each of the four K6b and two K4b launches a call is its own kernel.
+PROFILE_GROUPS = {
+    "hybrid": {"K6b": ("ssm_scan_bwd_kernel", "(anonymous namespace)::reduce_kernel<",
+                       "tc::chunk_states", "tc::combine", "tc::body", "tc::reduce("),
+               "K6": ("ssm_scan_tc", "ssm_scan_kernel<"),
+               "K4b": ("bwd_wgmma", "bwd_prep", "bwd_dq_convert", "bwd_delta", "bwd_dkdv",
+                       "bwd_dq_bf16", "bwd_dq_f32", "bwd_group_sum"),
+               "K4": ("flash_fwd",)},
+    "rwkv": {"K7b": ("rwkv6_scan_bwd_kernel", "du_reduce")},
+}
+
+
+def phase_train_profile(step, helpers, batch, label: str = "train_profile",
+                        groups=None) -> None:
     """Where a training round's time goes: one plain round (no refresh)
-    under torch.profiler, after one unprofiled."""
+    under torch.profiler, after one unprofiled; with ``groups``, each named
+    kernel's device ms, launches and share of the busy time."""
     state = helpers["init_state"]()
 
     def one_round():
@@ -3521,7 +3573,18 @@ def phase_train_profile(step, helpers, batch, label: str = "train_profile") -> N
           "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
           "kernel_launches": sum(c for _, c in kernels.values()),
           "top_kernels": [{"name": name[:80], "device_ms": t / 1e3, "count": c}
-                          for name, (t, c) in top]})
+                          for name, (t, c) in top],
+          "port_kernels": {g: _group_time(kernels, subs, busy_ms)
+                           for g, subs in (groups or {}).items()}})
+
+
+def _group_time(kernels, substrings, busy_ms) -> dict:
+    """Device ms, launches and share of ``busy_ms`` of the kernels whose names
+    hold one of ``substrings``."""
+    hits = [(t, c) for name, (t, c) in kernels.items() if any(s in name for s in substrings)]
+    ms = sum(t for t, _ in hits) / 1e3
+    return {"device_ms": ms, "launches": sum(c for _, c in hits),
+            "busy_share": ms / busy_ms if busy_ms else None}
 
 
 def tree_dist(a, b) -> float:
@@ -4171,17 +4234,21 @@ def _grads_ok(errs: dict, tol: float) -> bool:
     return all(e["finite"] and e["rel_l2"] <= tol for e in errs.values())
 
 
-def k6b_case(gen, shape, dtype, *, with_state=False, timed=False) -> dict:
+def k6b_case(gen, shape, dtype, *, with_state=False, strong=False, stride=1,
+             timed=False) -> dict:
     """K6b against the plain backward on one input (x, B and C column views of
-    one tensor, as the model hands them); with ``timed``, K6b timed beside its
-    bound and the plain backward, two launches compared bit for bit, and the
-    planted fault (the state's cotangent not carried across chunks)."""
+    one tensor, as the model hands them; with ``stride`` 2 of every other
+    column, which the tensor-core route stages by plain loads); with
+    ``timed``, K6b timed beside its bound and the plain backward, two
+    launches compared bit for bit, and the planted fault (the state's
+    cotangent not carried across chunks)."""
     import torch
 
     from repro_torch.kernels import ssm_scan as ssm
 
     dname = str(dtype).split(".")[-1]
-    x, dt, A, Bm, Cm, D, s0 = ssm_inputs(gen, shape, dtype, with_state=with_state)
+    x, dt, A, Bm, Cm, D, s0 = ssm_inputs(gen, shape, dtype, with_state=with_state,
+                                         strong=strong, stride=stride)
     Bb, T, H, P, N = shape
     dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
     dh = (torch.randn((Bb, H, P, N), generator=gen, device="cuda") if with_state else None)
@@ -4191,7 +4258,9 @@ def k6b_case(gen, shape, dtype, *, with_state=False, timed=False) -> dict:
     errs = _grad_errors(got, want, names)
     tol = K6B_REL_TOL[dname]
     check(_grads_ok(errs, tol), f"ssm_scan_bwd {dname} {list(shape)}: {errs} (tol {tol})")
-    res = dict(shape=list(shape), dtype=dname, state0=with_state, rel_tol=tol, errors=errs,
+    res = dict(shape=list(shape), dtype=dname, route=ssm.bwd_route(dtype, *shape[3:]),
+               group=ssm.bwd_group(*shape[:3]), state0=with_state, strong_decay=strong,
+               stride=stride, rel_tol=tol, errors=errs,
                max_abs_err=max(e["max_abs_err"] for e in errs.values()))
     if not timed:
         return res
@@ -4297,6 +4366,11 @@ def phase_recurrent_bwd_parity() -> dict:
            for dt in (bf16, f32)}
     k6b_cases = [k6b_case(gen, shape, dt, with_state=True)
                  for dt in (bf16, f32) for shape in ((2, 300, 4, 64, 64), (1, 129, 3, 128, 16))]
+    # the tensor-core route: strong decay, x, B and C read through an inner
+    # stride of 2 (plain loads), a group of 10 heads
+    k6b_cases += [k6b_case(gen, (2, 300, 4, 64, 64), bf16, with_state=True, strong=True,
+                           stride=2),
+                  k6b_case(gen, (2, 200, 80, 64, 64), bf16, with_state=True)]
     torch.cuda.empty_cache()
     k7b = {str(dt).split(".")[-1]: k7b_case(gen, RTRAIN_RWKV_SHAPE, dt, timed=True)
            for dt in (bf16, f32)}
@@ -4304,10 +4378,22 @@ def phase_recurrent_bwd_parity() -> dict:
                  for dt in (bf16, f32) for decay in ("strong", "weak")]
     torch.cuda.empty_cache()
     k4b = k4b_case(gen, *RTRAIN_ATTN_SHAPE, bf16, timed=True)
+    # K4b at Dh 80 (the wgmma route's 16-column boxes): a sliding window, a
+    # query offset with Sq != Skv; K4 at Dh 80 (its mma.sync route) timed
+    # beside SDPA's forward at Zamba2's prefill and training shapes
+    k4b_cases = [k4b_case(gen, 1, 300, 300, 32, 32, 80, bf16, window=64),
+                 k4b_case(gen, 1, 100, 356, 8, 4, 80, bf16, q_offset=256)]
+    torch.cuda.empty_cache()
+    B, S = HYBRID["prefill"]
+    k4 = [k4_case(gen, B, S, S, *RTRAIN_ATTN_SHAPE[3:], bf16), k4_case(gen, *RTRAIN_ATTN_SHAPE, bf16)]
+    torch.cuda.empty_cache()
     emit({"phase": "recurrent_bwd_parity", "ssm_scan_bwd": list(k6b.values()),
           "ssm_scan_bwd_cases": k6b_cases, "rwkv6_scan_bwd": list(k7b.values()),
           "rwkv6_scan_bwd_cases": k7b_cases, "flash_attention_bwd_zamba2": k4b,
-          "library": "K6b, K7b: none (no PyTorch call computes a scan's gradient)"})
+          "flash_attention_bwd_zamba2_cases": k4b_cases, "flash_attention_zamba2": k4,
+          "library": "K6b, K7b: none (no PyTorch call computes a scan's gradient); K4 and "
+                     "K4b: SDPA (library_ms forward + backward, library_bwd_ms backward "
+                     "alone for K4b; library_ms forward for K4)"})
     return {"ssm_scan_bwd": k6b["bfloat16"], "rwkv6_scan_bwd": k7b["bfloat16"]}
 
 
@@ -4736,7 +4822,7 @@ def phase_recurrent_training() -> dict:
         cfg, step, helpers, batch, launches[fam.label] = timed(
             f"{fam.label}_train", phase_recurrent_train, fam)
         timed(f"{fam.label}_profile", phase_train_profile, step, helpers, batch,
-              label=f"{fam.label}_train_profile")
+              label=f"{fam.label}_train_profile", groups=PROFILE_GROUPS[fam.label])
         timed(f"{fam.label}_replay", phase_recurrent_replay, fam, cfg, step, helpers, batch)
         del cfg, step, helpers, batch
         timed(f"{fam.label}_adamw", phase_recurrent_adamw, fam)
@@ -4744,6 +4830,17 @@ def phase_recurrent_training() -> dict:
         timed(f"{fam.label}_fed_lm", phase_recurrent_fed_lm, fam)
     emit({"phase": "recurrent_train_seconds", **seconds, "total": sum(seconds.values())})
     return {"parity": parity, "launches": {**launches["hybrid"], **launches["rwkv"]}}
+
+
+# The design each kernel runs on the main path, for the kernels line where its
+# parity result names none (K4, K4b, K6 and K6b name theirs: `forward_route`,
+# `backward_route`, `scan_route`, `bwd_route`).
+KERNEL_ROUTES = {
+    "prox_update_batched": "elementwise", "quadratic_prox_gd_batched": "loop",
+    "logistic_prox_gd_batched": "cluster", "prox_update": "tree",
+    "decode_attention": "half_warp_streams", "rwkv6_scan": "tma",
+    "rwkv6_scan_bwd": "fma_f32",
+}
 
 
 def main(argv=None) -> int:
@@ -4882,7 +4979,8 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces, counts, p) in rows.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "kernel_route": p.get("route", KERNEL_ROUTES.get(name)),
+            "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p.get("library_ms"),

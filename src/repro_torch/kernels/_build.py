@@ -8,9 +8,10 @@ it is compiled for Hopper by its own `nvcc` process,
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 into `build/` beside this file (listed in .gitignore).  The library name
-carries a hash of the source and flags, so an edited source is rebuilt and a
-stale library is never loaded.  Nothing here runs at import time: the CPU
-tests import every module on machines without `nvcc` or a card.
+carries a hash of the source, the headers under `csrc/` and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU tests import every module on
+machines without `nvcc` or a card.
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # what sources include
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -26,13 +26,19 @@
 // five products of the backward are 10 B H pairs Dh = 16.1 GFLOP, 16 us at
 // the 989 TFLOP/s bf16 tensor-core peak, against 19 MB of operands.
 //
-// Two routes, chosen by dtype, head dim and group alone (`backward_route`
-// in flash_attention.py): bf16 at Dh 64 and 128 with G <= 8 takes the
-// wgmma + TMA kernel (namespace wg, below), which forms the five products
-// of FA2's backward in one kernel; bf16 at Dh 80 (whose rows are not whole
-// 128-byte swizzled boxes), G > 8 (more than a portable cluster) and
-// float32 take the first design: FA2's deterministic pair of kernels, with
-// no atomics, between a row-sum launch before and a group reduction after.
+// At Zamba2's training shape (bf16, B 2, S 1024, 32/32 heads, Dh 80,
+// causal) the five products are 26.9 GFLOP, 27 us at the bf16 peak.
+//
+// Two routes, chosen by dtype and group alone (`backward_route` in
+// flash_attention.py): bf16 with G <= 8 takes the wgmma + TMA kernel
+// (namespace wg, below), which forms the five products of FA2's backward in
+// one kernel, three launches a call (a prologue, the kernel, a dQ
+// epilogue); at Dh 64 and 128 its tiles are boxes of 64 columns with the
+// 128-byte swizzle, at Dh 80 (whose 160-byte rows are not whole 128-byte
+// boxes) five boxes of 16 columns with the 32-byte swizzle.  bf16 with
+// G > 8 (more than a portable cluster) and float32 take the first design:
+// FA2's deterministic pair of kernels, with no atomics, between a row-sum
+// launch before and a group reduction after (four launches a call).
 //
 //  1. bwd_delta: one warp per (b, i, h) row computes delta.
 //  2. bwd_dkdv: one block per (key tile, query head, batch).  The block keeps
@@ -62,6 +68,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
+
+#include <type_traits>
 
 namespace {
 
@@ -776,12 +786,12 @@ cudaError_t launch_all(int dh, const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------ bf16 at Dh 64 and 128: wgmma + TMA
+// ------------------------------------ bf16 at Dh 64, 80 and 128: wgmma + TMA
 // One kernel with the five products (namespace wg), between a prologue
 // launch (delta, lse in base-2 units, the dQ accumulator zeroed) and an
 // epilogue launch (dQ scaled and rounded to bf16).
 //
-// Grid (H, key tiles of BK = 128, B) as clusters of G blocks along H: the G
+// Grid (H, B, key tiles of BK = 128) as clusters of G blocks along H: the G
 // query heads of one kv head, one block each.  A block holds its K and V
 // tile (TMA, once) and walks the query tiles of BQ = 64 rows its keys can
 // see, two stages of Q, dO, lse and delta landing by TMA while the last
@@ -793,10 +803,20 @@ cudaError_t launch_all(int dh, const Params& p, cudaStream_t stream) {
 //     dV  += P^T dO, dK += dS^T Q           wgmma, P^T and dS^T from registers
 //     dQ_partial = dS K                      wgmma, dS^T from shared memory (transposed)
 //
-// dQ across key tiles: each warpgroup's partial (64 queries x 64 of Dh at
-// Dh 128, where the two split the columns; all 64 at Dh 64, where they
-// split the keys) goes to shared memory and one thread adds it into a
-// float32 accumulator in device memory with one bulk reduce-add
+// S^T and dP^T are committed as two groups, and dV's product is issued as
+// soon as P^T is formed: P^T's exponentials overlap dP^T's product, and
+// dS^T's arithmetic overlaps dV's.  Only tiles that cross the diagonal or a
+// window's edge test the mask element by element, against the query range
+// each of a thread's keys may see, solved once.  Within a warpgroup the
+// phases are otherwise serial, and the two warpgroups meet at a barrier
+// before dQ and at the end of each tile, so the tensor cores idle while both
+// form P^T and dS^T (a producer warp and two warpgroups out of phase, as
+// FA3 has them, are the next step).
+//
+// dQ across key tiles: each warpgroup's partial (64 queries x its columns
+// over all BK keys at Dh 128 and 80, where the two split the columns 64 + 64
+// and 48 + 32; all 64 columns over its own keys at Dh 64) goes to shared
+// memory and one thread adds it into a float32 accumulator in device memory with one bulk reduce-add
 // (cp.reduce.async.bulk ... add.f32): the order of the adds is not fixed,
 // so dQ is not bit-reproducible between launches.  dK and dV: after the
 // loop every block of the cluster puts its query head's float32 dK and dV
@@ -816,21 +836,43 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-constexpr int BK = 128, BQ = 64, kThreads = 256, kBox = 64;
+constexpr int BK = 128, BQ = 64, kThreads = 256;
+
+// How a head dim's rows are tiled.  Dh 64 and 128: boxes of 64 columns
+// (128-byte rows), 128-byte swizzle.  Dh 80: five boxes of 16 columns
+// (32-byte rows), 32-byte swizzle, so that every product's operand is whole
+// swizzle atoms (a 160-byte row is not whole 128-byte ones).  dQ's tile: 64
+// queries x DQN columns of float32 a warpgroup partial.
+template <int DH>
+struct Tiling {
+  static constexpr int BW = DH % 64 == 0 ? 64 : 16;  // columns a box
+  static constexpr int RB = 2 * BW;                  // bytes a box row
+  static constexpr int COLS = DH / BW;                // boxes a row
+  static constexpr uint64_t MODE = BW == 64 ? 1 : 3;  // descriptor swizzle: 128B, 32B
+  // dQ: at Dh 64 each warpgroup's partial covers its own 64 keys and all 64
+  // columns (both add into one 64 x 64 part); at Dh 80 and 128 all BK keys
+  // and its own columns, part 0 [0, N0) and part 1 [N0, Dh) (48 + 32,
+  // 64 + 64; whole boxes), so that a (key tile, query tile) pair adds one
+  // 64 x Dh partial into device memory.
+  static constexpr bool SPLIT_KEYS = DH == 64;
+  static constexpr int N0 = DH == 80 ? 48 : 64, N1 = SPLIT_KEYS ? 64 : DH - N0;
+  static_assert(DH % BW == 0 && DH % 16 == 0 && N0 % BW == 0, "whole boxes and k16 steps");
+};
 
 template <int DH>
 struct Smem {
-  static constexpr int K = 0;  // tiles: DH / 64 column boxes of (rows, 64) bf16, 128B-swizzled
+  static constexpr int K = 0;  // tiles: Tiling<DH>::COLS column boxes of (rows, BW) bf16, swizzled
   static constexpr int V = K + BK * DH * 2;
   static constexpr int Q = V + BK * DH * 2;     // two stages
   static constexpr int DO = Q + 2 * BQ * DH * 2;  // two stages
-  static constexpr int DS = DO + 2 * BQ * DH * 2;  // dS^T (BK, BQ) bf16, swizzled
-  static constexpr int DQ = DS + BK * BQ * 2;      // one 64 x 64 float32 partial a warpgroup
-  static constexpr int LD = DQ + 2 * 64 * 64 * 4;  // lse2 then delta, BQ floats each, two stages
+  static constexpr int DS = DO + 2 * BQ * DH * 2;  // dS^T (BK, BQ) bf16, 128B-swizzled
+  static constexpr int DQ = DS + BK * BQ * 2;  // the warpgroups' float32 dQ partials
+  static constexpr int LD = DQ + (Tiling<DH>::SPLIT_KEYS ? 2 : 1) * 64 * DH * 4;  // lse2, delta
   static constexpr int BAR = LD + 2 * 2 * BQ * 4;  // kv_full, full[2]
   static constexpr int BYTES = BAR + 3 * 8 + 1024;  // + 1024 to align
   static constexpr int Q_BYTES = BQ * DH * 2, KV_BYTES = BK * DH * 2;
   static_assert(2 * BK * DH * 4 <= DS, "dK and dV (float32) fit over K, V, Q and dO");
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles keep the swizzle's alignment");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -895,11 +937,13 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, all in 16-byte units; swizzle mode 1 (128-byte, the default) or 3
+// (32-byte).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t mode = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (mode << 62);
 }
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -979,6 +1023,62 @@ __device__ __forceinline__ void wgmma_rs_m64n128_mn(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define WG_ACC40(d)                                                                          \
+  WG_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+      "+f"(d[38]), "+f"(d[39])
+#define WG_REGS40 WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+
+// d (+)= A B for a 64 x 32 / 64 x 48 tile, k 16, both operands in shared
+// memory, MN-major.
+__device__ __forceinline__ void wgmma_ss_m64n32_mn(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss_m64n48_mn(float (&d)[24], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B for a 64 x 80 tile, k 16, both operands in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_ss_m64n80_mn(float (&d)[40], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {" WG_REGS40 "}, "
+      "%40, %41, p, 1, 1, 1, 1;\n}\n"
+      : WG_ACC40(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B for a 64 x 80 tile, k 16: A in registers, B in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_m64n80_mn(float (&d)[40], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {" WG_REGS40 "}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_ACC40(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DH>
 __device__ __forceinline__ void rs_product(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
@@ -986,30 +1086,59 @@ __device__ __forceinline__ void rs_product<64>(float (&d)[32], const uint32_t (&
   wgmma_rs_m64n64_mn(d, a, db);
 }
 template <>
+__device__ __forceinline__ void rs_product<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n80_mn(d, a, db);
+}
+template <>
 __device__ __forceinline__ void rs_product<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_m64n128_mn(d, a, db);
+}
+
+// dQ's partial (+)= dS K over one k16 step: N columns, both operands
+// MN-major in shared memory.
+template <int N>
+__device__ __forceinline__ void dq_product(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d);
+template <>
+__device__ __forceinline__ void dq_product<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  wgmma_ss_m64n64<1>(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void dq_product<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  wgmma_ss_m64n32_mn(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void dq_product<48>(float (&d)[24], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  wgmma_ss_m64n48_mn(d, da, db, scale_d);
 }
 
 // Extra operands of the wgmma route (the common Params carry the rest).
 struct Extra {
   float* lse2;    // (B, H, Sq_pad): lse * log2(e), 0 past Sq
   float* dpad;    // (B, H, Sq_pad): delta, 0 past Sq
-  float* dq_acc;  // (B, H, Sq_pad / 64, DH / 64, 64, 64) float32, each 64 x 64 tile swizzled
+  float* dq_acc;  // (B, H, Sq_pad / 64, 64 DH) float32: a query tile's parts, each swizzled
   int sq_pad;
   int drop_rank;  // a planted fault: the group sum leaves out this rank (-1 in real runs)
 };
 
-// Element (r, c) of a 64 x 64 float32 dQ tile: 8-column groups XOR-swizzled
-// by the row, so that a warp's float2 stores of the accumulator layout spread
-// over the banks (the epilogue launch undoes it).
-__device__ __forceinline__ int dq_swz(int r, int c) { return r * 64 + (c ^ ((r & 7) << 3)); }
+// Element (r, c) of a 64 x N float32 dQ part: 8-column groups permuted by
+// the row (XOR at N 64, a rotation at N 32 and 48), so that a warp's float2 stores
+// of the accumulator layout spread over the banks (the epilogue launch
+// undoes it); each 8-column group stays whole and 32-byte aligned.
+template <int N>
+__device__ __forceinline__ int dq_swz(int r, int c) {
+  if constexpr (N == 64) return r * 64 + (c ^ ((r & 7) << 3));
+  else return r * N + (c + ((r & 7) << 3)) % N;
+}
 
-// prologue: one warp a row (b, h, i), i < Sq_pad.
-template <typename T>
+// prologue: eight lanes a row (b, h, i), i < Sq_pad, 16-byte loads of O and dO.
 __global__ void __launch_bounds__(256) bwd_prep(Params p, Extra x, int dh) {
-  const long long rows = (long long)p.B * p.H * x.sq_pad;
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);  // (b * H + h) * sq_pad + i
-  const int lane = threadIdx.x & 31;
+  const long long rows = (long long)p.B * p.H * x.sq_pad;  // a multiple of 64: whole warps
+  const long long row = (long long)blockIdx.x * 32 + (threadIdx.x >> 3);  // (b * H + h) * sq_pad + i
+  const int sub = threadIdx.x & 7;
   if (row >= rows) return;
   const int i = (int)(row % x.sq_pad);
   const long long bh = row / x.sq_pad;
@@ -1017,15 +1146,24 @@ __global__ void __launch_bounds__(256) bwd_prep(Params p, Extra x, int dh) {
   float acc = 0.f;
   if (i < p.Sq) {
     const long long off = (((long long)b * p.Sq + i) * p.H + h) * dh;
-    const T* o = static_cast<const T*>(p.o) + off;
-    const T* d = static_cast<const T*>(p.dout) + off;
-    for (int c = lane; c < dh; c += 32) acc = fmaf(to_f(o[c]), to_f(d[c]), acc);
+    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.o) + off);
+    const uint4* d = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) + off);
+    for (int c = sub; c < dh / 8; c += 8) {
+      const uint4 ov = o[c], dv = d[c];
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-    for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(op[e]), g = __bfloat1622float2(dp[e]);
+        acc = fmaf(a.x, g.x, fmaf(a.y, g.y, acc));
+      }
+    }
   }
+#pragma unroll
+  for (int s = 1; s < 8; s <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   float4* z = reinterpret_cast<float4*>(x.dq_acc + row * dh);
-  for (int c = lane; c < dh / 4; c += 32) z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (lane == 0) {
+  for (int c = sub; c < dh / 4; c += 8) z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (sub == 0) {
     x.dpad[row] = acc;
     x.lse2[row] = i < p.Sq ? p.lse[bh * p.Sq + i] * kLog2e : 0.f;
   }
@@ -1034,6 +1172,7 @@ __global__ void __launch_bounds__(256) bwd_prep(Params p, Extra x, int dh) {
 // epilogue: dQ = scale * accumulator in bf16; one thread 8 columns of a row.
 template <int DH>
 __global__ void __launch_bounds__(256) bwd_dq_convert(Params p, Extra x) {
+  using TL = Tiling<DH>;
   const long long n = (long long)p.B * p.Sq * p.H * (DH / 8);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -1042,9 +1181,11 @@ __global__ void __launch_bounds__(256) bwd_dq_convert(Params p, Extra x) {
   const int h = (int)(row % p.H);
   const long long bq = row / p.H;
   const int q = (int)(bq % p.Sq), b = (int)(bq / p.Sq);
-  const long long tile = ((((long long)b * p.H + h) * (x.sq_pad / 64) + q / 64) * (DH / 64) +
-                          c8 / 64) * 4096;
-  const float* src = x.dq_acc + tile + dq_swz(q % 64, c8 % 64);
+  const long long tile = (((long long)b * p.H + h) * (x.sq_pad / 64) + q / 64) * (64 * DH);
+  const bool part1 = !TL::SPLIT_KEYS && c8 >= TL::N0;
+  const float* src = x.dq_acc + tile +
+                     (part1 ? 64 * TL::N0 + dq_swz<TL::N1>(q % 64, c8 - TL::N0)
+                            : dq_swz<TL::N0>(q % 64, c8));
   const float4 a = reinterpret_cast<const float4*>(src)[0];
   const float4 c = reinterpret_cast<const float4*>(src)[1];
   __nv_bfloat162 out[4] = {__floats2bfloat162_rn(a.x * p.scale, a.y * p.scale),
@@ -1068,7 +1209,9 @@ __global__ void __launch_bounds__(kThreads, 1)
               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
               const __grid_constant__ CUtensorMap tm_do) {
   using L = Smem<DH>;
-  constexpr int COLS = DH / kBox;
+  using TL = Tiling<DH>;
+  constexpr int BW = TL::BW, RB = TL::RB, COLS = TL::COLS;
+  constexpr uint64_t MODE = TL::MODE;
   extern __shared__ unsigned char wg_smem[];
   const uint32_t raw = smem_addr(wg_smem);
   const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024
@@ -1077,7 +1220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t sDS = base + L::DS, sDQ = base + L::DQ, sLD = base + L::LD;
   const uint32_t kv_full = base + L::BAR, full0 = kv_full + 8;
 
-  const int h = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;  // the longest causal tiles first
   const int kvh = h / p.G, rank = h % p.G;
   const int k0 = kt * BK;
   const int tid = threadIdx.x, w = tid >> 7, ct = tid & 127;
@@ -1095,8 +1238,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_expect_tx(bar, 2 * L::Q_BYTES + 2 * BQ * 4);
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
-      tma_load_4d(sQ + st * L::Q_BYTES + c * BQ * 128, mq, bar, c * kBox, h, q0, b);
-      tma_load_4d(sDO + st * L::Q_BYTES + c * BQ * 128, mdo, bar, c * kBox, h, q0, b);
+      tma_load_4d(sQ + st * L::Q_BYTES + c * BQ * RB, mq, bar, c * BW, h, q0, b);
+      tma_load_4d(sDO + st * L::Q_BYTES + c * BQ * RB, mdo, bar, c * BW, h, q0, b);
     }
     bulk_load(sLD + st * 2 * BQ * 4, x.lse2 + lrow + q0, BQ * 4, bar);
     bulk_load(sLD + st * 2 * BQ * 4 + BQ * 4, x.dpad + lrow + q0, BQ * 4, bar);
@@ -1110,8 +1253,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
 #pragma unroll
       for (int c = 0; c < COLS; ++c) {
-        tma_load_4d(sK + c * BK * 128, &tm_k, kv_full, c * kBox, kvh, k0, b);
-        tma_load_4d(sV + c * BK * 128, &tm_v, kv_full, c * kBox, kvh, k0, b);
+        tma_load_4d(sK + c * BK * RB, &tm_k, kv_full, c * BW, kvh, k0, b);
+        tma_load_4d(sV + c * BK * RB, &tm_v, kv_full, c * BW, kvh, k0, b);
       }
       issue_q(0);
       if (n_it > 1) issue_q(1);
@@ -1123,19 +1266,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   // tile (S^T, dP^T, dK, dV); queries 16 warp + g (+ 8) of the q tile (dQ).
   const int kr = 64 * w + 16 * warp + g;
   const int kpos[2] = {k0 + kr, k0 + kr + 8};
+  // The queries [qlo, qhi) each of this thread's two keys may see (the
+  // masks of `allowed`, solved for the query once): an edge tile's mask is
+  // then two compares an element.
+  int qlo[2], qhi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int k = kpos[r];
+    qlo[r] = p.causal ? k - p.q_offset : INT_MIN;
+    qhi[r] = p.window > 0 ? min(p.Sq, k - p.q_offset + p.window) : p.Sq;
+    if (k >= p.Skv || k < p.skip_keys) qlo[r] = INT_MAX;
+  }
   const float sl2 = p.scale * kLog2e;
   float dk[DH / 2], dv[DH / 2];
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
-  const uint32_t sK_rows = sK + w * 64 * 128, sV_rows = sV + w * 64 * 128;
-  // dQ: at Dh 128 warpgroup w takes Dh columns [64 w, 64 w + 64) over all BK
-  // keys; at Dh 64 all 64 columns over its own 64 keys.
-  constexpr int DQ_STEPS = DH == 128 ? BK / 16 : 64 / 16;
-  const uint32_t dq_a = DH == 128 ? sDS : sDS + w * 64 * 128;
-  const uint32_t dq_b = DH == 128 ? sK + w * BK * 128 : sK + w * 64 * 128;
-  const int dq_half = DH == 128 ? w : 0;
-  float* dq_tiles = x.dq_acc + ((long long)b * p.H + h) * (x.sq_pad / 64) * (DH / 64) * 4096;
-  float* sdq = reinterpret_cast<float*>(gbase + L::DQ) + w * 4096;
+  const uint32_t sK_rows = sK + w * 64 * RB, sV_rows = sV + w * 64 * RB;
+  // dQ (see Tiling): warpgroup w's keys (dq_a, dS^T's rows), its columns
+  // (dq_b, K's boxes) and its part of the query tile's 64 x DH floats (col0)
+  constexpr int DQ_STEPS = TL::SPLIT_KEYS ? 64 / 16 : BK / 16;
+  const int col0 = TL::SPLIT_KEYS || w == 0 ? 0 : TL::N0;
+  const uint32_t dq_a = TL::SPLIT_KEYS ? sDS + w * 64 * 128 : sDS;
+  const uint32_t dq_b = TL::SPLIT_KEYS ? sK + w * 64 * RB : sK + (col0 / BW) * BK * RB;
+  float* dq_tiles = x.dq_acc + ((long long)b * p.H + h) * (x.sq_pad / 64) * (64 * DH) + 64 * col0;
+  const int sdq_off = TL::SPLIT_KEYS ? w * 64 * DH : 64 * col0;  // floats
+  float* sdq = reinterpret_cast<float*>(gbase + L::DQ) + sdq_off;
   const bool leader = ct == 0;  // issues this warpgroup's bulk reduces
 
   if (n_it > 0) mbar_wait(kv_full, 0);
@@ -1144,44 +1299,72 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(full0 + 8 * st, (it >> 1) & 1);
     const uint32_t q_tile = sQ + st * L::Q_BYTES, do_tile = sDO + st * L::Q_BYTES;
 
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries a warpgroup
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries a warpgroup, two
+    // groups, so that P^T is formed while dP^T is still on the tensor cores
     float s[32], dp[32];
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * BK * 128 + (kk & 3) * 32;
-      const uint32_t qoff = (kk >> 2) * BQ * 128 + (kk & 3) * 32;
-      wgmma_ss_m64n64<0>(s, desc(sK_rows + off, 16, 1024), desc(q_tile + qoff, 16, 1024), kk > 0);
-      wgmma_ss_m64n64<0>(dp, desc(sV_rows + off, 16, 1024), desc(do_tile + qoff, 16, 1024),
-                         kk > 0);
+      const int box = kk * 16 / BW, in = (kk * 16 % BW) * 2;  // k16 step: box, bytes into its row
+      wgmma_ss_m64n64<0>(s, desc(sK_rows + box * BK * RB + in, 16, 8 * RB, MODE),
+                         desc(q_tile + box * BQ * RB + in, 16, 8 * RB, MODE), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int box = kk * 16 / BW, in = (kk * 16 % BW) * 2;
+      wgmma_ss_m64n64<0>(dp, desc(sV_rows + box * BK * RB + in, 16, 8 * RB, MODE),
+                         desc(do_tile + box * BQ * RB + in, 16, 8 * RB, MODE), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T
     fence_regs(s);
-    fence_regs(dp);
 
-    // P^T and dS^T; dS^T also to shared memory for dQ
+    // P^T (in place of S^T, float32) and its bf16 A operand; then dV += P^T dO
+    // (dO MN-major: Dh boxes BQ rows apart) while dS^T is formed
     const float* lse2 = reinterpret_cast<const float*>(gbase + L::LD) + st * 2 * BQ;
     const float* dl = lse2 + BQ;
-    const bool masked = tile_masked(p, k0, q0);
     uint32_t pa[4][4], da[4][4];
+    // Two instantiations, chosen once a tile: tested element by element, the
+    // mask cost the pass three times its arithmetic on every tile.
+    auto p_pass = [&](auto masked_tile) {
+      constexpr bool MASKED = decltype(masked_tile)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + qc);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int qi = q0 + qc + (r & 1);
+          const bool ok = !MASKED || (qi >= qlo[r >> 1] && qi < qhi[r >> 1]);
+          s[4 * j + r] = ok ? ex2(s[4 * j + r] * sl2 - ((r & 1) ? l2.y : l2.x)) : 0.f;
+        }
+        pa[j >> 1][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+    };
+    if (tile_masked(p, k0, q0))
+      p_pass(std::true_type{});
+    else
+      p_pass(std::false_type{});
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      rs_product<DH>(dv, pa[kk], desc(do_tile + kk * 16 * RB, BQ * RB, 8 * RB, MODE));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T
+    fence_regs(dp);
+
+    // dS^T = P^T (dP^T - delta), also to shared memory for dQ; dK += dS^T Q
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int qc = 8 * j + 2 * t;
-      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + qc);
-      const float2 d2 = *reinterpret_cast<const float2*>(dl + qc);
-      float e[4], d[4];
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+      float d[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int qi = q0 + qc + (r & 1);
-        const bool ok = !masked || (qi < p.Sq && allowed(p, qi + p.q_offset, kpos[r >> 1]));
-        e[r] = ok ? ex2(s[4 * j + r] * sl2 - ((r & 1) ? l2.y : l2.x)) : 0.f;
-        d[r] = e[r] * (dp[4 * j + r] - ((r & 1) ? d2.y : d2.x));
-      }
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(e[0], e[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(e[2], e[3]);
+      for (int r = 0; r < 4; ++r) d[r] = s[4 * j + r] * (dp[4 * j + r] - ((r & 1) ? d2.y : d2.x));
       da[j >> 1][(j & 1) * 2] = pack_bf16(d[0], d[1]);
       da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
 #pragma unroll
@@ -1191,51 +1374,55 @@ __global__ void __launch_bounds__(kThreads, 1)
             da[j >> 1][(j & 1) * 2 + r];
       }
     }
-
-    // dV += P^T dO, dK += dS^T Q (dO and Q MN-major: Dh boxes BQ rows apart)
     fence_regs(dk);
-    fence_regs(dv);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      rs_product<DH>(dv, pa[kk], desc(do_tile + kk * 16 * 128, BQ * 128, 1024));
-      rs_product<DH>(dk, da[kk], desc(q_tile + kk * 16 * 128, BQ * 128, 1024));
-    }
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      rs_product<DH>(dk, da[kk], desc(q_tile + kk * 16 * RB, BQ * RB, 8 * RB, MODE));
     wgmma_commit();
 
     // dQ partial = dS K: dS^T from shared memory (MN-major A), K MN-major
     fence_async_smem();
-    named_barrier(1, kThreads);  // both warpgroups' dS^T written
-    float dq[32];
-    fence_regs(dq);
-    wgmma_fence();
+    if constexpr (TL::SPLIT_KEYS)
+      named_barrier(2 + w, 128);  // this warpgroup's dS^T rows written: it reads its own keys
+    else
+      named_barrier(1, kThreads);  // both warpgroups' dS^T written: each reads all BK keys
+    auto dq_phase = [&](auto n_cols) {
+      constexpr int N = decltype(n_cols)::value;
+      float dq[N / 2];
+      fence_regs(dq);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DQ_STEPS; ++kk)
-      wgmma_ss_m64n64<1>(dq, desc(dq_a + kk * 16 * 128, 64 * 128, 1024),
-                         desc(dq_b + kk * 16 * 128, BK * 128, 1024), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_regs(dk);
-    fence_regs(dv);
-    fence_regs(pa);
-    fence_regs(da);
+      for (int kk = 0; kk < DQ_STEPS; ++kk)
+        dq_product<N>(dq, desc(dq_a + kk * 16 * 128, 64 * 128, 1024),
+                      desc(dq_b + kk * 16 * RB, BK * RB, 8 * RB, MODE), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(da);
 
-    if (leader) bulk_wait_read();  // the previous partial has left shared memory
-    named_barrier(2 + w, 128);
+      if (leader) bulk_wait_read();  // the previous partial has left shared memory
+      named_barrier(2 + w, 128);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = 16 * warp + g + 8 * r;
-        *reinterpret_cast<float2*>(sdq + dq_swz(row, 8 * j + 2 * t)) =
-            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
-      }
-    fence_async_smem();
-    named_barrier(2 + w, 128);
-    if (leader)
-      bulk_reduce_add(dq_tiles + ((long long)qt * (DH / 64) + dq_half) * 4096, sDQ + w * 16384,
-                      16384);
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g + 8 * r;
+          *reinterpret_cast<float2*>(sdq + dq_swz<N>(row, 8 * j + 2 * t)) =
+              make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      fence_async_smem();
+      named_barrier(2 + w, 128);
+      if (leader)
+        bulk_reduce_add(dq_tiles + (long long)qt * (64 * DH), sDQ + sdq_off * 4, 64 * N * 4);
+    };
+    if (w == 0)
+      dq_phase(std::integral_constant<int, TL::N0>{});
+    else
+      dq_phase(std::integral_constant<int, TL::N1>{});
 
     __syncthreads();  // stage st and dS^T are free
     if (tid == 0 && it + 2 < n_it) issue_q(it + 2);
@@ -1312,19 +1499,22 @@ EncodeTiled encode_fn() {
 }
 
 // A (B, S, heads, dh) bf16 tensor as a 4-D map over (dh, heads, S, B): boxes
-// of (64, 1, rows, 1), 128-byte swizzled; rows past S read as zeros.
-int encode(CUtensorMap* map, const void* ptr, int dh, int heads, int seq, int batch, int rows) {
+// of (bw, 1, rows, 1), 128-byte swizzled at bw 64, 32-byte at bw 16; rows
+// past S read as zeros.
+int encode(CUtensorMap* map, const void* ptr, int dh, int heads, int seq, int batch, int rows,
+           int bw) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t e = 2;
   const cuuint64_t rows_total = seq > 0 ? seq : 1;
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, rows_total, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {dh * e, (cuuint64_t)heads * dh * e, rows_total * heads * dh * e};
-  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)bw, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -1332,21 +1522,22 @@ int encode(CUtensorMap* map, const void* ptr, int dh, int heads, int seq, int ba
 template <int DH>
 int launch(const Params& p, const Extra& x, cudaStream_t stream) {
   const long long rows = (long long)p.B * p.H * x.sq_pad;
-  bwd_prep<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, x, DH);
+  bwd_prep<<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(p, x, DH);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (p.Skv > 0) {
     CUtensorMap tq, tk, tv, tdo;
-    int err = encode(&tq, p.q, DH, p.H, p.Sq, p.B, BQ);
-    if (!err) err = encode(&tdo, p.dout, DH, p.H, p.Sq, p.B, BQ);
-    if (!err) err = encode(&tk, p.k, DH, p.KVH, p.Skv, p.B, BK);
-    if (!err) err = encode(&tv, p.v, DH, p.KVH, p.Skv, p.B, BK);
+    constexpr int bw = Tiling<DH>::BW;
+    int err = encode(&tq, p.q, DH, p.H, p.Sq, p.B, BQ, bw);
+    if (!err) err = encode(&tdo, p.dout, DH, p.H, p.Sq, p.B, BQ, bw);
+    if (!err) err = encode(&tk, p.k, DH, p.KVH, p.Skv, p.B, BK, bw);
+    if (!err) err = encode(&tv, p.v, DH, p.KVH, p.Skv, p.B, BK, bw);
     if (err) return err;
     e = cudaFuncSetAttribute(bwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Smem<DH>::BYTES);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)p.H, (unsigned)((p.Skv + BK - 1) / BK), (unsigned)p.B);
+    cfg.gridDim = dim3((unsigned)p.H, (unsigned)p.B, (unsigned)((p.Skv + BK - 1) / BK));
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = Smem<DH>::BYTES;
     cfg.stream = stream;
@@ -1412,7 +1603,7 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
                                          int causal, int window, int skip_key_tiles,
                                          int drop_rank, float scale, void* stream) {
   if (B == 0 || H == 0) return 0;
-  if (KVH == 0 || H % KVH || H / KVH > 8 || (Dh != 64 && Dh != 128))
+  if (KVH == 0 || H % KVH || H / KVH > 8 || (Dh != 64 && Dh != 80 && Dh != 128))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (Sq == 0) {  // no query: dK and dV are zero
@@ -1429,5 +1620,9 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
   float* f = static_cast<float*>(scratch);
   const long long rows = (long long)B * H * sq_pad;
   const wg::Extra x{f, f + rows, f + 2 * rows, sq_pad, drop_rank};
-  return Dh == 64 ? wg::launch<64>(p, x, s) : wg::launch<128>(p, x, s);
+  switch (Dh) {
+    case 64: return wg::launch<64>(p, x, s);
+    case 80: return wg::launch<80>(p, x, s);
+    default: return wg::launch<128>(p, x, s);
+  }
 }

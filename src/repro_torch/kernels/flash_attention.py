@@ -14,8 +14,8 @@
   its gradient is the jnp `custom_vjp` `_ca_bwd`
   (src/repro/kernels/ops.py:105), which recomputes each score block from the
   saved log-sum-exp and never builds an (S, S) tensor.  Its route depends on
-  dtype, head dim and group alone (`backward_route`): bf16 at Dh 64 and 128
-  with G = H / KVH <= 8 runs one wgmma + TMA kernel with the five products
+  dtype and group alone (`backward_route`): bf16 at Dh 64, 80 and 128 with
+  G = H / KVH <= 8 runs one wgmma + TMA kernel with the five products
   (a cluster of the G query heads of a kv head sums dK and dV in shared
   memory; dQ is added across key tiles into a float32 accumulator, so it is
   not bit-reproducible), between a prologue (delta) and an epilogue (dQ in
@@ -193,11 +193,12 @@ _BWD_DROP_GROUP_RANK = -1
 
 
 def backward_route(dtype: torch.dtype, head_dim: int, group: int) -> str:
-    """Which K4b kernels a CUDA call runs: "wgmma_tma" for bf16 at head dim
-    64 and 128 with a group of at most BWD_MAX_GROUP query heads a kv head,
-    "mma_sync" for the other bf16 calls, "fma_f32" for float32."""
+    """Which K4b kernels a CUDA call runs: "wgmma_tma" for bf16 at every
+    built head dim (64, 80, 128) with a group of at most BWD_MAX_GROUP query
+    heads a kv head, "mma_sync" for the other bf16 calls, "fma_f32" for
+    float32."""
     if dtype == torch.bfloat16:
-        return "wgmma_tma" if head_dim % 64 == 0 and group <= BWD_MAX_GROUP else "mma_sync"
+        return "wgmma_tma" if head_dim in HEAD_DIMS and group <= BWD_MAX_GROUP else "mma_sync"
     return "fma_f32"
 
 

@@ -36,12 +36,18 @@ back.
 
 * `ssm_scan_bwd` (K6b) is the backward, written by hand
   (`csrc/ssm_scan_bwd.cu`).  The reference has no TPU kernel for it: its
-  gradient is autodiff through `ssm_scan_chunked`.  It recomputes the state
-  entering every 64-step chunk in a first pass, then walks the chunks in
-  reverse carrying the state's cotangent; dB, dC, dA and dD are summed from
-  per-block float32 partials by a second launch (bit-reproducible).
+  gradient is autodiff through `ssm_scan_chunked`.  The route depends on
+  dtype and (P, N) alone (`bwd_route`): bf16 at P = N = 64 runs the chunks
+  in parallel on tensor cores (four launches: each chunk's local state and
+  cotangent increments, a float32 pass over the chunks that combines them,
+  the chunk bodies with a group of heads a block, the sums over head groups
+  and chunks); float32 and P 128 / N 16 run the first design (two launches:
+  one float32 FMA block a (head, batch row) recomputing the chunk states
+  and walking the chunks in reverse, then the sums).  Every sum over heads,
+  rows and chunks is in a fixed order (bit-reproducible).
   `ssm_scan_bwd_plain` is its plain version, the same chunked formulas in
-  PyTorch (not autograd), at the plain forward's 128-step chunk.
+  PyTorch (not autograd), at the plain forward's 128-step chunk;
+  `ssm_scan_bwd_split_plain` models the tensor-core route's arithmetic.
 * `SSMScan` is the `torch.autograd.Function` of the two, which
   `kernels.ops.ssm_scan` takes when an input needs a gradient: K6 forward and
   K6b backward on the card, the plain versions of both on the CPU (in
@@ -66,7 +72,10 @@ _P = ctypes.c_void_p
 _i = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {"ssm_scan_fwd": [_P] * 9 + [_i] * 6 + [_L] * 13 + [_i, _P]}
-_BWD_ARGTYPES = {"ssm_scan_bwd": [_P] * 17 + [_i] * 6 + [_L] * 13 + [_i, _P]}
+_BWD_ARGTYPES = {"ssm_scan_bwd": [_P] * 17 + [_i] * 6 + [_L] * 13 + [_i, _P],
+                 "ssm_scan_bwd_tc": [_P] * 17 + [_i] * 4 + [_L] * 13 + [_i, _P]}
+BWD_MAX_GROUP = 16  # the tensor-core K6b's heads a body block, at most
+BWD_BLOCKS_A_WAVE = 2 * 132  # its body blocks resident at once on an H100 (two an SM)
 
 # Planted fault for chip_smoke.py's checks: the tensor-core route leaves out
 # the low bf16 parts of its split operands (False in every real run).
@@ -81,6 +90,28 @@ def scan_route(dtype: torch.dtype, P: int, N: int) -> str:
     chooses by the same rule): "tensor_core" for bf16 at (P, N) = (64, 64),
     "fma_f32" otherwise."""
     return "tensor_core" if dtype == torch.bfloat16 and (P, N) == TENSOR_CORE_SHAPE else "fma_f32"
+
+
+def bwd_route(dtype: torch.dtype, P: int, N: int) -> str:
+    """Which K6b kernels a CUDA call runs (`ssm_scan_bwd` chooses by the same
+    rule): K6's rule, "tensor_core" (chunks in parallel) for bf16 at (P, N) =
+    (64, 64), "fma_f32" (the first design) otherwise."""
+    return scan_route(dtype, P, N)
+
+
+def bwd_group(B: int, T: int, H: int) -> int:
+    """Heads a body block of the tensor-core K6b: the divisor g of H up to
+    BWD_MAX_GROUP that keeps the fewest head-chunks on the busiest SM, with
+    BWD_BLOCKS_A_WAVE blocks resident at once and a block's shared C B^T and
+    B, C staging costed as one head more; the largest g of the ties (fewer
+    partials).  Zamba2's training shape (2, 1024, 80): 10, 256 blocks in one
+    wave (8 would leave a second wave 56 blocks wide)."""
+    blocks = B * -(-T // K6_CHUNK) * H
+
+    def cost(g):
+        return -(-blocks // g // BWD_BLOCKS_A_WAVE) * (g + 1), -g
+
+    return min((g for g in range(1, min(H, BWD_MAX_GROUP) + 1) if H % g == 0), key=cost)
 
 
 def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, state0=None, *, acc_dtype=torch.float32):
@@ -334,12 +365,106 @@ def ssm_scan_bwd_plain(x, dt, A, B_mat, C_mat, D, state0, dy, dstate=None, *,
             dD.to(D.dtype), None if state0 is None else dh.to(state0.dtype))
 
 
+def ssm_scan_bwd_split_plain(x, dt, A, B_mat, C_mat, D, state0, dy, dstate=None, *,
+                             drop_low=False):
+    """The tensor-core K6b's arithmetic in plain PyTorch (float32): 64-step
+    chunks; each chunk's increments S_c = (ws o X)^T B and R_c = (exp(cum) o
+    dY)^T C formed alone, then combined over the chunks with the decays
+    exp(cum[-1]); every float32 operand of a product (ws o X, exp(cum) o dY,
+    G, F, E, h, dh) replaced by its bf16 high + low split (with
+    ``drop_low``, by the high part alone); E's rectangle as the column sums
+    over t >= j of RP = E U, U[s][j] = [s < j].  Returns what
+    `ssm_scan_bwd_plain` returns."""
+    Bb, T, H, P = x.shape
+    N = B_mat.shape[-1]
+    f = torch.float32
+    Q = K6_CHUNK
+    pad = (-T) % Q
+    xf, dtf, Bm, Cm, dyf = x.to(f), dt.to(f), B_mat.to(f), C_mat.to(f), dy.to(f)
+    if pad:
+        xf, dyf = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (xf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+    A_, D_ = A.to(f), D.to(f)
+    dev = x.device
+    nc = (T + pad) // Q
+
+    def sp(v):
+        return _split(v, drop_low)
+
+    def chunk(a, c):
+        return a[:, c * Q:(c + 1) * Q]
+
+    cums = [torch.cumsum(A_ * chunk(dtf, c), dim=1) for c in range(nc)]  # (B, Q, H)
+    lasts = [cum[:, -1] for cum in cums]  # (B, H)
+    wss = [torch.exp(last[:, None] - cum) * chunk(dtf, c)
+           for c, (cum, last) in enumerate(zip(cums, lasts))]
+    # each chunk's increments alone, then the combine over the chunks
+    inc_s = [torch.einsum("bshp,bsn->bhpn", sp(ws[..., None] * chunk(xf, c)), chunk(Bm, c))
+             for c, ws in enumerate(wss)]
+    inc_r = [torch.einsum("bthp,btn->bhpn", sp(torch.exp(cum)[..., None] * chunk(dyf, c)),
+                          chunk(Cm, c)) for c, cum in enumerate(cums)]
+    h = torch.zeros((Bb, H, P, N), dtype=f, device=dev) if state0 is None else state0.to(f)
+    states = []
+    for c in range(nc):
+        states.append(h)
+        h = torch.exp(lasts[c])[:, :, None, None] * h + inc_s[c]
+    dh0 = torch.zeros((Bb, H, P, N), dtype=f, device=dev) if dstate is None else dstate.to(f)
+    dhs = [None] * nc
+    for c in reversed(range(nc)):
+        dhs[c] = dh0
+        dh0 = torch.exp(lasts[c])[:, :, None, None] * dh0 + inc_r[c]
+
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()[None, :, :, None]
+    below = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril(-1)[None, :, :, None]
+    ustrict = torch.ones((Q, Q), dtype=f, device=dev).triu(1)  # U[s][j] = [s < j]
+    dxs, ddts, dBs, dCs = [], [], [], []
+    dA = torch.zeros((H,), dtype=f, device=dev)
+    dD = torch.zeros((H,), dtype=f, device=dev)
+    for c in range(nc):
+        xq, dyq, dtq, Bq, Cq = (chunk(a, c) for a in (xf, dyf, dtf, Bm, Cm))
+        cum, last, ws, h, dh = cums[c], lasts[c], wss[c], states[c], dhs[c]
+        hs, dhs_ = sp(h), sp(dh)
+        ec = torch.exp(cum)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, t, s, H)
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        CB = torch.einsum("btn,bsn->bts", Cq, Bq)[..., None]
+        M = torch.einsum("bthp,bshp->btsh", dyq, xq)
+        dts = dtq[:, None, :, :]
+        G, Fm, LCM = sp(L * CB * dts), sp(L * M * dts), L * CB * M
+        E = sp(torch.where(below, LCM * dts, 0.0))
+        RP = torch.einsum("btsh,sj->btjh", E, ustrict)
+        rect = torch.where(tri, RP, 0.0).sum(1)  # (B, j, H): over t >= j
+        dxs.append(torch.einsum("btsh,bthp->bshp", G, dyq) + D_[:, None] * dyq
+                   + ws[..., None] * torch.einsum("bsn,bhpn->bshp", Bq, dhs_))
+        dyh = torch.einsum("bthp,bhpn->bthn", dyq, hs)
+        dCs.append(torch.einsum("btsh,bsn->btn", Fm, Bq) + torch.einsum("bth,bthn->btn", ec, dyh))
+        xdh = torch.einsum("bshp,bhpn->bshn", xq, dhs_)
+        dBs.append(torch.einsum("btsh,btn->bsn", Fm, Cq) + torch.einsum("bsh,bshn->bsn", ws, xdh))
+        dws = torch.einsum("bsn,bshn->bsh", Bq, xdh)
+        direct = LCM.sum(1)
+        qv = dws * ws
+        dcum = ec * torch.einsum("btn,bthn->bth", Cq, dyh)
+        dcum[:, -1] += torch.exp(last) * (dh * h).sum((-2, -1))
+        da = (torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,)) + rect
+              + torch.cumsum(qv, 1) - qv)
+        ddts.append(direct + dws * torch.exp(last[:, None] - cum) + A_ * da)
+        dA += (da * dtq).sum((0, 1))
+        dD += (dyq * xq).sum((0, 1, 3))
+
+    def cat(parts, like):
+        return torch.cat(parts, dim=1)[:, :T].to(like.dtype)
+
+    return (cat(dxs, x), cat(ddts, dt), dA.to(A.dtype), cat(dBs, B_mat), cat(dCs, C_mat),
+            dD.to(D.dtype), None if state0 is None else dh0.to(state0.dtype))
+
+
 def ssm_scan_bwd(x, dt, A, B_mat, C_mat, D, state0, dy, dstate=None):
     """The gradients of `ssm_scan` at its inputs for the cotangents ``dy``
     (B, T, H, P) of y and ``dstate`` (B, H, P, N, or None: zero) of the final
     state: ``(dx, ddt, dA, dB_mat, dC_mat, dD, dstate0)`` (see
-    `ssm_scan_bwd_plain`), one call of K6b (two launches: the scan, then the
-    sums over heads and batch rows)."""
+    `ssm_scan_bwd_plain`), one call of K6b (`bwd_route`: four CUDA launches
+    on the tensor-core route, two on the first design's)."""
     if x.device.type == "cpu":
         return ssm_scan_bwd_plain(x, dt, A, B_mat, C_mat, D, state0, dy, dstate)
     name = "ssm_scan_bwd"
@@ -362,14 +487,22 @@ def ssm_scan_bwd(x, dt, A, B_mat, C_mat, D, state0, dy, dstate=None):
     dAD = torch.empty((2, H), **f32)
     dh0 = None if state0 is None else torch.empty((Bb, H, P, N), **f32)
     nc = -(-T // K6_CHUNK)
-    scratch = torch.empty(Bb * H * (nc * P * N + 2 * T * N + 2), **f32)
-    fn = _build.load("ssm_scan_bwd", _BWD_ARGTYPES).ssm_scan_bwd
+    fns = _build.load("ssm_scan_bwd", _BWD_ARGTYPES)
+    if bwd_route(x.dtype, P, N) == "tensor_core":
+        group = bwd_group(Bb, T, H)
+        # chunk increments then states and cotangents (2 B H nc P N), decays
+        # (B H nc), dB / dC partials (2 B H/group T N), dA / dD partials (2 B nc H)
+        scratch = torch.empty(2 * Bb * H * nc * P * N + Bb * H * nc
+                              + 2 * Bb * (H // group) * T * N + 2 * Bb * nc * H, **f32)
+        fn, extra = fns.ssm_scan_bwd_tc, (Bb, T, H, group)
+    else:
+        scratch = torch.empty(Bb * H * (nc * P * N + 2 * T * N + 2), **f32)
+        fn, extra = fns.ssm_scan_bwd, (int(x.dtype == torch.bfloat16), Bb, T, H, P, N)
     status = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
                 D.data_ptr(), None if state0 is None else state0.data_ptr(), dy.data_ptr(),
                 None if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                 dBC[0].data_ptr(), dBC[1].data_ptr(), dAD[0].data_ptr(), dAD[1].data_ptr(),
-                None if dh0 is None else dh0.data_ptr(), scratch.data_ptr(),
-                int(x.dtype == torch.bfloat16), Bb, T, H, P, N,
+                None if dh0 is None else dh0.data_ptr(), scratch.data_ptr(), *extra,
                 *x.stride(), *dt.stride(), *B_mat.stride(), *C_mat.stride(),
                 int(_BWD_DROP_CARRY), _build.stream_of(x))
     _build.check_status(name, status)

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    backward_route,
     flash_attention,
     flash_attention_bwd,
     flash_attention_plain,
@@ -80,3 +81,14 @@ def test_plain_lse_matches_reference(name):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse).reshape(B, H, Sq),
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=1e-5, atol=1e-5)
+
+
+def test_backward_routes():
+    """K4b's route: bf16 with a group of at most 8 query heads a kv head
+    takes the wgmma + TMA kernel at every built head dim (Zamba2's 80 too),
+    a larger group the mma.sync kernels, float32 the FMA kernels."""
+    bf16 = torch.bfloat16
+    for dh in (64, 80, 128):
+        assert backward_route(bf16, dh, 1) == backward_route(bf16, dh, 8) == "wgmma_tma"
+        assert backward_route(bf16, dh, 16) == "mma_sync"
+        assert backward_route(torch.float32, dh, 1) == "fma_f32"

@@ -594,12 +594,15 @@ def test_prox_update_tree_refuses_what_it_does_not_take(cuda):
 # --------------------------------------------- K4's log-sum-exp and K4b
 BWD_CASES = FLASH_CASES + [
     (2, 256, 256, 12, 2, 128, True, None, 0),  # qwen2's group of 6
-    (1, 130, 130, 6, 1, 80, True, 50, 0),  # Dh 80, window, group 6
-    # bf16 takes the wgmma + TMA route at Dh 64 and 128 and G <= 8 (a cluster of G blocks):
+    # bf16 takes the wgmma + TMA route at G <= 8 (a cluster of G blocks):
+    (1, 130, 130, 6, 1, 80, True, 50, 0),  # Dh 80 (16-column boxes), window, group 6
+    (2, 256, 256, 4, 4, 80, True, None, 0),  # Dh 80, group 1 (Zamba2's 32/32)
+    (1, 100, 356, 4, 2, 80, True, None, 256),  # Dh 80, q_offset, Sq != Skv
     (2, 300, 300, 12, 2, 64, True, 64, 0),  # group 6, Dh 64, window, ragged
     (1, 100, 356, 12, 2, 128, True, None, 256),  # group 6, q_offset, Sq != Skv
     (1, 40, 40, 6, 1, 128, True, 8, 100),  # group 6, rows with no key (dq exactly 0)
     (1, 130, 130, 12, 1, 64, True, None, 0),  # group 12 > 8: the mma.sync route
+    (1, 130, 130, 12, 1, 80, True, 50, 0),  # group 12 > 8 at Dh 80: the mma.sync route
 ]
 
 
@@ -693,7 +696,8 @@ def test_flash_attention_rejects_a_skipped_last_tile(cuda, monkeypatch, dh):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [(2, 256, 256, 12, 2, 128, True, None, 0),
-                                  (2, 300, 300, 12, 2, 64, True, 64, 0)],
+                                  (2, 300, 300, 12, 2, 64, True, 64, 0),
+                                  (2, 300, 300, 12, 2, 80, True, 64, 0)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_flash_attention_bwd_rejects_a_dropped_group_rank(cuda, monkeypatch, case):
     """The wgmma route's planted fault: one query head of each group of 6
@@ -710,11 +714,12 @@ def test_flash_attention_bwd_rejects_a_dropped_group_rank(cuda, monkeypatch, cas
 
 
 @pytest.mark.gpu
-def test_flash_attention_bwd_wgmma_launches_agree(cuda):
+@pytest.mark.parametrize("dh", [80, 128])
+def test_flash_attention_bwd_wgmma_launches_agree(cuda, dh):
     """Two launches of the wgmma route: dK and dV (summed over the group in
     rank order) bit for bit; dQ (bulk reduce-adds across key tiles, in no
     fixed order) within K4B_BF16_REL of each other in relative L2."""
-    case = (2, 512, 512, 12, 2, 128, True, None, 0)
+    case = (2, 512, 512, 12, 2, dh, True, None, 0)
     q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
     a = flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -748,10 +753,11 @@ def test_flash_attention_bwd_without_queries(cuda, dtype, dh):
 
 
 @pytest.mark.gpu
-def test_flash_attention_bwd_rejects_a_skipped_tile(cuda, monkeypatch):
+@pytest.mark.parametrize("dh", [80, 128])
+def test_flash_attention_bwd_rejects_a_skipped_tile(cuda, monkeypatch, dh):
     """The planted fault chip_smoke.py uses: K4b treating the first 64-key
     tile as masked fails the bf16 check."""
-    case = (2, 256, 256, 12, 2, 128, True, None, 0)
+    case = (2, 256, 256, 12, 2, dh, True, None, 0)
     q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda)
     out, lse = flash_attention(q, k, v, with_lse=True, **kw)
     want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
@@ -791,14 +797,15 @@ def test_attention_bwd_refuses_what_it_does_not_take(cuda):
 
 
 # ------------------------------------------------------------- K6 ssm_scan
-def _ssm_inputs(shape, dtype, device, *, strong=False, with_state=False, seed=0):
+def _ssm_inputs(shape, dtype, device, *, strong=False, with_state=False, seed=0, stride=1):
     """x, B and C as column slices of one (B, T, C) tensor, as the model hands
-    them; dt after softplus; A negative (A = -16 and dt in [0.5, 4] with
+    them (with ``stride`` 2, of every other column of one twice as wide);
+    dt after softplus; A negative (A = -16 and dt in [0.5, 4] with
     ``strong``, as tests/test_torch_ssm_scan.py)."""
     gen = torch.Generator().manual_seed(seed)
     Bb, T, H, P, N = shape
-    xbc = _randn(gen, (Bb, T, H * P + 2 * N), dtype, device)
-    x = xbc[..., :H * P].view(Bb, T, H, P)
+    xbc = _randn(gen, (Bb, T, stride * (H * P + 2 * N)), dtype, device)[..., ::stride]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
     Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
     if strong:
         dt = torch.rand((Bb, T, H), generator=gen).mul(3.5).add(0.5).to(device)
@@ -1330,26 +1337,29 @@ def _assert_grads_close(got, want, tol, names):
 
 
 SSM_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dstate0")
-SSM_BWD_CASES = [  # (B, T, H, P, N), strong decay, state0 (and a final-state cotangent)
-    ((2, 300, 4, 64, 64), False, True),
-    ((1, 65, 3, 64, 64), True, False),
-    ((1, 129, 3, 128, 16), False, True),
-    ((2, 1, 2, 128, 16), False, True),
-    ((2, 1024, 80, 64, 64), False, False),  # Zamba2's training shape
+SSM_BWD_CASES = [  # (B, T, H, P, N), strong decay, state0 (and a final-state cotangent), stride
+    ((2, 300, 4, 64, 64), False, True, 1),
+    ((1, 65, 3, 64, 64), True, False, 1),
+    ((2, 300, 6, 64, 64), True, True, 2),  # x, B, C not 16-byte runs (plain loads)
+    ((1, 129, 3, 128, 16), False, True, 1),
+    ((2, 1, 2, 128, 16), False, True, 1),
+    ((2, 1024, 80, 64, 64), False, False, 1),  # Zamba2's training shape
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", SSM_BWD_CASES, ids=lambda c: "x".join(map(str, c[0])) +
-                         ("_strong" if c[1] else "") + ("_state0" if c[2] else ""))
+                         ("_strong" if c[1] else "") + ("_state0" if c[2] else "") +
+                         ("_stride2" if c[3] > 1 else ""))
 def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype):
-    """K6b against the plain backward: T off the 64-step chunk, strong decay
-    (no NaN), state0 with a cotangent on the final state, x, B and C read
-    through their strides; two launches give the same bits."""
-    shape, strong, with_state = case
+    """K6b against the plain backward on either route (bf16 at P = N = 64
+    the tensor cores): T off the 64-step chunk, strong decay (no NaN),
+    state0 with a cotangent on the final state, x, B and C read through
+    their strides; two launches give the same bits."""
+    shape, strong, with_state, stride = case
     x, dt, A, Bm, Cm, D, s0 = _ssm_inputs(shape, dtype, cuda, strong=strong,
-                                          with_state=with_state, seed=3)
+                                          with_state=with_state, seed=3, stride=stride)
     gen = torch.Generator().manual_seed(5)
     dy = _randn(gen, x.shape, dtype, cuda)
     dh = _randn(gen, (shape[0], shape[2], shape[3], shape[4]), torch.float32, cuda) \
@@ -1365,16 +1375,17 @@ def test_ssm_scan_bwd_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-def test_ssm_scan_bwd_rejects_a_dropped_carry(cuda, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_bwd_rejects_a_dropped_carry(cuda, monkeypatch, dtype):
     """The planted fault (the state's cotangent not carried from a chunk to
-    the one before) leaves the tolerance."""
-    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs((1, 300, 4, 64, 64), torch.float32, cuda,
+    the one before) leaves the tolerance on either route."""
+    x, dt, A, Bm, Cm, D, s0 = _ssm_inputs((1, 300, 4, 64, 64), dtype, cuda,
                                           with_state=True, seed=3)
-    dy = torch.randn(x.shape, device=cuda)
+    dy = torch.randn(x.shape, device=cuda).to(dtype)
     want = ssm_scan_bwd_plain(x, dt, A, Bm, Cm, D, s0, dy)
     monkeypatch.setattr(ssm_module, "_BWD_DROP_CARRY", True)
     got = ssm_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy)
-    assert _rel_l2(got[0], want[0]) > K6B_REL[torch.float32]
+    assert _rel_l2(got[0], want[0]) > K6B_REL[dtype]
 
 
 @pytest.mark.gpu

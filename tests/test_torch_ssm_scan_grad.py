@@ -27,6 +27,14 @@ backward at K6b's 64-step chunk equals it at the reference's 128 (rtol
 state carried equals the gradient through the whole.  `gradcheck` holds
 `SSMScan` against finite differences.  K6b itself is held against the plain
 backward on the card (tests/test_torch_gpu.py, chip_smoke.py).
+
+`ssm_scan_bwd_split_plain` models the arithmetic of K6b's bf16 tensor-core
+route (64-step chunks whose increments are combined over the chunks, every
+float32 operand of a product split into bf16 high and low parts): each of
+its gradients lies within SPLIT_REL_L2 in relative L2 of the float64
+reference's at the reference's chunk of 64 steps (the split leaves ~3e-6,
+2.5e-5 on dA under strong decay); without the low parts (~1e-3) it does not.
+`bwd_route` and `bwd_group` are held to the rules the C entry points take.
 """
 import numpy as np
 import pytest
@@ -43,12 +51,17 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
     K6_CHUNK,
     SSMScan,
     ssm_scan,
+    bwd_group,
+    bwd_route,
+    scan_route,
     ssm_scan_bwd,
     ssm_scan_bwd_plain,
+    ssm_scan_bwd_split_plain,
 )
 
 F64_RTOL = 1e-9  # atol: F64_RTOL of the gradient's largest magnitude
 F32_TOL = dict(rtol=1e-3, atol=1e-3)
+SPLIT_REL_L2 = 1e-4
 NAMES = ("x", "dt", "A", "B", "C", "D", "state0")
 SHAPES = [(1, 50, 2, 8, 16), (2, 97, 3, 8, 16), (1, 128, 4, 16, 8)]  # (B, T, H, P, N)
 
@@ -165,3 +178,40 @@ def test_gradcheck_and_the_cpu_path():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     y, _ = ssm_scan(*leaves)
     assert y.requires_grad
+
+
+@pytest.mark.parametrize("drop_low", [False, True], ids=["split", "drop_low"])
+@pytest.mark.parametrize("decay", ["strong", "normal"])
+def test_split_model_matches_reference(decay, drop_low):
+    """The tensor-core route's arithmetic against ``jax.vjp`` of the
+    reference's chunked scan at 64 steps a chunk, in float64, on every
+    gradient: T off the chunk, state0 and a final-state cotangent; dropping
+    the low parts (the split's fault) fails the same check."""
+    arrays = _inputs((2, 150, 3, 8, 16), decay, seed=5)
+    *ins, dy, dh = (jnp.asarray(a, jnp.float64) for a in arrays)
+    with reference_in_float64(_ssm_chunked):
+        _, vjp = jax.vjp(lambda *a: _ssm_chunked.ssm_scan_chunked(*a, chunk=K6_CHUNK), *ins)
+        want = vjp((dy, dh))
+    got = ssm_scan_bwd_split_plain(*(torch.tensor(a, dtype=torch.float32) for a in arrays),
+                                   drop_low=drop_low)
+    errs = {}
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()), name
+        w = np.asarray(w)
+        errs[name] = np.linalg.norm(g.double().numpy() - w) / np.linalg.norm(w)
+    assert all(e <= SPLIT_REL_L2 for e in errs.values()) != drop_low, errs
+
+
+def test_routes():
+    """K6b's route and head group: bf16 at P = N = 64 takes the tensor cores
+    (as K6 does), everything else the first design; a body block takes a
+    divisor of H up to 16 heads, 10 at Zamba2's training shape (256 blocks:
+    one wave of 264)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert bwd_route(bf16, 64, 64) == scan_route(bf16, 64, 64) == "tensor_core"
+    for dtype, P, N in ((f32, 64, 64), (bf16, 128, 16), (f32, 128, 16)):
+        assert bwd_route(dtype, P, N) == "fma_f32"
+    assert bwd_group(2, 1024, 80) == 10
+    for B, T, H in ((2, 300, 4), (1, 65, 3), (2, 4096, 80), (1, 64, 7), (8, 2048, 12)):
+        g = bwd_group(B, T, H)
+        assert 1 <= g <= 16 and H % g == 0, (B, T, H, g)
