@@ -262,11 +262,14 @@ Phases, each printed as one JSON line:
    K4b at Zamba2's attention shape (2 x 1024, 32/32 heads, Dh 80, bf16; the
    wgmma route) timed beside SDPA's forward + backward and its backward
    alone, and at Dh 80 with a sliding window and with a query offset; K4
-   at Dh 80 (its mma.sync route) timed beside SDPA's forward at Zamba2's
-   prefill (4 x 2048) and training (2 x 1024) shapes; planted faults that
-   must fail: K6b without the carry between chunks (on either route), K4b
-   skipping a key tile and leaving a group rank out, K7b's dw from S_t,
-   K7b skipping one tile's recompute;
+   at Dh 80 (its wgmma route) timed by events, queued and device time
+   beside SDPA's forward queued at Zamba2's prefill (4 x 2048) and
+   training (2 x 1024) shapes; K7b (chunks in parallel) also at T not a
+   multiple of its chunk, shorter than one chunk, T = 1 and K 16, with its
+   scratch bytes; planted faults that must fail: K6b without the carry
+   between chunks (on either route), K4b skipping a key tile and leaving a
+   group rank out, K4 at Dh 80 skipping the last key tile, K7b's dw from
+   S_t, K7b's combine dropping what enters each chunk;
 28. hybrid / rwkv train — `make_svrp_train_step` on Zamba2-2.7B and
    rwkv6-1.6b at full width and depth in bf16 (seed-0 weights), TRAIN's
    settings for 2 rounds (C 2 cohorts of 2 x 1024, K 4, coins [1, 0]; 1 x
@@ -500,10 +503,13 @@ QUANT_SHORT = dict(prompts=2, prompt_len=64, new_tokens=16)  # the recurrent fam
 # card: the relative L2 of every gradient.  Read on an H100 80GB HBM3 at
 # 700 W: K6b at most 1.1e-5 (f32) and 5.9e-5 (bf16: dx, dB and dC rounded
 # to bf16 in both), its planted fault (no carry) 0.04-0.14 on dx, ddt, dA
-# and dB; K7b at most 8.5e-7 (f32) and 3.3e-5 (bf16), its planted faults
-# 1.0 (dw from S_t) and 0.25 (a tile not recomputed) on dw.
+# and dB; K7b (chunks in parallel) at most 1.1e-7 (f32) and 2.5e-5 (bf16)
+# at rwkv6's training shape, 4.5e-7 and 2.9e-5 on the small cases, its
+# planted faults 1.0 (dw from S_t) on dw and 0.16 on dr, dk, dv, 0.30 on
+# dw (no carry).
 K6B_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 K7B_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+K7B_ROUTE = "chunks_in_parallel"  # K7b's one design (csrc/rwkv6_scan_bwd.cu), every dtype and K
 RTRAIN_SSM_SHAPE = (2, 1024, 80, 64, 64)  # Zamba2's training shape (B, T, H, P, N)
 RTRAIN_RWKV_SHAPE = (2, 1024, 32, 64)  # rwkv6-1.6b's (B, T, H, K)
 RTRAIN_ATTN_SHAPE = (2, 1024, 1024, 32, 32, 80)  # Zamba2's attention (B, Sq, Skv, H, KVH, Dh)
@@ -513,7 +519,7 @@ RTRAIN = {**{k: v for k, v in TRAIN.items() if k != "arch"}, "coins": (True, Fal
 # Round 1 replayed with the plain versions on the card, at the training
 # replay's limits (TRAIN_*_REL_TOL), on the first RTRAIN_REPLAY_SEQ tokens
 # of every row: four of K6b's 64-step chunks (Zamba2) and two of K7b's
-# 32-step tiles (rwkv6), so both backwards carry their state across a chunk
+# 32-step chunks (rwkv6), so both backwards carry their state across a chunk
 # or a checkpoint.  The plain WKV scan steps one token at a time from the
 # host (~100 launches a step and layer, forward and backward), the plain
 # attention backward forms whole score matrices.  Read on an H100 80GB
@@ -2082,11 +2088,12 @@ def _err(out, ref) -> float:
 
 
 def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None,
-            plant_fault=False):
+            plant_fault=False, queued=False):
     """K4 against its plain version on one input, timed beside the bound and
-    SDPA.  With ``plant_fault`` (bf16 at Dh 64 / 128, the wgmma route), K4
-    also runs dropping the last key tile of every row block, which the check
-    must reject."""
+    SDPA.  With ``plant_fault`` (bf16, the wgmma route), K4 also runs
+    dropping the last key tile of every row block, which the check must
+    reject.  With ``queued``, K4 and SDPA also timed queued behind a spin
+    kernel (`queued_ms`: the host's pace taken out)."""
     import torch
     import torch.nn.functional as F
 
@@ -2134,14 +2141,18 @@ def k4_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None,
         return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
 
     big = B * Sq * H > 100_000
-    return dict(shape=[B, Sq, Skv, H, KVH, Dh], dtype=dname, causal=causal, window=window,
-                route=route, max_abs_err=_err(out, ref), tol=K4_TOL[dname],
-                planted_fault_last_tile_skipped_max_abs_err=planted,
-                ms=time_ms(lambda: flash_attention(q, k, v, **kw), 10 if big else 50),
-                plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3 if big else 20, 1),
-                library_ms=time_ms(sdpa, 10 if big else 50),
-                device_ms=device_ms(lambda: flash_attention(q, k, v, **kw), 10),
-                bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    res = dict(shape=[B, Sq, Skv, H, KVH, Dh], dtype=dname, causal=causal, window=window,
+               route=route, max_abs_err=_err(out, ref), tol=K4_TOL[dname],
+               planted_fault_last_tile_skipped_max_abs_err=planted,
+               ms=time_ms(lambda: flash_attention(q, k, v, **kw), 10 if big else 50),
+               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3 if big else 20, 1),
+               library_ms=time_ms(sdpa, 10 if big else 50),
+               device_ms=device_ms(lambda: flash_attention(q, k, v, **kw), 10),
+               bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    if queued:
+        res.update(queued_ms=queued_ms(lambda: flash_attention(q, k, v, **kw), 20),
+                   library_queued_ms=queued_ms(sdpa, 20))
+    return res
 
 
 def k5_verdict(out, ref, low: str) -> dict:
@@ -2227,7 +2238,8 @@ def phase_attention_parity() -> dict:
           for dname, dt in (("bfloat16", bf16), ("float32", f32))}
     small = [k4_case(gen, 2, 1000, 1000, 8, 2, 128, dt, window=256) for dt in (bf16, f32)]
     small += [k4_case(gen, 2, 300, 700, 8, 4, 64, dt, causal=False) for dt in (bf16, f32)]
-    small += [k4_case(gen, 2, 513, 513, 32, 8, 80, dt) for dt in (bf16, f32)]
+    small += [k4_case(gen, 2, 513, 513, 32, 8, 80, dt, plant_fault=dt == bf16)
+              for dt in (bf16, f32)]
     small += [k4_case(gen, 1, 257, 257, 32, 8, 64, dt, window=64, plant_fault=dt == bf16)
               for dt in (bf16, f32)]
     k5 = {(str(c).split(".")[-1], m): k5_case(gen, 8, 4096, 24, 8, 128, bf16, c, m)
@@ -3550,7 +3562,8 @@ PROFILE_GROUPS = {
                "K4b": ("bwd_wgmma", "bwd_prep", "bwd_dq_convert", "bwd_delta", "bwd_dkdv",
                        "bwd_dq_bf16", "bwd_dq_f32", "bwd_group_sum"),
                "K4": ("flash_fwd",)},
-    "rwkv": {"K7b": ("rwkv6_scan_bwd_kernel", "du_reduce")},
+    "rwkv": {"K7b": ("(anonymous namespace)::chunk_increments<", "(anonymous namespace)::combine<",
+                     "(anonymous namespace)::body<", "(anonymous namespace)::du_reduce(")},
 }
 
 
@@ -4299,8 +4312,8 @@ def k6b_case(gen, shape, dtype, *, with_state=False, strong=False, stride=1,
 def k7b_case(gen, shape, dtype, *, decay="sigmoid", with_state=False, timed=False) -> dict:
     """K7b against the plain backward on one input; with ``timed``, K7b timed
     beside its bound and the plain backward, two launches compared bit for
-    bit, and the planted faults (dw reading S_t for S_{t-1}; one tile's
-    states not recomputed)."""
+    bit, its scratch, and the planted faults (dw reading S_t for S_{t-1};
+    the combine dropping what enters each chunk)."""
     import torch
 
     from repro_torch.kernels import rwkv6_scan as rw
@@ -4317,21 +4330,21 @@ def k7b_case(gen, shape, dtype, *, decay="sigmoid", with_state=False, timed=Fals
     tol = K7B_REL_TOL[dname]
     check(_grads_ok(errs, tol), f"rwkv6_scan_bwd {dname} {list(shape)} {decay}: {errs} "
                                 f"(tol {tol})")
-    res = dict(shape=list(shape), dtype=dname, decay=decay, state0=with_state, rel_tol=tol,
-               errors=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()))
+    res = dict(shape=list(shape), dtype=dname, decay=decay, state0=with_state, route=K7B_ROUTE,
+               rel_tol=tol, errors=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()))
     if not timed:
         return res
     again = rw.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
     res["bit_identical_launches"] = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
     check(res["bit_identical_launches"], "rwkv6_scan_bwd: two launches differ")
-    for fault, attr, value in (("dw_from_next_state", "_BWD_DW_FROM_NEXT_STATE", True),
-                               ("skip_recompute_tile", "_BWD_SKIP_RECOMPUTE_TILE",
-                                (T // K7_TILE) // 2)):
-        setattr(rw, attr, value)
+    res["scratch_bytes"] = 4 * rw.bwd_scratch_elements(Bb, T, H, K)
+    for fault, attr in (("dw_from_next_state", "_BWD_DW_FROM_NEXT_STATE"),
+                        ("no_carry", "_BWD_DROP_CARRY")):
+        setattr(rw, attr, True)
         try:
             planted = _grad_errors(rw.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS), want, names)
         finally:
-            rw._BWD_DW_FROM_NEXT_STATE, rw._BWD_SKIP_RECOMPUTE_TILE = False, -1
+            setattr(rw, attr, False)
         res[f"planted_fault_{fault}"] = planted
         check(not _grads_ok(planted, tol), f"rwkv6_scan_bwd: the {fault} fault passed: {planted}")
     del got, want, again
@@ -4372,20 +4385,35 @@ def phase_recurrent_bwd_parity() -> dict:
                            stride=2),
                   k6b_case(gen, (2, 200, 80, 64, 64), bf16, with_state=True)]
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     k7b = {str(dt).split(".")[-1]: k7b_case(gen, RTRAIN_RWKV_SHAPE, dt, timed=True)
            for dt in (bf16, f32)}
+    seconds = {"k7b_timed": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     k7b_cases = [k7b_case(gen, (2, 300, 4, 64), dt, decay=decay, with_state=True)
                  for dt in (bf16, f32) for decay in ("strong", "weak")]
+    # T shorter than one 32-step chunk, T = 1, K 16 ragged (state0 and a
+    # final-state cotangent throughout)
+    k7b_cases += [k7b_case(gen, shape, dt, decay=decay, with_state=True)
+                  for dt in (bf16, f32)
+                  for shape, decay in (((2, 20, 4, 64), "weak"), ((3, 1, 4, 64), "sigmoid"),
+                                       ((2, 77, 8, 16), "strong"))]
+    seconds["k7b_cases"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     k4b = k4b_case(gen, *RTRAIN_ATTN_SHAPE, bf16, timed=True)
     # K4b at Dh 80 (the wgmma route's 16-column boxes): a sliding window, a
-    # query offset with Sq != Skv; K4 at Dh 80 (its mma.sync route) timed
-    # beside SDPA's forward at Zamba2's prefill and training shapes
+    # query offset with Sq != Skv; K4 at Dh 80 (the wgmma route too) timed
+    # beside SDPA's forward at Zamba2's prefill and training shapes, with
+    # its planted last-tile fault
     k4b_cases = [k4b_case(gen, 1, 300, 300, 32, 32, 80, bf16, window=64),
                  k4b_case(gen, 1, 100, 356, 8, 4, 80, bf16, q_offset=256)]
     torch.cuda.empty_cache()
     B, S = HYBRID["prefill"]
-    k4 = [k4_case(gen, B, S, S, *RTRAIN_ATTN_SHAPE[3:], bf16), k4_case(gen, *RTRAIN_ATTN_SHAPE, bf16)]
+    t0 = time.perf_counter()
+    k4 = [k4_case(gen, B, S, S, *RTRAIN_ATTN_SHAPE[3:], bf16, plant_fault=True, queued=True),
+          k4_case(gen, *RTRAIN_ATTN_SHAPE, bf16, plant_fault=True, queued=True)]
+    seconds["k4_zamba2"] = time.perf_counter() - t0
+    emit({"phase": "recurrent_bwd_parity_seconds", **seconds})
     torch.cuda.empty_cache()
     emit({"phase": "recurrent_bwd_parity", "ssm_scan_bwd": list(k6b.values()),
           "ssm_scan_bwd_cases": k6b_cases, "rwkv6_scan_bwd": list(k7b.values()),
@@ -4839,7 +4867,7 @@ KERNEL_ROUTES = {
     "prox_update_batched": "elementwise", "quadratic_prox_gd_batched": "loop",
     "logistic_prox_gd_batched": "cluster", "prox_update": "tree",
     "decode_attention": "half_warp_streams", "rwkv6_scan": "tma",
-    "rwkv6_scan_bwd": "fma_f32",
+    "rwkv6_scan_bwd": K7B_ROUTE,
 }
 
 

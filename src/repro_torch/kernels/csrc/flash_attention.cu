@@ -23,14 +23,17 @@
 // 4 B H S^2 Dh / 2 = 1.03e11 operations, 0.10 ms at the 989 TFLOP/s bf16
 // tensor-core peak, against 50 MB of q, k, v and out (15 us at 3.35 TB/s).
 //
+// At Zamba2's prefill (bf16, B 4, S 2048, 32/32 heads, Dh 80, causal) the
+// products are 8.6e10 operations, 0.087 ms at the bf16 peak.
+//
 // Design.  The TPU's sequential kv grid axis becomes a loop inside one block;
 // blocks run in parallel and nothing carries between them.  GQA reads K/V of
 // head h / G in place: nothing is replicated.  Key tiles wholly above the
 // causal diagonal or wholly outside the window are never loaded; only tiles
-// that cross an edge are masked.  Three routes, chosen by dtype and Dh alone
+// that cross an edge are masked.  Two routes, chosen by dtype alone
 // (launch_dh):
 //
-//  * bf16 at Dh 64 and 128 (flash_fwd_wgmma, namespace wg): a persistent
+//  * bf16 at Dh 64, 80 and 128 (flash_fwd_wgmma, namespace wg): a persistent
 //    grid, one CTA of three warpgroups per SM, walks 128-row q tiles of
 //    every (b, h), longest first, dealt to the CTAs in a snake so each
 //    gets about the mean number of key tiles.  Warpgroup 2 is the producer:
@@ -44,17 +47,20 @@
 //    memory, K-major; the online softmax runs on the float32 accumulators
 //    in registers (masked scores are -inf, exponentials by the SFU's ex2);
 //    P is rounded to bf16 in registers, where the accumulator layout
-//    already is the A-operand layout, and O += P V is wgmma with A from
-//    registers and V as an MN-major (transposed) B operand.  A consumer
-//    takes one key tile at a time; the two consumers are not synchronised
-//    with each other, so one's products run while the other computes its
-//    softmax.  Tensor maps are 4-D over (Dh, heads, S, B) with 128-byte
-//    swizzle, boxes of (64, 1, rows, 1), so a Dh-128 row is two boxes and a
-//    ragged Sq or Skv tail is filled with zeros instead of read from the
-//    next sequence.  The maps are encoded on the host for every call (a
-//    few microseconds; the tensors' addresses change from call to call, so
-//    a cache would not hit), with cuTensorMapEncodeTiled looked up through
-//    the CUDA runtime.
+//    already is the A-operand layout, and O += P V is wgmma m64n{Dh}k16
+//    with A from registers and V as an MN-major (transposed) B operand.  A
+//    consumer takes one key tile at a time; the two consumers are not
+//    synchronised with each other, so one's products run while the other
+//    computes its softmax.  Tensor maps are 4-D over (Dh, heads, S, B),
+//    boxes of (BW, 1, rows, 1): 64 columns with the 128-byte swizzle at Dh
+//    64 and 128 (a Dh-128 row is two boxes), 16 columns with the 32-byte
+//    swizzle at Dh 80 (a 160-byte row is not whole 128-byte boxes, so it is
+//    five 32-byte ones, and each k16 step of S is one box), as K4b tiles
+//    them (Boxes in wgmma_tma.cuh, shared by both); a ragged Sq or Skv tail
+//    is filled with zeros instead of read from the next sequence.  The maps
+//    are encoded on the host for every call (a few microseconds; the
+//    tensors' addresses change from call to call, so a cache would not
+//    hit), with cuTensorMapEncodeTiled looked up through the CUDA runtime.
 //    The softmax is not overlapped with the products inside a consumer.
 //    Issuing S of tile i with P V of tile i-1 (FA3's schedule) measured no
 //    faster in any form tried: with P in registers, ptxas allocates a
@@ -63,21 +69,13 @@
 //    (it spills and serialises the products), and at 64-key tiles it moves
 //    the P V wait above the softmax to reuse P's registers; with P staged
 //    through shared memory it ran no faster either.  A ping-pong between
-//    the two consumers and 3 or 4 stages changed little.
-//  * bf16 at Dh 80 (flash_fwd_bf16, Zamba2's shared block): a Dh-80 row is
-//    not a whole number of 128-byte boxes, so it keeps the first design.  4
-//    warps own a 64-row Q tile, 16 rows each.  K/V tiles of 64 keys are
-//    staged in shared memory by cp.async, two stages deep, in rows padded by
-//    16 bytes so ldmatrix reads them without bank conflicts.  S = Q K^T and
-//    O += P V run on the tensor cores as mma.sync m16n8k16 (bf16 in, float32
-//    accumulate).
+//    the two consumers and 3 or 4 stages changed little.  P is rounded to
+//    bf16 for the second product, as flash attention does, while the row
+//    sums l stay in float32.
 //  * float32: the reference's tolerance (2e-5) rules out TF32, so this path
 //    stays on the CUDA cores: 128 threads own a 32-row Q tile (4 threads a
 //    row), with Q, K, V and P in shared memory (rows padded against bank
 //    conflicts) and every product an FMA in float32.
-//
-// On both bf16 routes P is rounded to bf16 for the second product, as flash
-// attention does, while the row sums l stay in float32.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,227 +125,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// 16-byte global -> shared copy; zero-fills the destination when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-
-// c += a b for one m16n8k16 tile: bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ------------------------------------------------------ bf16: tensor cores
-template <int DH>
-struct Bf16Tile {
-  static constexpr int BQ = 64, BK = 64, THREADS = 128;
-  static constexpr int LD = DH + 8;  // padded row, in bf16 elements
-  static constexpr int CHUNKS = DH / 8;  // 16-byte chunks per row
-  static constexpr int SMEM = (BQ + 4 * BK) * LD * 2;  // Q, then K and V in two stages
-};
-
-template <int DH>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
-  using T = Bf16Tile<DH>;
-  constexpr int BQ = T::BQ, BK = T::BK, LD = T::LD, CHUNKS = T::CHUNKS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BQ * LD;  // stage s at sK + s * BK * LD
-  __nv_bfloat16* sV = sK + 2 * BK * LD;
-
-  const int iq = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KVH);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = iq * BQ;
-  const int rows = min(BQ, p.Sq - q0);
-  const int first = q0 + p.q_offset, last = q0 + rows - 1 + p.q_offset;
-
-  const long long q_stride = (long long)p.H * DH, kv_stride = (long long)p.KVH * DH;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v);
-  const __nv_bfloat16* qb = qg + (long long)b * p.Sq * q_stride + (long long)h * DH;
-  const __nv_bfloat16* kb = kg + (long long)b * p.Skv * kv_stride + (long long)kvh * DH;
-  const __nv_bfloat16* vb = vg + (long long)b * p.Skv * kv_stride + (long long)kvh * DH;
-
-  int lo, hi;
-  key_tiles(p, first, last, BK, lo, hi);
-
-  for (int i = tid; i < BQ * CHUNKS; i += T::THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool ok = r < rows;
-    cp_async16(sQ + r * LD + c * 8, ok ? qb + (q0 + r) * q_stride + c * 8 : qg, ok);
-  }
-  auto load_kv = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* dk = sK + stage * BK * LD;
-    __nv_bfloat16* dv = sV + stage * BK * LD;
-    for (int i = tid; i < BK * CHUNKS; i += T::THREADS) {
-      const int r = i / CHUNKS, c = i % CHUNKS;
-      const bool ok = k0 + r < p.Skv;
-      const long long off = (k0 + r) * kv_stride + c * 8;
-      cp_async16(dk + r * LD + c * 8, ok ? kb + off : kg, ok);
-      cp_async16(dv + r * LD + c * 8, ok ? vb + off : vg, ok);
-    }
-  };
-  if (lo <= hi) load_kv(lo, 0);
-  cp_async_commit();
-
-  // This thread holds rows g and g + 8 of its warp's 16, columns 2t and 2t + 1
-  // of every 8-wide tile (the mma accumulator layout).
-  const int g = lane >> 2, t = lane & 3;
-  const int pos[2] = {q0 + warp * 16 + g + p.q_offset, q0 + warp * 16 + g + 8 + p.q_offset};
-  const float sl2 = p.scale * kLog2e;
-
-  uint32_t qf[DH / 16][4];
-  float o[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int kt = lo; kt <= hi; ++kt) {
-    const int stage = (kt - lo) & 1;
-    if (kt < hi) load_kv(kt + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (kt == lo) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-    }
-    const __nv_bfloat16* cK = sK + stage * BK * LD;
-    const __nv_bfloat16* cV = sV + stage * BK * LD;
-
-    // S = Q K^T (raw scores; the scale is folded into the exponent below)
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; nt += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, cK + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                            (((lane >> 3) & 1) << 3));
-        mma_bf16(s[nt], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[nt + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    const int k0 = kt * BK;
-    const bool masked = tile_needs_mask(p, k0, BK, first, last);
-    if (masked) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (!allowed(p, pos[j >> 1], k0 + nt * 8 + 2 * t + (j & 1))) s[nt][j] = kNegInf;
-    }
-
-    // Online softmax: the 4 threads of a quad share a row.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f((m[r] - mx[r]) * sl2);
-      m[r] = mx[r];
-    }
-    uint32_t pf[BK / 16][4];  // P as the A operand of P V
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      float e[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        e[j] = exp2f((s[nt][j] - mx[j >> 1]) * sl2);
-        if (masked && s[nt][j] == kNegInf) e[j] = 0.f;
-      }
-      rs[0] += e[0] + e[1];
-      rs[1] += e[2] + e[3];
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(e[0], e[1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(e[2], e[3]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, cV + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
-                                  dt * 8 + ((lane >> 4) << 3));
-        mma_bf16(o[dt], pf[kk], vf[0], vf[1]);
-        mma_bf16(o[dt + 1], pf[kk], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + (long long)b * p.Sq * q_stride +
-                      (long long)h * DH;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + g + 8 * r;
-    if (row >= rows) continue;
-    if (p.lse && t == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + q0 + row] = m[r] * p.scale + logf(fmaxf(l[r], 1e-30f));
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* dst = ob + (q0 + row) * q_stride + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
-          __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
-  }
 }
 
 // ---------------------------------------------------- float32: CUDA cores
@@ -462,7 +242,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   }
 }
 
-// ------------------------------------- bf16 at Dh 64 and 128: wgmma + TMA
+// ---------------------------------------- bf16 at Dh 64, 80 and 128: wgmma + TMA
 //
 // A CTA of three warpgroups of 128 threads works on one 128-row Q tile at a
 // time.  Warpgroup 2 is the producer: it lowers its registers to 40 with
@@ -475,18 +255,22 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
 // (per stage), which carries the TMA byte count, and an empty barrier,
 // which takes all 256 consumer threads' arrivals before the producer
 // refills it: a K slot frees as soon as S is computed, a V slot once P V is,
-// Q once the tile's last S is.
+// Q once the tile's last S is.  Rows are tiled in boxes by head dim
+// (Boxes<DH>): 64 columns with the 128-byte swizzle at Dh 64 and 128, 16
+// columns with the 32-byte swizzle at Dh 80, so every k16 step of S lies in
+// one box and O += P V is one m64n{DH}k16 product a step.
 namespace wg {
+
+#include "wgmma_tma.cuh"
 
 constexpr int BM = 128, BN = 128, kStages = 2;
 // Two consumer warpgroups (threads 0-255), then the producer warpgroup.
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 40 + 2 * 232 <= 512 per lane
-constexpr int kBox = 64;  // bf16 of one 128-byte swizzled box row
 
 template <int DH>
 struct Smem {
-  static constexpr int Q = 0;  // each tile: DH / 64 column blocks of (rows, 64) bf16
+  static constexpr int Q = 0;  // each tile: Boxes<DH>::COLS boxes of (rows, BW) bf16, swizzled
   static constexpr int K = Q + BM * DH * 2;
   static constexpr int V = K + kStages * BN * DH * 2;
   static constexpr int BAR = V + kStages * BN * DH * 2;
@@ -494,179 +278,53 @@ struct Smem {
   // q_full, q_empty, then k_full, v_full, k_empty and v_empty for each
   // stage; + 1024 to align
   static constexpr int BYTES = BAR + (2 + 4 * kStages) * 8 + 1024;
+  static_assert(BM * DH * 2 % 1024 == 0 && TILE_BYTES % 1024 == 0,
+                "tiles keep the swizzle's alignment");
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Wait for the phase of parity `parity` to complete.  A wait that lasts
-// ~10 s (a lost arrival) traps, so a fault ends the launch with an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Keep the compiler from moving accesses to an accumulator across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // d (+)= A B for a 64 x 128 tile, k 16: A and B in shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                                   int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS32 ", "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WG_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A B for a 64 x 64 tile, k 16: A in registers, B in shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_m64n64_mn(float (&d)[32], const uint32_t (&a)[4],
-                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for a 64 x 128 tile, k 16: A in registers, B in shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_m64n128_mn(float (&d)[64], const uint32_t (&a)[4],
-                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int DH>
-__device__ __forceinline__ void pv_product(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void pv_product<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_m64n64_mn(o, a, db);
-}
-template <>
-__device__ __forceinline__ void pv_product<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_m64n128_mn(o, a, db);
-}
-
-// Keep the bf16 P fragments alive (their registers reserved) until the
-// product that reads them has completed.
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // S = Q K^T for this consumer's 64 rows and one 128-key tile: k steps of
-// 16 along Dh, 32 bytes apart within a 128-byte box row, the next box
-// BM (Q) or BN (K) rows of 128 bytes on.
+// 16 along Dh, each inside one box (32 bytes into a 128-byte box row, or a
+// whole 32-byte one); box c of a tile lies c * rows * RB bytes on.
 template <int DH>
 __device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t q_rows, uint32_t k_tile) {
+  using X = Boxes<DH>;
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t off = (kk & 3) * 32;
-    wgmma_ss_m64n128(s, desc(q_rows + (kk >> 2) * BM * 128 + off, 16, 1024),
-                     desc(k_tile + (kk >> 2) * BN * 128 + off, 16, 1024), kk > 0);
+    const int box = kk * 16 / X::BW, in = (kk * 16 % X::BW) * 2;
+    wgmma_ss_m64n128(s, desc(q_rows + box * BM * X::RB + in, 16, 8 * X::RB, X::MODE),
+                     desc(k_tile + box * BN * X::RB + in, 16, 8 * X::RB, X::MODE), kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V: k steps of 16 keys, 16 rows (2048 bytes) down the V tile; V's
-// Dh column blocks are BN * 128 bytes apart (the MN-major leading offset).
+// O += P V: k steps of 16 keys, 16 box rows down the V tile; V's boxes are
+// BN rows apart (the MN-major leading offset).
 template <int DH>
 __device__ __forceinline__ void issue_pv(float (&o)[DH / 2], const uint32_t (&pa)[BN / 16][4],
                                          uint32_t v_tile) {
+  using X = Boxes<DH>;
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    pv_product<DH>(o, pa[kk], desc(v_tile + kk * 16 * 128, BN * 128, 1024));
+    rs_product<DH>(o, pa[kk], desc(v_tile + kk * 16 * X::RB, BN * X::RB, 8 * X::RB, X::MODE));
   wgmma_commit();
-}
-
-// 2^x by the SFU (MUFU.EX2, ~2 ulp, subnormal results flushed to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 constexpr float kMasked = -__builtin_huge_valf();  // a masked score: exp gives exactly 0
@@ -766,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, int tiles, int skip_last) {
   using L = Smem<DH>;
-  constexpr int COLS = DH / kBox;
+  constexpr int BW = Boxes<DH>::BW, RB = Boxes<DH>::RB, COLS = Boxes<DH>::COLS;
   extern __shared__ unsigned char wg_smem[];
   const uint32_t raw = smem_addr(wg_smem);
   const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024
@@ -801,7 +459,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(q_full, BM * DH * 2);
 #pragma unroll
         for (int c = 0; c < COLS; ++c)
-          tma_load_4d(sQ + c * BM * 128, &tm_q, q_full, c * kBox, wt.h, wt.q0, wt.b);
+          tma_load_4d(sQ + c * BM * RB, &tm_q, q_full, c * BW, wt.h, wt.q0, wt.b);
         for (int kt = wt.lo; kt <= wt.hi; ++kt, ++it) {
           const int s = it % kStages;
           const uint32_t free_phase = ((it / kStages) & 1) ^ 1;  // round 0 passes at once
@@ -809,13 +467,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_expect_tx(k_full + 8 * s, L::TILE_BYTES);
 #pragma unroll
           for (int c = 0; c < COLS; ++c)
-            tma_load_4d(sK + s * L::TILE_BYTES + c * BN * 128, &tm_k, k_full + 8 * s, c * kBox,
+            tma_load_4d(sK + s * L::TILE_BYTES + c * BN * RB, &tm_k, k_full + 8 * s, c * BW,
                         wt.kvh, kt * BN, wt.b);
           mbar_wait(v_empty + 8 * s, free_phase);
           mbar_expect_tx(v_full + 8 * s, L::TILE_BYTES);
 #pragma unroll
           for (int c = 0; c < COLS; ++c)
-            tma_load_4d(sV + s * L::TILE_BYTES + c * BN * 128, &tm_v, v_full + 8 * s, c * kBox,
+            tma_load_4d(sV + s * L::TILE_BYTES + c * BN * RB, &tm_v, v_full + 8 * s, c * BW,
                         wt.kvh, kt * BN, wt.b);
         }
       }
@@ -831,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // of every 8-wide block j (the wgmma accumulator layout).
     const int r0 = w * 64 + warp * 16 + g;
     const float sl2 = p.scale * kLog2e;
-    const uint32_t q_rows = sQ + w * 64 * 128;
+    const uint32_t q_rows = sQ + w * 64 * RB;
     const long long q_stride = (long long)p.H * DH;
     float o[DH / 2], s[BN / 2], corr[2], rs[2];
     uint32_t pa[BN / 16][4];
@@ -907,57 +565,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---------------------------------------------------- host: tensor maps
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up at run time through the CUDA runtime, so
-// the library needs no -lcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (B, S, heads, DH) bf16 tensor as a 4-D map over (DH, heads, S, B): boxes
-// of (64, 1, rows, 1), 128-byte swizzled.  Rows past S (a ragged tail) are
-// filled with zeros, never read from the next sequence.
-int encode(CUtensorMap* map, const void* ptr, int dh, int heads, int seq, int batch, int rows) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t e = 2;  // bytes of a bf16
-  const cuuint64_t rows_total = seq > 0 ? seq : 1;  // an empty sequence is never read
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, rows_total, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {dh * e, (cuuint64_t)heads * dh * e, rows_total * heads * dh * e};
-  const cuuint32_t box[4] = {(cuuint32_t)wg::kBox, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
+// ---------------------------------------------------- host
 template <int DH>
 int launch(const Params& p, int skip_last, void* stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, p.q, DH, p.H, p.Sq, p.B, BM);
-  if (!err) err = encode(&tk, p.k, DH, p.KVH, p.Skv, p.B, BN);
-  if (!err) err = encode(&tv, p.v, DH, p.KVH, p.Skv, p.B, BN);
+  constexpr int bw = Boxes<DH>::BW;
+  int err = encode(&tq, p.q, DH, p.H, p.Sq, p.B, BM, bw);
+  if (!err) err = encode(&tk, p.k, DH, p.KVH, p.Skv, p.B, BN, bw);
+  if (!err) err = encode(&tv, p.v, DH, p.KVH, p.Skv, p.B, BN, bw);
   if (err) return err;
   const int smem = Smem<DH>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
@@ -986,18 +601,12 @@ int launch(Kernel kernel, int smem, int q_tile, const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The route: bf16 at Dh 64 and 128 takes the wgmma + TMA kernel, bf16 at Dh
-// 80 the mma.sync kernel (a Dh-80 row is not a whole number of 128-byte
-// swizzled boxes), float32 the FMA kernel.  It depends on dtype and Dh
-// alone; a launch that fails returns its error and is never retried on
-// another route.
+// The route: bf16 takes the wgmma + TMA kernel, float32 the FMA kernel.  It
+// depends on dtype alone; a launch that fails returns its error and is
+// never retried on another route.
 template <int DH>
 int launch_dh(int bf16, const Params& p, int skip_last, void* stream) {
-  if constexpr (DH % 64 == 0) {
-    if (bf16) return wg::launch<DH>(p, skip_last, stream);
-  } else {
-    if (bf16) return launch(flash_fwd_bf16<DH>, Bf16Tile<DH>::SMEM, Bf16Tile<DH>::BQ, p, stream);
-  }
+  if (bf16) return wg::launch<DH>(p, skip_last, stream);
   return launch(flash_fwd_f32<DH>, F32Tile<DH>::SMEM, F32Tile<DH>::BQ, p, stream);
 }
 

@@ -4,10 +4,11 @@
   `repro.kernels.flash_attention.flash_attention`
   (src/repro/kernels/flash_attention.py:105) as CUDA C++ kernels for Hopper
   (`csrc/flash_attention.cu`, built by `kernels._build`), the key loop
-  inside the block.  The route depends on dtype and head dim alone
-  (`forward_route`): bf16 at Dh 64 and 128 runs a warp-specialised kernel
-  (TMA loads by a producer warpgroup, `wgmma` in two consumer warpgroups),
-  bf16 at Dh 80 the `mma.sync` kernel, float32 the FMA kernel.  With
+  inside the block.  The route depends on dtype alone (`forward_route`):
+  bf16 runs a persistent, warp-specialised kernel (TMA loads by a producer
+  warpgroup, `wgmma` in two consumer warpgroups; rows in 64-column boxes with
+  the 128-byte swizzle at Dh 64 and 128, in 16-column boxes with the 32-byte
+  swizzle at Dh 80), float32 the FMA kernel.  With
   ``with_lse=True`` it also returns the softmax log-sum-exp of every row.
 * `flash_attention_bwd` (K4b) is the backward, written by hand
   (`csrc/flash_attention_bwd.cu`).  The reference has no TPU kernel for it:
@@ -149,11 +150,9 @@ def _check_attention(name, q, k, v, sliding_window, **more):
 
 def forward_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which K4 kernel a CUDA call runs (`launch_dh` in csrc/flash_attention.cu
-    chooses by the same rule): "wgmma_tma" for bf16 at head dim 64 and 128,
-    "mma_sync" for bf16 at 80, "fma_f32" for float32."""
-    if dtype == torch.bfloat16:
-        return "wgmma_tma" if head_dim % 64 == 0 else "mma_sync"
-    return "fma_f32"
+    chooses by the same rule): "wgmma_tma" for bf16 (head dim 64, 80 or 128),
+    "fma_f32" for float32."""
+    return "wgmma_tma" if dtype == torch.bfloat16 else "fma_f32"
 
 
 # Planted fault for chip_smoke.py's checks: K4's wgmma route drops this many

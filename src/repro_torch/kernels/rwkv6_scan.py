@@ -34,13 +34,16 @@ falls back.
 
 * `rwkv6_scan_bwd` (K7b) is the backward, written by hand
   (`csrc/rwkv6_scan_bwd.cu`).  The reference has no TPU kernel for it: its
-  gradient is autodiff through `ref.rwkv6_scan`'s `lax.scan`.  A forward
-  pass writes dr and a checkpoint of the state at every 32-step tile; a
-  reverse pass recomputes each tile's states from its checkpoint and steps
-  the state's cotangent back through it (dw reads S_{t-1}, never S_t / w_t,
-  since w can be ~0); du is summed over the batch rows by a second launch.
-  `rwkv6_scan_bwd_plain` is its plain version: the reverse recurrence
-  written out in PyTorch (not autograd), every state of the forward kept.
+  gradient is autodiff through `ref.rwkv6_scan`'s `lax.scan`.  Its chunks of
+  K7_CHUNK steps run in parallel: their increments (the state and its
+  cotangent run from zero through the chunk), a float32 combine over the
+  chunks (the state entering and the cotangent leaving each), the chunks'
+  bodies (each chunk's states recomputed, then swept back; dw reads S_{t-1},
+  never S_t / w_t, since w can be ~0), and du's sum; four launches, every
+  sum in a fixed order.  `rwkv6_scan_bwd_plain` is its plain version: the
+  reverse recurrence written out in PyTorch (not autograd), every state of
+  the forward kept; `rwkv6_scan_bwd_chunked_plain` is the kernel's
+  arithmetic in the kernel's order, for the tests.
 * `RWKV6Scan` is the `torch.autograd.Function` of the two, which
   `kernels.ops.rwkv6_scan` takes when an input needs a gradient: K7 forward
   and K7b backward on the card, the plain versions of both on the CPU (in
@@ -68,11 +71,12 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _ARGTYPES = {"rwkv6_scan_fwd": [_P] * 8 + [ctypes.POINTER(_L), _P]}
 _BWD_ARGTYPES = {"rwkv6_scan_bwd": [_P] * 15 + [ctypes.POINTER(_L), _P]}
-K7_TILE = 32  # csrc/rwkv6_scan_bwd.cu kT: K7b's checkpoint interval
-# Planted faults for chip_smoke.py's checks (-1 and False in every real
-# run): K7b does not recompute the states of this tile (it reads the tile
-# after it's), and K7b's dw reads S_t for S_{t-1}.
-_BWD_SKIP_RECOMPUTE_TILE = -1
+K7_CHUNK = 32  # csrc/rwkv6_scan_bwd.cu kC: K7b's chunks, run in parallel
+# Planted faults for chip_smoke.py's checks (False in every real run): K7b's
+# combine leaves out what enters each chunk (the state and its cotangent
+# start every chunk but the first from zero), and K7b's dw reads S_t for
+# S_{t-1}.
+_BWD_DROP_CARRY = False
 _BWD_DW_FROM_NEXT_STATE = False
 _SIGNATURES: dict = {}  # operand signature -> (state shape, packed dims)
 _MAX_SIGNATURES = 256
@@ -246,16 +250,115 @@ def rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dstate=None, *, acc_dtype=to
             None if state0 is None else dS.to(state0.dtype))
 
 
+def rwkv6_scan_bwd_chunked_plain(r, k, v, w, u, state0, dy, dstate=None, *, chunk=K7_CHUNK,
+                                 drop_carry=False, acc_dtype=torch.float32):
+    """K7b's arithmetic on the CPU, in its order: the chunks' increments
+    (each chunk of ``chunk`` steps run from zero, forward for the state and
+    in reverse for its cotangent, with its decay product), the combine over
+    the chunks (the state entering and the cotangent leaving each), then
+    every chunk's body (its states recomputed from what enters it, the sweep
+    back from what leaves it) and du's sum.  Steps past T are the identity
+    (w 1, the rest 0).  With ``drop_carry`` the combine leaves out what
+    enters each chunk: every chunk but the first starts its state, and every
+    chunk but the last its cotangent, from zero (the planted fault
+    `_BWD_DROP_CARRY`).  The same
+    result as `rwkv6_scan_bwd_plain` up to rounding; the tests use it as
+    the evidence that the decomposition is right, the main path never."""
+    Bb, T, H, K = r.shape
+    V = v.shape[-1]
+    f = acc_dtype
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+
+    def chunks(a, fill):  # (B, T, H, n) -> (B, nc, chunk, H, n), steps past T as `fill`
+        a = torch.cat([a.to(f), a.new_full((Bb, pad, H, a.shape[-1]), fill, dtype=f)], dim=1)
+        return a.reshape(Bb, nc, chunk, H, a.shape[-1])
+
+    r_, k_, v_, dy_ = (chunks(a, 0.0) for a in (r, k, v, dy))
+    w_ = chunks(w, 1.0)
+    u_ = u.to(f)
+    zeros = torch.zeros((Bb, nc, H, K, V), dtype=f, device=r.device)
+    # 1. increments: dS_c and dG_c from zero, W_c the chunk's decay
+    dS, dG, W = zeros, zeros, torch.ones((Bb, nc, H, K), dtype=f, device=r.device)
+    for l in range(chunk):
+        dS = w_[:, :, l, :, :, None] * dS + k_[:, :, l, :, :, None] * v_[:, :, l, :, None, :]
+        W = W * w_[:, :, l]
+    for l in reversed(range(chunk)):
+        dG = w_[:, :, l, :, :, None] * dG + r_[:, :, l, :, :, None] * dy_[:, :, l, :, None, :]
+    # 2. combine: S entering and G leaving every chunk
+    S = (torch.zeros((Bb, H, K, V), dtype=f, device=r.device) if state0 is None
+         else state0.to(f))
+    enter = []
+    for c in range(nc):
+        enter.append(S)
+        S = torch.zeros_like(S) if drop_carry else W[:, c, ..., None] * S + dS[:, c]
+    G = torch.zeros((Bb, H, K, V), dtype=f, device=r.device) if dstate is None else dstate.to(f)
+    leave = [None] * nc
+    for c in reversed(range(nc)):
+        leave[c] = G
+        G = torch.zeros_like(G) if drop_carry else W[:, c, ..., None] * G + dG[:, c]
+    dS0 = G
+    # 3. bodies, every chunk at once
+    S, G = torch.stack(enter, 1), torch.stack(leave, 1)
+    vdy = (v_ * dy_).sum(-1, keepdim=True)  # (B, nc, chunk, H, 1)
+    prev, dr = [], torch.empty_like(r_)
+    for l in range(chunk):
+        prev.append(S)
+        dr[:, :, l] = (torch.einsum("bchkv,bchv->bchk", S, dy_[:, :, l])
+                       + u_ * k_[:, :, l] * vdy[:, :, l])
+        S = w_[:, :, l, :, :, None] * S + k_[:, :, l, :, :, None] * v_[:, :, l, :, None, :]
+    dk, dv, dw = torch.empty_like(k_), torch.empty_like(v_), torch.empty_like(w_)
+    for l in reversed(range(chunk)):
+        rt, kt, vt, dyt = r_[:, :, l], k_[:, :, l], v_[:, :, l], dy_[:, :, l]
+        dk[:, :, l] = torch.einsum("bchkv,bchv->bchk", G, vt) + u_ * rt * vdy[:, :, l]
+        dv[:, :, l] = (torch.einsum("bchkv,bchk->bchv", G, kt)
+                       + (rt * u_ * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, :, l] = (G * prev[l]).sum(-1)
+        G = w_[:, :, l, :, :, None] * G + rt[..., None] * dyt[..., None, :]
+    # 4. du
+    du = (r_ * k_ * vdy).sum((0, 1, 2))
+
+    def out(a, like):
+        return a.reshape(Bb, nc * chunk, H, a.shape[-1])[:, :T].to(like.dtype)
+
+    return (out(dr, r), out(dk, k), out(dv, v), out(dw, w), du.to(u.dtype),
+            None if state0 is None else dS0.to(state0.dtype))
+
+
+def _rows_by_16_bytes(t):
+    """Whether K7b can stage ``t`` by 16-byte loads: each row contiguous,
+    the tensor and every row 16-byte aligned."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * t.element_size() % 16 == 0 for st in t.stride()[:-1]))
+
+
+def _staged(t, *, contiguous=False):
+    """``t`` itself when K7b reads it as it lies (16-byte rows, contiguous
+    when asked), else a fresh contiguous copy."""
+    if _rows_by_16_bytes(t) and (t.is_contiguous() or not contiguous):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _bwd_dims(r, k, v, w):
-    dims = [*_packed(r, k, v, w), int(_BWD_SKIP_RECOMPUTE_TILE), int(_BWD_DW_FROM_NEXT_STATE)]
+    dims = [*_packed(r, k, v, w), int(_BWD_DROP_CARRY), int(_BWD_DW_FROM_NEXT_STATE)]
     return (_L * len(dims))(*dims)
+
+
+def bwd_scratch_elements(B: int, T: int, H: int, K: int) -> int:
+    """K7b's float32 scratch: the chunks' increments of the state and of its
+    cotangent (B, H, nc, K, K) each, the chunks' decays and du's partials
+    (B, H, nc, K) each, each step's v . dy and sum of r u k (B, H, nc, 2,
+    K7_CHUNK), nc = ceil(T / K7_CHUNK)."""
+    return 2 * B * H * -(-T // K7_CHUNK) * (K * K + K + K7_CHUNK)
 
 
 def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dstate=None):
     """The gradients of `rwkv6_scan` at its inputs for the cotangents ``dy``
     (B, T, H, V) of y and ``dstate`` (B, H, K, V, or None: zero) of the final
     state: ``(dr, dk, dv, dw, du, dstate0)`` (see `rwkv6_scan_bwd_plain`),
-    one call of K7b (two launches: the scan, then du's sum over batch rows)."""
+    one call of K7b (four launches: the chunks' increments, their combine,
+    the chunks' bodies, du's sum; see `rwkv6_scan_bwd_chunked_plain`)."""
     if r.device.type == "cpu":
         return rwkv6_scan_bwd_plain(r, k, v, w, u, state0, dy, dstate)
     name = "rwkv6_scan_bwd"
@@ -265,17 +368,23 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dy, dstate=None):
     if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
         raise ValueError(f"{name}: dy is {dy.dtype} {tuple(dy.shape)} on {dy.device}; it must "
                          f"be {r.dtype} {tuple(r.shape)} on {r.device}")
-    dy = dy.contiguous()
+    # K7b stages every operand by 16-byte loads, so an operand whose rows
+    # are not contiguous and 16-byte aligned is copied (the model's packed
+    # column views are taken as they lie); dy must be contiguous too.
+    r, k, v, w = (_staged(t) for t in (r, k, v, w))
+    dy = _staged(dy, contiguous=True)
     if dstate is not None:
         _build.check_cuda_operands(name, dtypes=(torch.float32,), dstate=dstate)
         if dstate.shape != (Bb, H, K, K):
             raise ValueError(f"{name}: dstate {tuple(dstate.shape)} must be ({Bb}, {H}, {K}, {K})")
+        _build.check_aligned(name, dstate=dstate)
+    if state0 is not None:
+        _build.check_aligned(name, state0=state0)  # the combine reads 16 bytes a thread
     f32 = dict(dtype=torch.float32, device=r.device)
     grads = torch.empty((4, Bb, T, H, K), dtype=r.dtype, device=r.device)
     du = torch.empty((H, K), **f32)
     ds0 = None if state0 is None else torch.empty((Bb, H, K, K), **f32)
-    n_tiles = -(-T // K7_TILE)
-    scratch = torch.empty(Bb * H * K * ((n_tiles + K7_TILE) * K + 1), **f32)
+    scratch = torch.empty(bwd_scratch_elements(Bb, T, H, K), **f32)
     fn = _build.load("rwkv6_scan_bwd", _BWD_ARGTYPES).rwkv6_scan_bwd
     status = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                 None if state0 is None else state0.data_ptr(), dy.data_ptr(),

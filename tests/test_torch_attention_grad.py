@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_bwd,
     flash_attention_plain,
+    forward_route,
 )
 
 GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
@@ -92,3 +93,12 @@ def test_backward_routes():
         assert backward_route(bf16, dh, 1) == backward_route(bf16, dh, 8) == "wgmma_tma"
         assert backward_route(bf16, dh, 16) == "mma_sync"
         assert backward_route(torch.float32, dh, 1) == "fma_f32"
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_forward_routes(dh):
+    """K4's route depends on dtype alone: bf16 takes the wgmma + TMA kernel
+    at every built head dim (Zamba2's 80 in 16-column boxes with the 32-byte
+    swizzle), float32 the FMA kernel."""
+    assert forward_route(torch.bfloat16, dh) == "wgmma_tma"
+    assert forward_route(torch.float32, dh) == "fma_f32"

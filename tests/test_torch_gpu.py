@@ -422,6 +422,11 @@ FLASH_CASES = [
     (2, 200, 712, 32, 4, 128, True, None, 512),  # Skv > Sq at an offset, group 8
     (1, 1000, 1000, 8, 1, 64, False, None, 0),  # non-causal, ragged Skv tail, group 8
     (3, 513, 700, 24, 8, 128, True, 300, 187),  # window at an offset, group 3
+    # and at Dh 80 (five 16-column boxes with the 32-byte swizzle):
+    (2, 1000, 1000, 32, 32, 80, True, None, 0),  # ragged Sq, Zamba2's 32/32 heads
+    (1, 513, 513, 16, 4, 80, True, None, 0),  # GQA group 4, ragged by one row
+    (2, 300, 600, 8, 2, 80, True, 200, 300),  # a window at a q_offset
+    (1, 200, 712, 8, 8, 80, False, None, 0),  # Skv > Sq, non-causal, ragged Skv tail
 ]
 
 
@@ -679,7 +684,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, case, dtype
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 80, 128])
 def test_flash_attention_rejects_a_skipped_last_tile(cuda, monkeypatch, dh):
     """The planted fault chip_smoke.py uses: K4's wgmma route dropping the
     last key tile of every row block fails the bf16 check."""
@@ -1409,30 +1414,51 @@ def test_ssm_gradient_goes_through_the_kernels(cuda, dtype):
 
 
 RWKV_GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
-RWKV_BWD_CASES = [  # (B, T, H, K), decay, state0 (and a final-state cotangent), packed
-    ((2, 1024, 32, 64), "sigmoid", False, False),  # rwkv6-1.6b's training shape
-    ((2, 300, 4, 64), "strong", True, False),
-    ((2, 300, 4, 64), "weak", True, True),
-    ((1, 33, 2, 8), "sigmoid", True, False),  # the reference's shapes
-    ((2, 100, 3, 16), "sigmoid", False, True),
-    ((1, 64, 4, 32), "sigmoid", True, False),
-    ((2, 1, 3, 64), "sigmoid", True, False),
+RWKV_BWD_CASES = [  # (B, T, H, K), decay, state0 (and a final-state cotangent), layout
+    ((2, 1024, 32, 64), "sigmoid", False, None),  # rwkv6-1.6b's training shape
+    ((2, 300, 4, 64), "strong", True, None),
+    ((2, 300, 4, 64), "weak", True, "packed"),
+    ((1, 33, 2, 8), "sigmoid", True, None),  # the reference's shapes
+    ((2, 100, 3, 16), "sigmoid", False, "packed"),
+    ((1, 64, 4, 32), "sigmoid", True, None),
+    ((2, 1, 3, 64), "sigmoid", True, None),
+    # K7b's 32-step chunks: T ragged over two chunks, shorter than one, T = 1 at K 16
+    ((1, 45, 2, 32), "weak", True, None),
+    ((2, 20, 4, 64), "strong", True, "packed"),
+    ((3, 1, 2, 16), "weak", True, None),
+    # K7b stages by 16-byte loads: these operands go in as contiguous copies
+    ((2, 70, 3, 64), "sigmoid", True, "kstrided"),
+    ((2, 70, 3, 64), "weak", True, "misaligned"),
 ]
+
+
+def _off_16_bytes(t):
+    """``t``'s values in a tensor that starts one element past a 16-byte boundary."""
+    o = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return o.copy_(t)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", RWKV_BWD_CASES, ids=lambda c: "x".join(map(str, c[0])) +
-                         f"_{c[1]}" + ("_state0" if c[2] else "") + ("_packed" if c[3] else ""))
+                         f"_{c[1]}" + ("_state0" if c[2] else "") + (f"_{c[3]}" if c[3] else ""))
 def test_rwkv6_scan_bwd_kernel_matches_plain(cuda, case, dtype):
     """K7b against the plain backward: T off the 32-step tile, strong and weak
     decay, K 8 to 64, state0 with a final-state cotangent, operands read
-    through their strides; two launches give the same bits."""
-    shape, decay, with_state, packed = case
+    through their strides (packed column views), or copied first (a K stride
+    that is not 1; r, k, v, w, dy off a 16-byte boundary); two launches give
+    the same bits."""
+    shape, decay, with_state, layout = case
     r, k, v, w, u, s0 = _rwkv_inputs(shape, dtype, cuda, decay=decay, with_state=with_state,
-                                     packed=packed, seed=7)
+                                     packed=layout == "packed", seed=7)
     gen = torch.Generator().manual_seed(8)
     dy = _randn(gen, r.shape, dtype, cuda)
+    if layout == "kstrided":
+        r, k, v, w = (t.transpose(2, 3).contiguous().transpose(2, 3) for t in (r, k, v, w))
+        assert r.stride(3) != 1
+    elif layout == "misaligned":
+        r, k, v, w, dy = (_off_16_bytes(t) for t in (r, k, v, w, dy))
+        assert r.data_ptr() % 16 and dy.data_ptr() % 16
     Bb, _, H, K = shape
     dS = _randn(gen, (Bb, H, K, K), torch.float32, cuda) if with_state else None
     got = rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
@@ -1446,10 +1472,10 @@ def test_rwkv6_scan_bwd_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fault", ["dw_from_next_state", "skip_recompute"])
+@pytest.mark.parametrize("fault", ["dw_from_next_state", "drop_carry"])
 def test_rwkv6_scan_bwd_rejects_planted_faults(cuda, monkeypatch, fault):
-    """dw reading S_t for S_{t-1}, and one tile's states not recomputed
-    (read from the tile after it), each leave the tolerance on dw."""
+    """dw reading S_t for S_{t-1} leaves the tolerance on dw; the combine
+    leaving out what enters each chunk leaves it on dr."""
     r, k, v, w, u, s0 = _rwkv_inputs((2, 300, 4, 64), torch.float32, cuda, with_state=True,
                                      seed=9)
     dy = torch.randn(r.shape, device=cuda)
@@ -1457,9 +1483,27 @@ def test_rwkv6_scan_bwd_rejects_planted_faults(cuda, monkeypatch, fault):
     if fault == "dw_from_next_state":
         monkeypatch.setattr(rwkv_module, "_BWD_DW_FROM_NEXT_STATE", True)
     else:
-        monkeypatch.setattr(rwkv_module, "_BWD_SKIP_RECOMPUTE_TILE", 4)
+        monkeypatch.setattr(rwkv_module, "_BWD_DROP_CARRY", True)
     got = rwkv6_scan_bwd(r, k, v, w, u, s0, dy)
-    assert _rel_l2(got[3], want[3]) > K7B_REL[torch.float32]
+    which = 3 if fault == "dw_from_next_state" else 0
+    assert _rel_l2(got[which], want[which]) > K7B_REL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_scan_bwd_launches_are_bit_identical(cuda, dtype):
+    """K7b sums in a fixed order with no atomics: three launches at rwkv6's
+    training shape, with state0 and a final-state cotangent, give the same
+    bits."""
+    shape = (2, 1024, 32, 64)
+    r, k, v, w, u, s0 = _rwkv_inputs(shape, dtype, cuda, with_state=True, seed=12)
+    gen = torch.Generator().manual_seed(13)
+    dy = _randn(gen, r.shape, dtype, cuda)
+    dS = _randn(gen, (2, 32, 64, 64), torch.float32, cuda)
+    first = rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)
+    for _ in range(2):
+        for a, b in zip(first, rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dS)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

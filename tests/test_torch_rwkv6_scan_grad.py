@@ -23,7 +23,9 @@ the whole, and `gradcheck` holds `RWKV6Scan` against finite differences.
 dw is read from S_{t-1} itself: with w down to 1e-30 (exp(-exp(w_raw)) at
 w_raw = 4.2) it stays finite and equal to the reference's.  K7b itself is
 held against the plain backward on the card (tests/test_torch_gpu.py,
-chip_smoke.py).
+chip_smoke.py); `rwkv6_scan_bwd_chunked_plain`, K7b's arithmetic in its
+order (chunk increments, their combine, the chunk bodies), is held against
+the same reference here, and with its carry dropped must fail.
 """
 import numpy as np
 import pytest
@@ -37,9 +39,11 @@ from _torch_replay import reference_in_float64  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    K7_CHUNK,
     RWKV6Scan,
     rwkv6_scan,
     rwkv6_scan_bwd,
+    rwkv6_scan_bwd_chunked_plain,
     rwkv6_scan_bwd_plain,
 )
 
@@ -164,3 +168,49 @@ def test_gradcheck_and_the_cpu_path():
         ops.rwkv6_scan(*leaves, out_state=torch.zeros_like(s0))
     y, _ = rwkv6_scan(*leaves)
     assert y.requires_grad
+
+
+# (shape, decay): T two whole chunks, T ragged over four, T shorter than one
+CHUNKED_CASES = [((1, 2 * K7_CHUNK, 2, 8), "weak"), ((2, 100, 3, 16), "strong"),
+                 ((2, 100, 3, 16), "weak"), ((1, 20, 2, 8), "sigmoid")]
+
+
+def _chunked_grads(arrays, dtype, drop_carry=False):
+    *ins, dy, dS = (torch.tensor(a, dtype=dtype) for a in arrays)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    return rwkv6_scan_bwd_chunked_plain(*ins, dy, dS, drop_carry=drop_carry, acc_dtype=acc)
+
+
+def _chunked_want(arrays, dtype):
+    if dtype == "float64":
+        with reference_in_float64(ref):
+            return _reference_grads(arrays, jnp.float64)[1], None
+    return _reference_grads(arrays, jnp.float32)[1], F32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", CHUNKED_CASES,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"_{c[1]}")
+def test_chunked_model_matches_reference(case, dtype):
+    """K7b's decomposition: chunks of K7_CHUNK steps, their increments from
+    zero, the float32 combine over chunks and the bodies give the
+    reference's gradients for every input, state0 and a final-state
+    cotangent included."""
+    shape, decay = case
+    arrays = _inputs(shape, decay, seed=6)
+    want, tol = _chunked_want(arrays, dtype)
+    got = _chunked_grads(arrays, getattr(torch, dtype))
+    assert all(g.dtype == getattr(torch, dtype) for g in got)
+    _assert_close(got, want, tol, NAMES)
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES[:3],
+                         ids=lambda c: "x".join(map(str, c[0])) + f"_{c[1]}")
+def test_chunked_model_without_its_carry_fails(case):
+    """The planted fault `_BWD_DROP_CARRY` in the model: the combine leaves
+    out what enters each chunk, and the same check rejects it."""
+    shape, decay = case
+    arrays = _inputs(shape, decay, seed=6)
+    want, tol = _chunked_want(arrays, "float64")
+    with pytest.raises(AssertionError):
+        _assert_close(_chunked_grads(arrays, torch.float64, drop_carry=True), want, tol, NAMES)
