@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives eleven paths of the port: the paper's fused sweep (K1, K2), the
+It drives twelve paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
 federated transformer through the engine (K1, K4, K4b), the online round
@@ -14,8 +14,9 @@ serving on Llama-3.2-3B (K4, K5), hybrid serving on
 Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7), DeepSVRP
 training on Qwen2-1.5B (K3, K4, K4b), the AdamW baseline and checkpoints on
 Qwen2-1.5B (K4, K4b), int8 weight-only serving of the three families
-(K4, K5, K6, K7), and DeepSVRP and AdamW training of Zamba2-2.7B (K6, K6b,
-K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3).
+(K4, K5, K6, K7), DeepSVRP and AdamW training of Zamba2-2.7B (K6, K6b,
+K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3), and the moe family on
+deepseek-moe-16b, served in bf16 and int8 and trained (K4, K5, K4b, K3).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -293,9 +294,32 @@ Phases, each printed as one JSON line:
 33. their federated LM — 2 rounds of `run_batch("deep_svrp")` (fused, 2
    trials) on a `FedLMProblem` over the reduced models, exact counts, the
    loss against the CPU's (RTRAIN_FEDLM's rel_tol) and comm equal;
-34. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
-   K7b, each with the design it ran on the main path as `kernel_route`),
-   then the `ok` line.
+34. moe — K4 at deepseek-moe-16b's shapes (4 x 2048 and 2 x 1024, 16/16
+   heads, G = 1, Dh 128, bf16), K5 (B 8, S 1024, 16/16 heads, float32 and
+   bf16 caches) and K4b (2 x 1024, 16/16) against their plain versions,
+   timed beside SDPA, their planted faults failing (K4's and K4b's skipped
+   key tiles, K4b's group rank, K5's dropped stream and row); deepseek-
+   moe-16b at full width and depth in bf16 (16,375,728,128 parameters,
+   seed 0), tokens Zipf-distributed (MOE_ZIPF): `make_prefill_step` on 4 x
+   2048 (K4 28 a call) and `BatchServer(max_batch=8, cache_len=1024)
+   .generate` on 8 prompts of 64-128 tokens, 32 greedy tokens (K5 28 a
+   step), each replayed with the plain attention (SERVE_REL_TOL) and its
+   planted fault; a replay that routes tokens to other experts follows the
+   run's routing (`RoutingTape`; `routing_flips` the share of (token,
+   layer) top-k sets that differ); the decode floor (every routed expert's
+   weights a step); a profile; int8 (bytes, logit gap, the planted
+   dequantisation fault, the plain replay, a short generate); float32 at 4
+   layers (1 dense + 3 MoE), all positions against the plain attention
+   (MOE_F32_REL_TOL), with K4's fault and a dispatch that ignores the
+   capacity beyond it; DeepSVRP (RTRAIN's settings, 2 rounds) and 2 AdamW
+   steps at full width and 4 layers (2,267,021,312 parameters) with exact
+   K4, K4b and K3 counts, a round profile, the round replayed with the
+   plain versions, the reduced deepseek in float32 on the card against
+   the CPU with K4b's fault beyond the limit; a `moe_seconds` line;
+35. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
+   K7b, each with the design it ran on the main path as `kernel_route`;
+   the launches of K3, K4, K4b and K5 add the moe path's), then the `ok`
+   line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -539,6 +563,29 @@ RTRAIN_FEDLM = dict(clients=3, batch=2, seq=64, rounds=2, local_steps=2, seeds=2
                     anchor_prob=0.5, rel_tol=1e-4)
 
 
+# The moe path: deepseek-moe-16b (arXiv:2401.06066) at full width and depth
+# in bf16, seed-0 weights: prefill 4 x 2048 and generate on 8 prompts of
+# 64-128 tokens, 32 greedy tokens each (prompts of up to 256 tokens put the
+# whole script at 1310 s, read on an H100 80GB HBM3 at 700 W with a slow
+# host: decode is host-bound, ~116 ms a step); tokens Zipf-distributed over the
+# vocabulary (ranks ~ r^-MOE_ZIPF), so the experts' loads are skewed as
+# text's are and the capacity binds.  A replay with the plain attention can
+# choose other experts where the 6th and 7th router probabilities are
+# closer than the two attentions' rounding: each replay follows the run's
+# routing with its own first (the flips counted) and, only if that misses
+# its limit, with the run's (`RoutingTape`; the decode replay takes the
+# run's from the start, `phase_moe_serving`); the limits stay as they are.
+# float32 at a cut depth (1 dense + 3 MoE layers) to HYBRID_F32_REL_TOL;
+# DeepSVRP and AdamW at full width and a cut depth of 4 layers
+# (2,267,021,312 parameters), RTRAIN's settings; the reduced deepseek in
+# float32 on the card against the CPU at the hybrid family's limit.
+MOE = dict(arch="deepseek-moe-16b", prefill=(4, 2048), max_batch=8, cache_len=1024,
+           new_tokens=32, prompt_lens=(64, 129), f32_layers=4, train_layers=4)
+MOE_ZIPF = 1.1
+MOE_PREFILL_CALLS = 2
+MOE_F32_REL_TOL = HYBRID_F32_REL_TOL
+MOE_REDUCED_REL_TOL = RTRAIN_REDUCED_REL_TOL["hybrid"]
+
 class SmokeFailure(Exception):
     pass
 
@@ -673,7 +720,7 @@ ADAMW_KERNELS = ("flash_attention", "flash_attention_bwd")
 HYBRID_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd", "flash_attention", "flash_attention_bwd")
 RWKV_TRAIN_KERNELS = ("rwkv6_scan", "rwkv6_scan_bwd")
 PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training", "optim",
-         "quant", "recurrent_train")
+         "quant", "recurrent_train", "moe")
 
 
 def _wrapper(name):
@@ -2300,10 +2347,15 @@ def plain_attention(fault: bool = False):
 
 def rel_err(a, b) -> float:
     """||a - b||_2 / ||b||_2 in float32."""
+    return rel_err_tensor(a, b).item()
+
+
+def rel_err_tensor(a, b):
+    """`rel_err` as a 0-d tensor on the inputs' device, read by no host sync."""
     from torch.linalg import vector_norm
 
     a, b = a.float(), b.float()
-    return (vector_norm(a - b) / vector_norm(b)).item()
+    return vector_norm(a - b) / vector_norm(b)
 
 
 def _leaves(tree):
@@ -2326,12 +2378,14 @@ REPLAY_CHECK_KEYS = ("rel_err_vs_plain_max", "rel_err_vs_plain_median", "planted
 
 
 def decode_replay(cfg, params, prompts, out, cache_len: int, plain=plain_attention,
-                  fault=lambda: plain_attention(fault=True)) -> dict:
+                  fault=lambda: plain_attention(fault=True),
+                  kernel=contextlib.nullcontext) -> dict:
     """A served batch replayed teacher-forced on the card: every step with the
-    kernels and with the plain versions (``plain()``, default the plain
-    attention) in lockstep, each step's logits compared, and from the last
-    prompt token on, on a copy of the plain run's cache, under ``fault()``
-    (default a planted K5 fault: one half-warp stream's rows dropped)."""
+    kernels (under ``kernel()``) and with the plain versions (``plain()``,
+    default the plain attention) in lockstep, each step's logits compared,
+    and from the last prompt token on, on a copy of the plain run's cache,
+    under ``fault()`` (default a planted K5 fault: one half-warp stream's rows
+    dropped)."""
     import numpy as np
     import torch
 
@@ -2348,22 +2402,27 @@ def decode_replay(cfg, params, prompts, out, cache_len: int, plain=plain_attenti
     seq = torch.from_numpy(seq).cuda()
     cache_k = init_decode_cache(cfg, n, cache_len, dtype=torch.float32)
     cache_p = init_decode_cache(cfg, n, cache_len, dtype=torch.float32)
+    # the step's figures stay on the card until the end: a read-back each
+    # step would hold the host to the device's pace
     rels, agree, reproduced, fault_rels = [], [], [], []
     t0 = time.perf_counter()
     for t in range(plen + new - 1):
-        lk, cache_k = step(params, cache_k, seq[:, t], t)
+        with kernel():
+            lk, cache_k = step(params, cache_k, seq[:, t], t)
         with plain():
             lp, cache_p = step(params, cache_p, seq[:, t], t)
-        rels.append(rel_err(lk, lp))
+        rels.append(rel_err_tensor(lk, lp))
         if t >= plen - 1:  # logits that chose a served token
             if t == plen - 1:  # the planted fault acts from here, on a copy of the cache
                 cache_f = _tree(lambda c: c.clone(), cache_p)
             with fault():
                 lf, cache_f = step(params, cache_f, seq[:, t], t)
-            fault_rels.append(rel_err(lf, lp))
+            fault_rels.append(rel_err_tensor(lf, lp))
             served = seq[:, t + 1]
-            reproduced.append((lk.argmax(-1) == served).float().mean().item())
-            agree.append((lp.argmax(-1) == served).float().mean().item())
+            reproduced.append((lk.argmax(-1) == served).float().mean())
+            agree.append((lp.argmax(-1) == served).float().mean())
+    rels, fault_rels, reproduced, agree = (torch.stack(v).tolist()
+                                           for v in (rels, fault_rels, reproduced, agree))
     return {"rel_err_vs_plain_max": max(rels), "rel_err_vs_plain_median": float(np.median(rels)),
             "worst_step": int(np.argmax(rels)),
             "planted_fault_rel_err": {"max": max(fault_rels),
@@ -4438,6 +4497,17 @@ class TrainFamily(NamedTuple):
     replay_seq: int  # the replay's sequence length
     reduced_tol: float  # the reduced float32 card-against-CPU limit
     reduced_seq: int  # the reduced check's tokens a row (K6b: three chunks)
+    layers: int = 0  # the full-size model's depth cut to this many layers (0: none)
+
+
+def train_config(fam: TrainFamily):
+    """The family's model at full width, its depth cut to ``fam.layers`` if set."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(fam.arch)
+    return dataclasses.replace(cfg, num_layers=fam.layers) if fam.layers else cfg
 
 
 def _hybrid_pass(cfg) -> dict:
@@ -4494,17 +4564,26 @@ def recurrent_train_ops(mode: str):
         yield
 
 
+_RECURRENT_BATCHES: dict = {}
+
+
 def recurrent_batch(cfg, per_cohort_batch: int, seq_len: int) -> dict:
-    """C cohorts of b x S tokens from `SyntheticLMDataset` (seed 0), cohort-major, on the card."""
+    """C cohorts of b x S tokens from `SyntheticLMDataset` (seed 0), cohort-major, on the card.
+    Drawn once for each (vocabulary, b, S) and kept in host memory: the Markov
+    source samples a token at a time over the whole vocabulary (seconds at
+    deepseek's 102,400), and the DeepSVRP and AdamW phases take the same batch."""
     import torch
 
     from repro_torch.data import ShardedBatcher, SyntheticLMDataset
 
     C = RTRAIN["cohorts"]
-    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
-    batch = ShardedBatcher(ds, num_cohorts=C, per_cohort_batch=per_cohort_batch,
-                           seq_len=seq_len).next_batch()
-    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    key = (cfg.vocab_size, per_cohort_batch, seq_len)
+    if key not in _RECURRENT_BATCHES:
+        ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
+        _RECURRENT_BATCHES[key] = ShardedBatcher(ds, num_cohorts=C,
+                                                 per_cohort_batch=per_cohort_batch,
+                                                 seq_len=seq_len).next_batch()
+    return {k: torch.from_numpy(v).cuda() for k, v in _RECURRENT_BATCHES[key].items()}
 
 
 def _svrp_config():
@@ -4528,11 +4607,10 @@ def phase_recurrent_train(fam: TrainFamily):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import make_svrp_train_step
     from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config(fam.arch)
+    cfg = train_config(fam)
     C, K, S = RTRAIN["cohorts"], RTRAIN["local_steps"], RTRAIN["seq_len"]
     step, helpers = make_svrp_train_step(cfg, _svrp_config(), cohorts=C)
     state = helpers["init_state"]()
@@ -4582,11 +4660,14 @@ def phase_recurrent_train(fam: TrainFamily):
     return cfg, step, helpers, batch, launches
 
 
-def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch) -> dict:
+def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=None) -> dict:
     """Round 1 again from the seed-0 state with the kernels and with the
     plain K3, attention and scans (forward and backward) on the card, at
     ``fam.replay_seq`` tokens a row: the cohort-mean gradient at x0 with the
-    loss there, and the round's update."""
+    loss there, and the round's update.  With a `RoutingTape` (the moe
+    family), the kernels' run records its routing and the plain run follows
+    it: with its own routing (the flips counted), and, only if that misses a
+    limit, again with the kernels' routing, which is then the run held."""
     import torch
 
     from repro_torch.models import model as M
@@ -4601,13 +4682,28 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch) -> dict:
     def loss(params, shard):
         return M.loss_fn(params, cfg, shard)
 
+    def within(entry) -> bool:
+        return (entry["grad_rel_l2"] <= TRAIN_GRAD_REL_TOL
+                and entry["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+                and entry["update_rel_l2"] <= TRAIN_UPDATE_REL_TOL)
+
+    def routing(mode):
+        if tape is None:
+            return contextlib.nullcontext()
+        if mode == "kernels":
+            return tape.record()
+        tape.reset_counts()
+        return tape.follow(force=mode == "plain_taped_routing")
+
     results, kept = {}, {}
-    for mode in ("kernels", "plain"):
+    modes = ["kernels", "plain"]
+    while modes:
+        mode = modes.pop(0)
         state = helpers["init_state"]()
         x0 = state.params
         g0, loss0 = None, 0.0
         t0 = time.perf_counter()
-        with recurrent_train_ops(mode):
+        with recurrent_train_ops("kernels" if mode == "kernels" else "plain"), routing(mode):
             for shard in shards:
                 l, g = value_and_grad(loss, x0, shard)
                 loss0 += l.item() / C
@@ -4626,6 +4722,10 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch) -> dict:
                 results["kernels"]["update_norm"]
             entry["loss_rel_err"] = abs(loss0 - results["kernels"]["loss_at_x0"]) / \
                 abs(results["kernels"]["loss_at_x0"])
+            if tape is not None:
+                entry["routing_flips"] = tape.flip_share()
+                if mode == "plain" and not within(entry):
+                    modes.append("plain_taped_routing")
         results[mode] = entry
         del state, new, x0, g0
         torch.cuda.empty_cache()
@@ -4634,11 +4734,8 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch) -> dict:
           "grad_rel_tol": TRAIN_GRAD_REL_TOL, "update_rel_tol": TRAIN_UPDATE_REL_TOL,
           "loss_rel_tol": TRAIN_LOSS_REL_TOL, "note": "each run against the kernels' run",
           **results})
-    plain = results["plain"]
-    check(plain["grad_rel_l2"] <= TRAIN_GRAD_REL_TOL
-          and plain["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
-          and plain["update_rel_l2"] <= TRAIN_UPDATE_REL_TOL,
-          f"{fam.label} replay: the plain run differs from the kernels' by {plain}")
+    plain = results.get("plain_taped_routing", results["plain"])
+    check(within(plain), f"{fam.label} replay: the plain run differs from the kernels' by {plain}")
     return results
 
 
@@ -4735,10 +4832,9 @@ def phase_recurrent_adamw(fam: TrainFamily) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import make_adamw_train_step
 
-    cfg = get_config(fam.arch)
+    cfg = train_config(fam)
     batch = recurrent_batch(cfg, RTRAIN["per_cohort_batch"], RTRAIN["seq_len"])
     step, helpers = make_adamw_train_step(cfg, lr=OPTIM["lr"], clip=OPTIM["clip"])
     state = helpers["init_state"]()
@@ -4860,6 +4956,500 @@ def phase_recurrent_training() -> dict:
     return {"parity": parity, "launches": {**launches["hybrid"], **launches["rwkv"]}}
 
 
+# ----------------------------------------------------- moe (K4, K5, K4b, K3)
+class RoutingTape:
+    """The routing of one run (`models.moe.route`, looked up at call time),
+    in call order, for the next run to follow: ``record()`` keeps each call's
+    top-k ids; ``follow(force)`` compares each call's own ids with the taped
+    ones (the flips: (token, layer) top-k sets that differ) and, with
+    ``force``, routes by the taped ids instead, its weights renormalised from
+    its own probabilities, so a replay differs from the run only by what it
+    replays (attention's arithmetic) and not by the routing that arithmetic
+    flips."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.ids = moe, moe.route, []
+        self.flips = self.rows = 0
+
+    def record(self):
+        self.ids = []
+
+        def route(router, cfg, x):
+            out = self.route(router, cfg, x)
+            self.ids.append(out[2])
+            return out
+
+        return rebind(self.moe, route=route)
+
+    def follow(self, force: bool, count: bool = True):
+        import torch
+
+        taped = iter(self.ids)
+
+        def route(router, cfg, x):
+            probs, w, ids = self.route(router, cfg, x)
+            want = next(taped)
+            if count:
+                self.flips = self.flips + (torch.sort(ids, -1).values
+                                           != torch.sort(want, -1).values).any(-1).sum()
+                self.rows += want.numel() // want.shape[-1]
+            if force:
+                w = probs.gather(-1, want)
+                return probs, w / w.sum(-1, keepdim=True), want
+            return probs, w, ids
+
+        return rebind(self.moe, route=route)
+
+    def reset_counts(self) -> None:
+        self.flips = self.rows = 0
+
+    def flip_share(self) -> float:
+        return float(self.flips) / max(self.rows, 1)
+
+    def dropped_share(self, cfg) -> float:
+        """The share of the taped assignments past their expert's capacity."""
+        import torch
+        import torch.nn.functional as F
+
+        dropped = total = 0
+        for ids in self.ids:
+            S = ids.shape[1]
+            C = self.moe.capacity(cfg, S, cfg.capacity_factor)
+            load = F.one_hot(ids.flatten(1), cfg.num_experts).sum(1)  # (B, E)
+            dropped += int(torch.clamp(load - C, min=0).sum())
+            total += ids.numel()
+        return dropped / max(total, 1)
+
+
+@contextlib.contextmanager
+def entered(*contexts):
+    """All of ``contexts`` at once."""
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def moe_tokens(vocab: int, shape, seed: int):
+    """Tokens whose ranks follow Zipf's law (exponent MOE_ZIPF) over the
+    vocabulary, ranks shuffled onto ids (numpy ``seed``): text is skewed, and
+    uniform tokens would spread every expert's load so evenly that the
+    capacity rarely binds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** MOE_ZIPF
+    return rng.permutation(vocab)[rng.choice(vocab, size=shape, p=p / p.sum())]
+
+
+def moe_prompts(vocab: int):
+    """8 prompts of 64-128 tokens (numpy seed 0), Zipf tokens."""
+    import numpy as np
+
+    lens = np.random.default_rng(0).integers(*MOE["prompt_lens"], 8)
+    return [moe_tokens(vocab, (n,), 10 + i).tolist() for i, n in enumerate(lens)]
+
+
+def moe_model(cfg, params) -> str:
+    from repro_torch.utils.tree import tree_leaves
+
+    n = sum(t.numel() for t in tree_leaves(params))
+    n_norms = 2 * cfg.num_layers * cfg.d_model + cfg.d_model
+    check(cfg.name == MOE["arch"] and n == cfg.param_count() + n_norms,
+          f"{cfg.name}: {n} parameters, want {cfg.param_count()} + {n_norms} norm scales")
+    depth = "" if cfg.num_layers == 28 else " (depth cut from 28)"
+    return (f"{cfg.name}: {cfg.num_layers} layers{depth} ({cfg.first_dense_layers} dense, d_ff "
+            f"{cfg.d_ff}; {cfg.num_layers - cfg.first_dense_layers} MoE: {cfg.num_experts} "
+            f"routed experts top-{cfg.num_experts_per_tok} + {cfg.num_shared_experts} shared, "
+            f"d_ff {cfg.moe_d_ff}, capacity {cfg.capacity_factor}, dispatch "
+            f"{cfg.moe_dispatch}), d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads Dh {cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.param_dtype}, {n} parameters")
+
+
+def routed_replay(tape, run, want, tol, plain, fault=None) -> dict:
+    """``run()`` again under ``plain()``, following ``tape`` (the run of
+    ``want``): with its own routing first, the flips counted, and only if
+    that misses ``tol`` with the taped routing, which is then the replay
+    held; ``fault()`` with the held replay's routing.  Relative L2 against
+    the held replay."""
+    res = {}
+    tape.reset_counts()
+    with plain(), tape.follow(force=False):
+        out = run()
+    res["rel_err_own_routing"] = rel_err(want, out)
+    res["routing_flips"] = tape.flip_share()
+    forced = res["rel_err_own_routing"] > tol
+    if forced:
+        del out
+        with plain(), tape.follow(force=True, count=False):
+            out = run()
+        res["rel_err_taped_routing"] = rel_err(want, out)
+    res["routing_held"] = "taped" if forced else "own"
+    res["rel_err_vs_plain"] = res["rel_err_taped_routing" if forced else "rel_err_own_routing"]
+    if fault is not None:
+        with fault(), tape.follow(force=forced, count=False):
+            res["planted_fault_rel_err"] = rel_err(run(), out)
+    return res
+
+
+def moe_counts(cfg) -> tuple[dict, dict]:
+    """K4 once a layer a prefill call, K5 once a layer a decode step."""
+    L = cfg.num_layers
+    return ({"flash_attention": L, "decode_attention": 0},
+            {"flash_attention": 0, "decode_attention": L})
+
+
+def phase_moe_parity() -> dict:
+    """K4, K5 and K4b at the moe path's shapes (16 query heads over 16 kv
+    heads, G = 1, Dh 128, bf16), with their planted faults."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = MOE["prefill"]
+    k4 = [k4_case(gen, B, S, S, 16, 16, 128, bf16, plant_fault=True, queued=True),
+          k4_case(gen, 2, 1024, 1024, 16, 16, 128, bf16, plant_fault=True, queued=True)]
+    k5 = [k5_case(gen, 8, MOE["cache_len"], 16, 16, 128, bf16, c, "prefix") for c in (f32, bf16)]
+    k4b = k4b_case(gen, 2, 1024, 1024, 16, 16, 128, bf16, timed=True)
+    emit({"phase": "moe_parity", "flash_attention": k4, "decode_attention": k5,
+          "flash_attention_bwd": k4b,
+          "library": "SDPA (K4: forward; K5: one decode call; K4b: forward + backward, and "
+                     "its backward alone), timed only as a yardstick"})
+    return {"flash_attention": k4, "decode_attention": k5, "flash_attention_bwd": k4b}
+
+
+def phase_moe_serving(holder: dict) -> dict:
+    """deepseek-moe-16b at full width and depth in bf16 (seed-0 weights on
+    the card): prefill 4 x 2048 and generate on 8 prompts through K4 and
+    K5, both replayed with the plain attention; a profile.  Leaves the
+    weights in ``holder`` for the int8 phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_config(MOE["arch"])
+    per_call, per_step = moe_counts(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg)  # seed 0 on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = moe_model(cfg, params)
+
+    # (a) prefill: 4 x 2048 Zipf tokens, last-position logits
+    prefill = make_prefill_step(cfg)
+    B, S = MOE["prefill"]
+    tokens = torch.from_numpy(moe_tokens(cfg.vocab_size, (B, S), 1)).cuda()
+    prefill(params, {"tokens": tokens[:, :128]})  # warm-up (cuBLAS handles, kernel load)
+    calls = MOE_PREFILL_CALLS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    want = {k: n * calls for k, n in per_call.items()}
+    check(prefill_counts == want, f"moe prefill launches {prefill_counts}, want {want}")
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"moe prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
+    tape = RoutingTape()
+    with tape.record():
+        kern = prefill(params, {"tokens": tokens})
+    dropped = tape.dropped_share(cfg)
+    check_pre = routed_replay(tape, lambda: prefill(params, {"tokens": tokens}), kern,
+                              SERVE_REL_TOL, plain_attention,
+                              fault=lambda: plain_attention(fault=True))
+    emit({"phase": "moe_prefill_check", **check_pre, "rel_tol": SERVE_REL_TOL})
+    check(check_pre["rel_err_vs_plain"] <= SERVE_REL_TOL,
+          f"moe prefill logits differ from the plain replay by {check_pre}")
+    check(check_pre["planted_fault_rel_err"] > SERVE_REL_TOL,
+          f"a planted K4 fault moved the moe prefill logits by only {check_pre}")
+    emit({"phase": "moe_prefill", "model": model, "init_s": init_s, "batch": [B, S],
+          "tokens": f"Zipf({MOE_ZIPF}) ranks over the vocabulary", "calls": calls,
+          "s_per_call": prefill_s, "tokens_per_s": B * S / prefill_s,
+          "peak_mem_gb": prefill_peak / 1e9, "launches": prefill_counts,
+          "dropped_assignment_share": dropped, "rel_err_vs_plain": check_pre["rel_err_vs_plain"],
+          "routing_flips": check_pre["routing_flips"], "rel_tol": SERVE_REL_TOL,
+          "max_abs_logit": logits.float().abs().max().item()})
+    del kern, logits
+
+    # (b) batched greedy generation (prefill by teacher-forced decode)
+    serve = ServeConfig(max_batch=MOE["max_batch"], cache_len=MOE["cache_len"])
+    server = BatchServer(cfg, params, serve)
+    prompts = moe_prompts(cfg.vocab_size)
+    new = MOE["new_tokens"]
+    server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
+    plen = max(len(p) for p in prompts)
+    steps = plen + new - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(SERVE_KERNELS)
+    gen_peak = torch.cuda.max_memory_allocated()
+    want = {k: n * steps for k, n in per_step.items()}
+    check(gen_counts == want, f"moe generate launches {gen_counts}, want {want} ({steps} steps)")
+    check(len(out) == len(prompts) and all(len(o) == new and all(0 <= t < cfg.vocab_size
+                                                                 for t in o) for o in out),
+          "moe generate returned malformed tokens")
+
+    # (c) teacher-forced replay: the kernels and the plain attention in
+    # lockstep, each plain step routed by the kernels' step.  With their own
+    # routing the plain steps read 7.8e-2 at the worst step, past
+    # SERVE_REL_TOL (8.8% of (token, layer) top-k sets flipped), and 2.0e-2
+    # with the kernels' (read on an H100 80GB HBM3 at 700 W, prompts of up to
+    # 256 tokens); a pass with their own as well would cost ~30-60 s.
+    # The flips are still counted.
+    tape.reset_counts()
+    held = "taped"
+    rep = decode_replay(
+        cfg, params, prompts, out, serve.cache_len, kernel=tape.record,
+        plain=lambda: entered(plain_attention(), tape.follow(force=True)),
+        fault=lambda: entered(plain_attention(fault=True), tape.follow(True, count=False)))
+    rep["routing_flips"] = tape.flip_share()
+    emit({"phase": "moe_generate_check", **{k: rep[k] for k in REPLAY_CHECK_KEYS},
+          "routing_held": held, "rel_tol": SERVE_REL_TOL})
+    check_decode_replay(rep, "moe ")
+    emit({"phase": "moe_generate", "prompts": [len(p) for p in prompts],
+          "max_batch": serve.max_batch, "cache_len": serve.cache_len,
+          "cache_dtype": serve.cache_dtype, "new_tokens": new, "decode_steps": steps,
+          "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
+          "decode_floor_ms": moe_decode_floor_ms(cfg),
+          "decode_tokens_per_s": len(prompts) * steps / gen_s,
+          "generated_tokens_per_s": len(prompts) * new / gen_s, "peak_mem_gb": gen_peak / 1e9,
+          "launches": gen_counts, "routing_held": held, "rel_tol": SERVE_REL_TOL, **rep})
+    phase_serving_profile(cfg, params, tokens)
+    holder.update(cfg=cfg, params=params, tokens=tokens)
+    return {"flash_attention": prefill_counts["flash_attention"],
+            "decode_attention": gen_counts["decode_attention"]}
+
+
+def moe_decode_floor_ms(cfg) -> float:
+    """The least time of a decode step: every routed expert's weights read
+    once (the capacity formulation runs all of them at one token) over the
+    card's memory rate; the rest of the weights not counted."""
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    nbytes = n_moe * cfg.num_experts * 3 * cfg.d_model * cfg.moe_d_ff * 2
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_moe_quant(holder: dict) -> dict:
+    """deepseek-moe-16b in int8 (`BatchServer(quantize=True)`): its bytes
+    against bf16's, the last-position prefill logits against the bf16
+    model's (QUANT_LOGIT_GAP; the planted dequantisation fault beyond it),
+    the int8 prefill replayed with the plain attention (SERVE_REL_TOL), a
+    short generate; exact launch counts.  The bf16 weights are dropped once
+    quantized."""
+    import torch
+
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.utils.tree import tree_bytes
+
+    cfg, params, tokens = holder.pop("cfg"), holder.pop("params"), holder.pop("tokens")
+    per_call, per_step = moe_counts(cfg)
+    bf16_bytes = tree_bytes(params)
+    prefill = make_prefill_step(cfg)
+    tape = RoutingTape()
+    with tape.record():
+        bf16_last = prefill(params, {"tokens": tokens})
+    n, plen, new = QUANT_SHORT["prompts"], QUANT_SHORT["prompt_len"], QUANT_SHORT["new_tokens"]
+    t0 = time.perf_counter()
+    server = BatchServer(cfg, params, ServeConfig(max_batch=n, cache_len=MOE["cache_len"],
+                                                  quantize=True))
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    qparams = server.params
+    int8_bytes = tree_bytes(qparams)
+    calls = MOE_PREFILL_CALLS
+    zero_launch_counts(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        int8_last = prefill(qparams, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+
+    def run():
+        return prefill(qparams, {"tokens": tokens})
+
+    # the gap to bf16: int8's own routing first, the bf16 run's if that misses
+    tape.reset_counts()
+    with tape.follow(force=False):
+        own = run()
+    gap = {"own_routing": max_rel_gap(own, bf16_last), "routing_flips": tape.flip_share()}
+    forced = gap["own_routing"] > QUANT_LOGIT_GAP
+    if forced:
+        with tape.follow(force=True, count=False):
+            gap["taped_routing"] = max_rel_gap(run(), bf16_last)
+    gap["held"] = gap["taped_routing" if forced else "own_routing"]
+    with dequant_fault(), tape.follow(force=forced, count=False):
+        gap["planted_dequant_fault"] = max_rel_gap(run(), bf16_last)
+    with tape.record():
+        int8_last = run()
+    plain = routed_replay(tape, run, int8_last, SERVE_REL_TOL, plain_attention)
+    prompts = [p[:plen] for p in moe_prompts(cfg.vocab_size)[:n]]
+    zero_launch_counts(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(SERVE_KERNELS)
+    steps = plen + new - 1
+    res = {"phase": "quant_moe", "model": f"{cfg.name}, int8 weights",
+           "bf16_tree_gb": bf16_bytes / 1e9, "int8_tree_gb": int8_bytes / 1e9,
+           "bytes_ratio": int8_bytes / bf16_bytes, "quantize_s": quantize_s,
+           "prefill_batch": list(tokens.shape), "prefill_s_per_call": prefill_s,
+           "prefill_tokens_per_s": tokens.numel() / prefill_s, "prefill_launches": prefill_counts,
+           "logit_gap_vs_bf16": gap, "logit_gap_tol": QUANT_LOGIT_GAP,
+           "prefill_vs_plain": plain, "rel_tol": SERVE_REL_TOL,
+           "generate": {"prompts": n, "prompt_len": plen, "new_tokens": new, "steps": steps,
+                        "ms_per_decode_step": gen_s / steps * 1e3, "launches": gen_counts}}
+    emit(res)
+    del server, qparams
+    torch.cuda.empty_cache()
+    check(res["bytes_ratio"] <= QUANT_BYTES_RATIO,
+          f"moe int8 tree {int8_bytes} bytes > {QUANT_BYTES_RATIO} x bf16's {bf16_bytes}")
+    want = {k: v * calls for k, v in per_call.items()}
+    check(prefill_counts == want, f"moe int8 prefill launches {prefill_counts}, want {want}")
+    want = {k: v * steps for k, v in per_step.items()}
+    check(gen_counts == want, f"moe int8 generate launches {gen_counts}, want {want}")
+    check(gap["held"] <= QUANT_LOGIT_GAP, f"moe int8 prefill logits {gap} from bf16's")
+    check(gap["planted_dequant_fault"] > QUANT_LOGIT_GAP,
+          f"a planted dequantisation fault moved the moe logits by only {gap}")
+    check(plain["rel_err_vs_plain"] <= SERVE_REL_TOL,
+          f"moe int8 prefill differs from its plain replay by {plain}")
+    check(len(out) == n and all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+                                for o in out), "moe int8 generate: malformed tokens")
+    return res
+
+
+def capacity_fault():
+    """A planted dispatch fault: the capacity ignored, nothing dropped.  C = S
+    slots an expert, as many as C = S k would leave filled (a token's top-k
+    experts are distinct, so no expert takes more than S assignments a row),
+    at a sixth of the buffers (S k: 25 GB in float32 at 4 x 2048)."""
+    from repro_torch.models import moe
+
+    return rebind(moe, capacity=lambda cfg, S, cf: S)
+
+
+def phase_moe_f32() -> dict:
+    """deepseek-moe-16b at full width in float32, its depth cut to
+    MOE["f32_layers"] (1 dense + 3 MoE): every position's prefill logits with
+    K4 (its float32 route) against the plain attention (MOE_F32_REL_TOL), and
+    two planted faults beyond that limit: K4 skipping its first key tile,
+    and a dispatch that ignores the capacity."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(MOE["arch"]), num_layers=MOE["f32_layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg)  # seed 0 on the card
+    B, S = MOE["prefill"]
+    tokens = torch.from_numpy(moe_tokens(cfg.vocab_size, (B, S), 2)).cuda()
+
+    @torch.inference_mode()
+    def run():
+        return M.forward(params, cfg, {"tokens": tokens})[0]
+
+    tape = RoutingTape()
+    zero_launch_counts(SERVE_KERNELS)
+    with tape.record():
+        kern = run()
+    counts = launch_counts(SERVE_KERNELS)
+    res = routed_replay(tape, run, kern, MOE_F32_REL_TOL, plain_attention,
+                        fault=lambda: plain_attention(fault=True))
+    with capacity_fault():
+        res["planted_capacity_fault_rel_err"] = rel_err(run(), kern)
+    res.update(dropped_assignment_share=tape.dropped_share(cfg), launches=counts)
+    del kern, params
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_f32_prefill_check", "model": moe_model_f32_line(cfg),
+          "batch": [B, S], **res, "rel_tol": MOE_F32_REL_TOL})
+    check(counts == {"flash_attention": cfg.num_layers, "decode_attention": 0},
+          f"moe f32 prefill launches {counts}")
+    check(res["rel_err_vs_plain"] <= MOE_F32_REL_TOL,
+          f"float32 moe prefill logits differ from the plain replay by {res}")
+    check(res["planted_fault_rel_err"] > MOE_F32_REL_TOL,
+          f"a planted K4 fault moved the float32 moe logits by only {res}")
+    check(res["planted_capacity_fault_rel_err"] > MOE_F32_REL_TOL,
+          f"a dispatch ignoring the capacity moved the float32 moe logits by only {res}")
+    return res
+
+
+def moe_model_f32_line(cfg) -> str:
+    return (f"{cfg.name} at full width, {cfg.num_layers} layers (depth cut from 28: "
+            f"{cfg.first_dense_layers} dense + {cfg.num_layers - cfg.first_dense_layers} MoE), "
+            f"float32")
+
+
+def _moe_pass(cfg) -> dict:
+    return {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+
+
+MOE_TRAIN = TrainFamily(
+    label="moe", arch=MOE["arch"], kernels=ADAMW_KERNELS, per_pass=_moe_pass,
+    per_forward=lambda cfg: {**_moe_pass(cfg), "flash_attention_bwd": 0}, describe=moe_model,
+    randomize=lambda params, cfg, seed: None,
+    scan_fault=lambda: rebind(_kernel_module("flash_attention"), _BWD_SKIP_KEY_TILES=1),
+    replay_seq=RTRAIN["seq_len"], reduced_tol=MOE_REDUCED_REL_TOL, reduced_seq=128,
+    layers=MOE["train_layers"])
+
+
+def phase_moe() -> dict:
+    """The moe path: parity at its shapes, deepseek-moe-16b served in bf16
+    and int8 at full size, the float32 check at a cut depth, DeepSVRP and
+    AdamW at full width and a cut depth, the reduced model against the CPU."""
+    import torch
+
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    parity = timed("parity", phase_moe_parity)
+    holder = {}
+    serving = timed("serving", phase_moe_serving, holder)
+    timed("int8", phase_moe_quant, holder)
+    timed("f32", phase_moe_f32)
+    cfg, step, helpers, batch, train = timed("train", phase_recurrent_train, MOE_TRAIN)
+    timed("train_profile", phase_train_profile, step, helpers, batch, label="moe_train_profile")
+    timed("train_replay", phase_recurrent_replay, MOE_TRAIN, cfg, step, helpers, batch,
+          tape=RoutingTape())
+    del cfg, step, helpers, batch
+    timed("adamw", phase_recurrent_adamw, MOE_TRAIN)
+    timed("reduced", phase_recurrent_reduced, MOE_TRAIN)
+    emit({"phase": "moe_seconds", **seconds, "total": sum(seconds.values())})
+    launches = {"flash_attention": serving["flash_attention"] + train["flash_attention"],
+                "decode_attention": serving["decode_attention"],
+                "flash_attention_bwd": train["flash_attention_bwd"],
+                "prox_update": train["prox_update"]}
+    return {"parity": parity, "launches": launches}
+
+
 # The design each kernel runs on the main path, for the kernels line where its
 # parity result names none (K4, K4b, K6 and K6b name theirs: `forward_route`,
 # `backward_route`, `scan_route`, `bwd_route`).
@@ -4877,7 +5467,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "eleven and prints the kernels line")
+                         "twelve and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4961,6 +5551,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if run["recurrent_train"]:
             rtrain = phase_recurrent_training()
+            torch.cuda.empty_cache()
+        if run["moe"]:
+            moe = phase_moe()
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4969,7 +5562,8 @@ def main(argv=None) -> int:
         return 0
     # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
     # server's default float32 cache); hybrid serving (K6), rwkv serving (K7;
-    # launches: prefill and generate) and training in bf16.
+    # launches: prefill and generate) and training in bf16.  The launches of
+    # K3, K4, K4b and K5 add the moe path's (prefill and generate, DeepSVRP).
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -5009,7 +5603,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "kernel_route": p.get("route", KERNEL_ROUTES.get(name)),
             "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": p["max_abs_err"], "ms": p["ms"],
+            "launches": counts[name] + moe["launches"].get(name, 0),
+            "max_abs_err": p["max_abs_err"], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p.get("library_ms"),
         })

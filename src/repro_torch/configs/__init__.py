@@ -1,16 +1,19 @@
 """Architecture registry of the port: `get_config("<arch-id>")`.
 
-The dense family, the hybrid family (zamba2) and the ssm family (rwkv6) are
-ported; every other architecture of the zoo is known by name and raises
-`NotImplementedError` until its slice lands.
+The dense family, the hybrid family (zamba2), the ssm family (rwkv6) and the
+moe family (deepseek-moe, qwen3-moe) are ported; every other architecture of
+the zoo is known by name and raises `NotImplementedError` until its slice
+lands.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
+    deepseek_moe_16b,
     granite_3_2b,
     llama3_2_3b,
     qwen2_1_5b,
     qwen3_4b,
+    qwen3_moe_235b_a22b,
     rwkv6_1_6b,
     zamba2_2_7b,
 )
@@ -19,15 +22,14 @@ from repro_torch.configs.base import ModelConfig
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
     for c in [qwen2_1_5b.CONFIG, granite_3_2b.CONFIG, llama3_2_3b.CONFIG, qwen3_4b.CONFIG,
-              zamba2_2_7b.CONFIG, rwkv6_1_6b.CONFIG]
+              zamba2_2_7b.CONFIG, rwkv6_1_6b.CONFIG, deepseek_moe_16b.CONFIG,
+              qwen3_moe_235b_a22b.CONFIG]
 }
 
 # The zoo's other architectures (name -> family), still served by `repro` alone.
 NOT_PORTED: dict[str, str] = {
     "internvl2-76b": "vlm",
-    "qwen3-moe-235b-a22b": "moe",
     "seamless-m4t-large-v2": "audio",
-    "deepseek-moe-16b": "moe",
 }
 
 ARCH_IDS = list(REGISTRY)

@@ -6,9 +6,10 @@ leaves (``A``/``b`` for a quadratic, ``Z``/``y``/``lam`` for a logistic
 problem, and ``dp_shift`` with the DP metadata for a DP-ERM one),
 `fed_lm_x0_from_numpy` a federated LM's flat parameter vector from the
 reference's parameter tree, `hparams_from_numpy` a per-trial hparam table,
-`dense_params_from_numpy`, `hybrid_params_from_numpy` and
-`ssm_params_from_numpy` a dense, hybrid (zamba2) or ssm (rwkv6) model's
-parameter tree (`params_from_numpy` any of the three by ``cfg.family``),
+`dense_params_from_numpy`, `hybrid_params_from_numpy`,
+`ssm_params_from_numpy` and `moe_params_from_numpy` a dense, hybrid
+(zamba2), ssm (rwkv6) or moe (deepseek-moe, qwen3-moe) model's parameter
+tree (`params_from_numpy` any of the four by ``cfg.family``),
 `svrp_state_from_numpy` a DeepSVRP train state and
 `adamw_state_from_numpy` an AdamW train state, so both packages compute on
 the same data, the same weights and the same state; `state_to_numpy`
@@ -141,11 +142,23 @@ def ssm_params_from_numpy(tree, cfg: ModelConfig, device=None):
     return _params_from_numpy(tree, cfg, "ssm", device, None)
 
 
+def moe_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The port's parameters of the moe model ``cfg`` (deepseek-moe,
+    qwen3-moe) from the reference's params pytree with numpy leaves: the same
+    nested dicts, ``dense_layers`` leaves stacked (L_dense, ...),
+    ``moe_layers`` leaves (L_moe, ...) with the routed experts (L_moe, E,
+    ...) and the shared experts (L_moe, S, ...) inside, as tensors of
+    ``dtype`` (default ``cfg.param_dtype``) on ``device`` (default CUDA).
+    Raises unless the tree has exactly the keys and shapes `init_params`
+    gives ``cfg``."""
+    return _params_from_numpy(tree, cfg, "moe", device, dtype or getattr(torch, cfg.param_dtype))
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
     """The port's parameters of ``cfg`` from the reference's, by ``cfg.family``
     (`dense_params_from_numpy`, `hybrid_params_from_numpy`,
-    `ssm_params_from_numpy`): every leaf in ``dtype``, or, with ``dtype``
-    None, in the dtype `init_params` gives it."""
+    `ssm_params_from_numpy`, `moe_params_from_numpy`): every leaf in
+    ``dtype``, or, with ``dtype`` None, in the dtype `init_params` gives it."""
     return _params_from_numpy(tree, cfg, cfg.family, device, dtype)
 
 

@@ -1,4 +1,4 @@
-"""Batched serving engine: static batching over the dense, hybrid and ssm decode paths.
+"""Batched serving engine: static batching over the dense, hybrid, ssm and moe decode paths.
 
 The port of `repro.launch.serve`:
 
@@ -15,7 +15,9 @@ Mamba-2 layer's one-step recurrence (plain PyTorch, as in the reference),
 not through the scan kernel K6; in the ssm family (rwkv6) through the WKV
 scan kernel K7 with T = 1 in every time-mix layer, from the carried state
 (the family's cache is that state and ignores ``cache_len`` and
-``cache_dtype``).
+``cache_dtype``); in the moe family through K5 at every layer, the router
+and every expert run as the reference runs them at one token (a capacity
+of 1 a row: each step reads every routed expert's weights).
 
 With ``quantize=True`` the server quantizes the weights once, at
 construction (`repro_torch.quant.quantize_params`: int8 with per-channel

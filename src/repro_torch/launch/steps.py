@@ -84,7 +84,8 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     backward passes a round, plus C on an "exact" refresh round; every pass
     runs attention through K4 and K4b (``ops.attention``), the Mamba-2 scans
     of the hybrid family through K6 and K6b (``ops.ssm_scan``), the WKV scans
-    of the ssm family through K7 and K7b (``ops.rwkv6_scan``).
+    of the ssm family through K7 and K7b (``ops.rwkv6_scan``); the moe
+    family's loss carries its load-balance term (`models.model.loss_fn`).
     """
     _check_trainable(cfg)
     dev = resolve_device(device)
@@ -191,7 +192,7 @@ def make_adamw_train_step(cfg: ModelConfig, *, lr: float = 3e-4, clip: float = 1
 
 def make_prefill_step(cfg: ModelConfig, *, device=None):
     """Full-sequence forward: flash attention (K4) at every attention layer
-    or site of the dense and hybrid families, the Mamba-2 scan (K6) in every
+    or site of the dense, hybrid and moe families, the Mamba-2 scan (K6) in every
     Mamba-2 layer of the hybrid family, the WKV scan (K7) in every time-mix
     layer of the ssm family; the step returns the last position's logits
     (B, V)."""
@@ -207,7 +208,7 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
 
 def make_serve_step(cfg: ModelConfig, *, device=None):
     """One-token decode: decode attention (K5) at every attention layer or
-    site of the dense and hybrid families, the WKV scan (K7) with T = 1 in
+    site of the dense, hybrid and moe families, the WKV scan (K7) with T = 1 in
     every time-mix layer of the ssm family:
     (params, cache, token (B,), pos) -> (logits (B, V), cache updated in place)."""
     dev = resolve_device(device)

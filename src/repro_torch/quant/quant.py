@@ -39,7 +39,22 @@ _MIN_QUANT_SIZE = 1 << 14  # don't quantize tiny leaves
 def _quantize_matrix(w: torch.Tensor, reduce_axis: int) -> dict:
     """Symmetric per-channel int8, the scale shared only along ``reduce_axis``.
     amax is taken in float32 from 0 (a zero-size axis gives amax 0), and the
-    1e-12 floor keeps an all-zero channel at exact zeros instead of 0/0."""
+    1e-12 floor keeps an all-zero channel at exact zeros instead of 0/0.
+
+    A stacked leaf (``ndim > 2``, scales along -2) is quantized one slice of
+    its first axis at a time, into int8 and float32 tensors allocated once:
+    the same values (no scale spans two slices), with float32 temporaries the
+    size of one slice, not of the stack (deepseek-moe-16b's routed experts
+    are 19.9 GB a leaf in float32)."""
+    if w.ndim > 2 and reduce_axis == -2 and w.shape[0] > 1:
+        first = _quantize_matrix(w[0], reduce_axis)
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = first["s"].new_empty((w.shape[0], *first["s"].shape))
+        q[0], s[0] = first["q"], first["s"]
+        for i in range(1, w.shape[0]):
+            part = _quantize_matrix(w[i], reduce_axis)
+            q[i], s[i] = part["q"], part["s"]
+        return {"q": q, "s": s}
     w32 = w.to(torch.float32)
     if w32.shape[reduce_axis] == 0:
         shape = list(w32.shape)

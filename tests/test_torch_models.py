@@ -81,14 +81,26 @@ def test_configs_are_the_references():
     assert get_config("llama3.2-3b").with_sliding_window(64).sliding_window == 64
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b",
-                                  "seamless-m4t-large-v2", "internvl2-76b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2", "internvl2-76b"])
 def test_other_families_are_not_ported_yet(name):
     assert name in JAX_REGISTRY
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config(name)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TM.init_params(JAX_REGISTRY[name].reduced(), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "deepseek-moe-16b"])
+def test_moe_family_is_ported(name):
+    """The moe configs are the reference's, and `init_params` on meta
+    tensors has the reference's tree at full size (nothing allocated)."""
+    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(JAX_REGISTRY[name])
+    shapes = jax.eval_shape(lambda k: JM.init_params(JAX_REGISTRY[name], k), jax.random.key(0))
+    meta = TM.init_params(get_config(name), torch.Generator(), device="meta")
+    assert jax.tree.structure(jax.tree.map(lambda t: 0, meta)) == jax.tree.structure(
+        jax.tree.map(lambda t: 0, shapes))
+    assert [tuple(t.shape) for t in jax.tree.leaves(meta)] == [
+        tuple(s.shape) for s in jax.tree.leaves(shapes)]
 
 
 # -------------------------------------------------------------------- layers

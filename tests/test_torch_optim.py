@@ -258,6 +258,6 @@ def test_adamw_train_step_matches_reference(name):
 
 
 def test_adamw_step_refuses_an_unported_family():
-    moe = dataclasses.replace(_configs("qwen2-1.5b")[1], family="moe")
-    with pytest.raises(NotImplementedError, match="the moe family is not ported yet"):
-        make_adamw_train_step(moe, device="cpu")
+    audio = dataclasses.replace(_configs("qwen2-1.5b")[1], family="audio")
+    with pytest.raises(NotImplementedError, match="the audio family is not ported yet"):
+        make_adamw_train_step(audio, device="cpu")
