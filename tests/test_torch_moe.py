@@ -16,6 +16,7 @@ bit.  Training: tests/test_torch_hybrid.py's (`deep_step_matches_reference`,
 the AdamW step of tests/test_torch_optim.py).  Top-k ties: exact ids.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -60,9 +61,17 @@ def _configs(name, **extra):
             dataclasses.replace(REGISTRY[name].reduced(), **kw))
 
 
-def _models(name, seed=0, **extra):
+@functools.lru_cache(maxsize=None)
+def _reference_tree(name, **extra):
+    """The reference's seed-0 weights for ``_configs(name, **extra)`` as numpy,
+    drawn once for the module (its jitted init takes seconds a config); the
+    tests copy before they change a tree."""
+    return reference_params(_configs(name, **extra)[0], 0)
+
+
+def _models(name, **extra):
     jcfg, tcfg = _configs(name, **extra)
-    tree = reference_params(jcfg, seed)
+    tree = _reference_tree(name, **extra)
     return jcfg, jax.tree.map(jnp.asarray, tree), tcfg, convert.moe_params_from_numpy(
         tree, tcfg, device="cpu")
 
@@ -110,17 +119,22 @@ def test_moe_mlp_matches_reference(name, capacity_factor):
                                 compute_dtype="float32", capacity_factor=capacity_factor)
     p = jmoe.moe_mlp_init(jax.random.key(3), jbase, jnp.float32)
     x = np.random.default_rng(4).standard_normal((2, 16, base.d_model)).astype(np.float32)
+    modes = ("gather", "scatter")
+
+    def jloss(pp, xx, mode):
+        y, aux = jmoe.moe_mlp_apply(pp, dataclasses.replace(jbase, moe_dispatch=mode), xx)
+        return jnp.sum(y**2) + aux, (y, aux)
+
+    @jax.jit  # both dispatches in one program: one compile
+    def jboth(pp, xx):
+        return {mode: jax.value_and_grad(functools.partial(jloss, mode=mode), argnums=(0, 1),
+                                         has_aux=True)(pp, xx) for mode in modes}
+
+    want = jboth(p, jnp.asarray(x))
     got = {}
-    for mode in ("gather", "scatter"):
-        jcfg = dataclasses.replace(jbase, moe_dispatch=mode)
+    for mode in modes:
+        (_, (jy, jaux)), (jgp, jgx) = want[mode]
         tcfg = dataclasses.replace(base, moe_dispatch=mode)
-
-        def jloss(pp, xx):
-            y, aux = jmoe.moe_mlp_apply(pp, jcfg, xx)
-            return jnp.sum(y**2) + aux, (y, aux)
-
-        (_, (jy, jaux)), (jgp, jgx) = jax.jit(
-            jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(p, jnp.asarray(x))
         tp = tree_map(lambda t: t.requires_grad_(), _t(p))
         xt = torch.from_numpy(x).requires_grad_()
         ty, taux = tmoe.moe_mlp_apply(tp, tcfg, xt)
@@ -188,13 +202,17 @@ def test_forward_loss_grad_and_decode_match_reference(name):
     jbatch = {"tokens": jnp.asarray(tokens, jnp.int32), "labels": jnp.asarray(labels, jnp.int32)}
     tbatch = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
 
-    jlogits, jaux = jax.jit(lambda p: JM.forward(p, jcfg, jbatch))(jparams)
+    @jax.jit  # the forward and the loss's gradient in one program: one compile
+    def jforward_and_grad(p):
+        return JM.forward(p, jcfg, jbatch), jax.value_and_grad(
+            lambda q: JM.loss_fn(q, jcfg, jbatch))(p)
+
+    (jlogits, jaux), (jloss, jgrads) = jforward_and_grad(jparams)
     tlogits, taux = TM.forward(tparams, tcfg, tbatch)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **F32_TOL)
     np.testing.assert_allclose(taux.item(), float(jaux), **F32_TOL)
     assert taux.item() > 0.5  # the load-balance loss is carried
 
-    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: JM.loss_fn(p, jcfg, jbatch)))(jparams)
     tloss, tgrads = value_and_grad(lambda p, b: TM.loss_fn(p, tcfg, b), tparams, tbatch)
     np.testing.assert_allclose(tloss.item(), float(jloss), **F32_TOL)
     _assert_tree_close(tgrads, np_tree(jgrads), F32_TOL, "grad")
@@ -283,8 +301,8 @@ def test_train_step_one_cohort_matches_reference():
     """The DeepSVRP train step on the reduced deepseek (one cohort, 2 rounds
     with the reference's coins injected: a refresh and a plain round) against
     the reference's on a 1 x 1 debug mesh: x, w, gbar and the loss."""
-    jcfg, jparams, tcfg, _ = _models("deepseek-moe-16b")
-    deep_step_matches_reference(jcfg, tcfg, np_tree(jparams))
+    jcfg, tcfg = _configs("deepseek-moe-16b")
+    deep_step_matches_reference(jcfg, tcfg, _reference_tree("deepseek-moe-16b"))
 
 
 def test_adamw_train_step_matches_reference():
@@ -327,7 +345,7 @@ def test_fed_lm_loss_at_x0_matches_reference():
     from repro_torch.problems.fed_lm import make_fed_lm_problem
 
     jcfg, tcfg = _configs("deepseek-moe-16b")
-    tree = reference_params(jcfg, 0)
+    tree = _reference_tree("deepseek-moe-16b")
     jx0, unravel = ravel_pytree(jax.tree.map(jnp.asarray, tree))
     ds = JDataset(vocab_size=jcfg.vocab_size, num_clients=3, alpha=0.3, seed=0)
     toks = np.stack([ds.sample(m, 2, 16) for m in range(3)])
