@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives twelve paths of the port: the paper's fused sweep (K1, K2), the
+It drives thirteen paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
 federated transformer through the engine (K1, K4, K4b), the online round
@@ -15,8 +15,10 @@ Zamba2-2.7B (K6, K4, K5), RWKV-6 serving on rwkv6-1.6b (K7), DeepSVRP
 training on Qwen2-1.5B (K3, K4, K4b), the AdamW baseline and checkpoints on
 Qwen2-1.5B (K4, K4b), int8 weight-only serving of the three families
 (K4, K5, K6, K7), DeepSVRP and AdamW training of Zamba2-2.7B (K6, K6b,
-K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3), and the moe family on
-deepseek-moe-16b, served in bf16 and int8 and trained (K4, K5, K4b, K3).
+K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3), the moe family on
+deepseek-moe-16b, served in bf16 and int8 and trained (K4, K5, K4b, K3),
+and the audio family on seamless-m4t-large-v2, served in bf16 and int8 and
+trained (K4 non-causal and cross, K5 over the encoder's memory, K4b, K3).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -316,10 +318,33 @@ Phases, each printed as one JSON line:
    K4, K4b and K3 counts, a round profile, the round replayed with the
    plain versions, the reduced deepseek in float32 on the card against
    the CPU with K4b's fault beyond the limit; a `moe_seconds` line;
-35. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
+35. audio — K4 in its three roles at 16/16 heads, G = 1, Dh 64, bf16 (the
+   encoder's self-attention non-causal F x F, the decoder's causal, the
+   cross-attention non-causal S x F) at the serving shapes (4 x 2048 tokens,
+   4 x 1024 frames) with the planted skipped tile; K4b in the three roles
+   at the training shapes (2 x 1024 tokens over 2 x 256 frames) with its
+   faults; K5 over a 1024-frame cross cache, every frame valid, with its
+   faults; each timed queued beside SDPA (is_causal as the role).  seamless-m4t-large-v2 at full width and depth in bf16
+   (2,034,784,256 parameters, seed 0): `make_prefill_step` on 4 x 2048
+   tokens over 4 x 1024 frames (K4 72 a call) and `BatchServer(max_batch=8,
+   cache_len=1024).generate` on 8 prompts of 64-128 tokens over 8 x 1024
+   frames, 32 greedy tokens (K4 24 at the cache init, K5 48 a step); the
+   prefill replayed with the plain attention (SERVE_REL_TOL), against which
+   K4's skipped tile, the cross-attention run causal and the encoder run
+   causal must exceed the limit; the decode replayed teacher-forced, each
+   run's cache from its own encoder, against which K5 over the cross cache
+   with half its frames valid must exceed it; a profile; int8 (bytes, logit
+   gap, the dequantisation fault, the plain replay, a short generate);
+   DeepSVRP (RTRAIN's settings, 2 rounds, uniform tokens, 256 frames a row:
+   K4 = K4b = 72 a pass, K3 8 a round) and 2 AdamW steps at full size with
+   exact counts, a round profile, the round replayed with the plain versions
+   at 256 tokens a row, the
+   reduced model in float32 on the card against the CPU with K4b's fault
+   beyond the limit; an `audio_seconds` line;
+36. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
    K7b, each with the design it ran on the main path as `kernel_route`;
-   the launches of K3, K4, K4b and K5 add the moe path's), then the `ok`
-   line.
+   the launches of K3, K4, K4b and K5 add the moe and audio paths'), then
+   the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -554,7 +579,7 @@ RTRAIN = {**{k: v for k, v in TRAIN.items() if k != "arch"}, "coins": (True, Fal
 # 0.14 / 0.13): bf16 rounding hides them, so they are held in float32 on the
 # reduced models (`phase_recurrent_reduced`), as the serving phases hold
 # K6's.
-RTRAIN_REPLAY_SEQ = {"hybrid": 256, "rwkv": 64}
+RTRAIN_REPLAY_SEQ = {"hybrid": 256, "rwkv": 64, "audio": 256}
 # The reduced models in float32, card against CPU: one DeepSVRP round and 3
 # AdamW steps, relative L2 of the parameters (and gbar, the loss).
 RTRAIN_REDUCED_REL_TOL = {"hybrid": 1e-4, "rwkv": 1e-5}
@@ -584,11 +609,18 @@ RTRAIN_FEDLM = dict(clients=3, batch=2, seq=64, rounds=2, local_steps=2, seeds=2
 # RTRAIN's settings; the reduced deepseek in float32 on the card against
 # the CPU at the hybrid family's limit.
 MOE = dict(arch="deepseek-moe-16b", prefill=(4, 2048), max_batch=8, cache_len=1024,
-           new_tokens=32, prompt_lens=(64, 129), f32_layers=4, train_layers=4)
+           new_tokens=32, f32_layers=4, train_layers=4)
 MOE_ZIPF = 1.0
 MOE_PREFILL_CALLS = 2
 MOE_F32_REL_TOL = HYBRID_F32_REL_TOL
 MOE_REDUCED_REL_TOL = RTRAIN_REDUCED_REL_TOL["hybrid"]
+# The audio path (seamless-m4t-large-v2, whole on the card in every phase):
+# prefill 4 x 2048 tokens over 4 x 1024 frames (`frontend_len`), generate on
+# 8 prompts of 64-128 tokens over 8 x 1024 frames with 32 greedy tokens, and
+# training at RTRAIN's settings with F = max(S // 4, 16) = 256 frames a row.
+AUDIO = dict(arch="seamless-m4t-large-v2", prefill=(4, 2048), frames=1024, max_batch=8,
+             cache_len=1024, new_tokens=32)
+AUDIO_REDUCED_REL_TOL = RECURRENT_PATHS_REL_TOL
 
 class SmokeFailure(Exception):
     pass
@@ -724,7 +756,7 @@ ADAMW_KERNELS = ("flash_attention", "flash_attention_bwd")
 HYBRID_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd", "flash_attention", "flash_attention_bwd")
 RWKV_TRAIN_KERNELS = ("rwkv6_scan", "rwkv6_scan_bwd")
 PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training", "optim",
-         "quant", "recurrent_train", "moe")
+         "quant", "recurrent_train", "moe", "audio")
 
 
 def _wrapper(name):
@@ -2236,6 +2268,8 @@ def k5_case(gen, B, S, H, KVH, Dh, q_dtype, cache_dtype, mask_kind):
     idx = torch.arange(S, device="cuda")
     if mask_kind == "prefix":  # a full cache at position 3000
         valid = idx <= 3000
+    elif mask_kind == "all":  # a cache written once, every row valid (the audio cross cache)
+        valid = torch.ones(S, dtype=torch.bool, device="cuda")
     else:  # a ring buffer of S slots at position 5000 under a 2048-token window
         pos, window = 5000, 2048
         abs_pos = idx + S * torch.div(pos - idx, S, rounding_mode="floor")
@@ -2386,13 +2420,15 @@ REPLAY_CHECK_KEYS = ("rel_err_vs_plain_max", "rel_err_vs_plain_median", "planted
 
 def decode_replay(cfg, params, prompts, out, cache_len: int, plain=plain_attention,
                   fault=lambda: plain_attention(fault=True),
-                  kernel=contextlib.nullcontext) -> dict:
+                  kernel=contextlib.nullcontext, frames=None) -> dict:
     """A served batch replayed teacher-forced on the card: every step with the
     kernels (under ``kernel()``) and with the plain versions (``plain()``,
     default the plain attention) in lockstep, each step's logits compared,
     and from the last prompt token on, on a copy of the plain run's cache,
     under ``fault()`` (default a planted K5 fault: one half-warp stream's rows
-    dropped)."""
+    dropped).  With ``frames`` (the audio family), each run's cache is built
+    from them under its own context: the encoder through K4 or the plain
+    attention."""
     import numpy as np
     import torch
 
@@ -2407,8 +2443,12 @@ def decode_replay(cfg, params, prompts, out, cache_len: int, plain=plain_attenti
         seq[i, plen - len(p):plen] = p
         seq[i, plen:] = o
     seq = torch.from_numpy(seq).cuda()
-    cache_k = init_decode_cache(cfg, n, cache_len, dtype=torch.float32)
-    cache_p = init_decode_cache(cfg, n, cache_len, dtype=torch.float32)
+    kw = {} if frames is None else dict(params=params, batch={"frames": frames})
+    with torch.inference_mode():
+        with kernel():
+            cache_k = init_decode_cache(cfg, n, cache_len, dtype=torch.float32, **kw)
+        with plain():
+            cache_p = init_decode_cache(cfg, n, cache_len, dtype=torch.float32, **kw)
     # the step's figures stay on the card until the end: a read-back each
     # step would hold the host to the device's pace
     rels, agree, reproduced, fault_rels = [], [], [], []
@@ -2550,10 +2590,12 @@ def phase_serving():
     return cfg, params, tokens, launches
 
 
-def phase_serving_profile(cfg, params, tokens) -> None:
+def phase_serving_profile(cfg, params, tokens, frames=None) -> None:
     """Where serving time goes: one prefill call, and 16 decode steps of the
     8-row batch at positions 528-543 of a 1024-slot float32 cache (after a
-    warm-up round of 16 steps from position 512)."""
+    warm-up round of 16 steps from position 512).  With ``frames`` (the audio
+    family), the prefill reads them and the cache is built from their rows,
+    repeated to 8."""
     import torch
 
     from repro_torch.launch import make_prefill_step, make_serve_step
@@ -2561,7 +2603,14 @@ def phase_serving_profile(cfg, params, tokens) -> None:
 
     prefill = make_prefill_step(cfg)
     step = make_serve_step(cfg)
-    cache = init_decode_cache(cfg, 8, 1024, dtype=torch.float32)
+    inputs = {"tokens": tokens}
+    kw = {}
+    if frames is not None:
+        inputs["frames"] = frames
+        rows = frames[torch.arange(8, device=frames.device) % frames.shape[0]]
+        kw = dict(params=params, batch={"frames": rows})
+    with torch.inference_mode():
+        cache = init_decode_cache(cfg, 8, 1024, dtype=torch.float32, **kw)
     tok = tokens.reshape(-1)[:8]
     pos = iter(range(512, 10**6))
 
@@ -2570,7 +2619,7 @@ def phase_serving_profile(cfg, params, tokens) -> None:
             step(params, cache, tok, next(pos))
 
     B, S = tokens.shape
-    for label, fn in ((f"prefill {B} x {S}", lambda: prefill(params, {"tokens": tokens})),
+    for label, fn in ((f"prefill {B} x {S}", lambda: prefill(params, inputs)),
                       ("decode 16 steps x 8 rows", decode16)):
         wall_ms, kernels = profiled(fn, 1)
         busy_ms = sum(t for t, _ in kernels.values()) / 1e3 if kernels else None
@@ -3366,16 +3415,16 @@ def k4b_case(gen, B, Sq, Skv, H, KVH, Dh, dtype, *, causal=True, window=None, q_
     esz = q.element_size()
     b_ms, b_by = bound_ms((4 * q.numel() + 4 * k.numel()) * esz + 4 * lse.numel(),
                           10 * B * H * Dh * pairs, dname)
-    check(causal and window is None and Sq == Skv and q_offset == 0,
-          "the SDPA yardstick is timed at causal, unwindowed shapes only")
+    check(window is None and q_offset == 0 and (not causal or Sq == Skv),
+          "the SDPA yardstick is timed at unwindowed shapes, square where causal")
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
 
     def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
         return torch.autograd.grad(o, (qt, kt, vt), dot)
 
-    o_kept = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    o_kept = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     def sdpa_bwd():  # the backward alone: one forward's graph, kept
         return torch.autograd.grad(o_kept, (qt, kt, vt), dot, retain_graph=True)
@@ -3631,6 +3680,7 @@ PROFILE_GROUPS = {
     "rwkv": {"K7b": ("(anonymous namespace)::chunk_increments<", "(anonymous namespace)::combine<",
                      "(anonymous namespace)::body<", "(anonymous namespace)::du_reduce(")},
 }
+PROFILE_GROUPS["audio"] = {k: PROFILE_GROUPS["hybrid"][k] for k in ("K4b", "K4")}
 
 
 def phase_train_profile(step, helpers, batch, label: str = "train_profile",
@@ -4578,19 +4628,33 @@ def recurrent_batch(cfg, per_cohort_batch: int, seq_len: int) -> dict:
     """C cohorts of b x S tokens from `SyntheticLMDataset` (seed 0), cohort-major, on the card.
     Drawn once for each (vocabulary, b, S) and kept in host memory: the Markov
     source samples a token at a time over the whole vocabulary (seconds at
-    deepseek's 102,400), and the DeepSVRP and AdamW phases take the same batch."""
+    deepseek's 102,400), and the DeepSVRP and AdamW phases take the same batch.
+    The audio family's tokens are uniform over its 256,206 ids instead (numpy
+    seed 0; the Markov draw is the slower the larger the vocabulary), and its
+    rows also get F =
+    max(S // 4, 16) frames each (the reference's training shapes,
+    `repro/configs/shapes.py`), `audio_frames`."""
+    import numpy as np
     import torch
 
     from repro_torch.data import ShardedBatcher, SyntheticLMDataset
 
     C = RTRAIN["cohorts"]
     key = (cfg.vocab_size, per_cohort_batch, seq_len)
+    if key not in _RECURRENT_BATCHES and cfg.family == "audio":
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                 (C * per_cohort_batch, seq_len + 1))
+        _RECURRENT_BATCHES[key] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if key not in _RECURRENT_BATCHES:
         ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
         _RECURRENT_BATCHES[key] = ShardedBatcher(ds, num_cohorts=C,
                                                  per_cohort_batch=per_cohort_batch,
                                                  seq_len=seq_len).next_batch()
-    return {k: torch.from_numpy(v).cuda() for k, v in _RECURRENT_BATCHES[key].items()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in _RECURRENT_BATCHES[key].items()}
+    if cfg.family == "audio":
+        batch["frames"] = audio_frames(batch["tokens"].shape[0], max(seq_len // 4, 16), cfg,
+                                       seed=7)
+    return batch
 
 
 def _svrp_config():
@@ -4653,7 +4717,9 @@ def phase_recurrent_train(fam: TrainFamily):
     tokens = C * b * S
     steady = float(np.mean(ms[1:]))
     emit({"phase": f"{fam.label}_train", "model": model, "params": n_params,
-          "batch": list(batch["tokens"].shape), "cohorts": C, "local_steps": K,
+          "batch": list(batch["tokens"].shape),
+          **({"frames": list(batch["frames"].shape[:2])} if "frames" in batch else {}),
+          "cohorts": C, "local_steps": K,
           "eta": RTRAIN["eta"], "local_lr": RTRAIN["local_lr"], "coins": list(RTRAIN["coins"]),
           "losses": losses, "ms_per_round": ms, "ms_per_round_after_first": steady,
           "tokens_per_round": tokens, "trained_tokens_per_s": tokens / steady * 1e3,
@@ -4682,8 +4748,11 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=Non
     C = RTRAIN["cohorts"]
     b = batch["tokens"].shape[0] // C
     S = fam.replay_seq
-    shards = [{k: v[c * b:(c + 1) * b, :S].long() for k, v in batch.items()} for c in range(C)]
-    cut = {k: v[:, :S] for k, v in batch.items()}
+
+    def cut(rows):  # tokens and labels cut to S; an audio row's frames whole
+        return {k: v[rows] if k == "frames" else v[rows, :S].long() for k, v in batch.items()}
+
+    shards = [cut(slice(c * b, (c + 1) * b)) for c in range(C)]
 
     def loss(params, shard):
         return M.loss_fn(params, cfg, shard)
@@ -4709,7 +4778,7 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=Non
                 g0 = _tree(lambda t: t.float() / C, g) if g0 is None else \
                     _tree(lambda a, t: a.add_(t.float() / C), g0, g)
                 del g
-            new, _ = step(state, cut, refresh=False)
+            new, _ = step(state, cut(slice(None)), refresh=False)
         torch.cuda.synchronize()
         entry = {"wall_s": time.perf_counter() - t0, "loss_at_x0": loss0}
         if mode == "kernels":
@@ -4766,8 +4835,12 @@ def phase_recurrent_reduced(fam: TrainFamily) -> dict:
     cfg = _reduced_f32(fam.arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     fam.randomize(params, cfg, 5)
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, fam.reduced_seq))
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, (4, fam.reduced_seq))
     batch_cpu = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)}
+    if cfg.family == "audio":  # (4, frontend_len, d_model) frames from the same numpy seed
+        batch_cpu["frames"] = torch.from_numpy(
+            rng.standard_normal((4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
     C = 2
     svrp = DeepSVRPConfig(eta=1.0, local_lr=0.05, local_steps=2, anchor_prob=0.5)
     gbar = _tree(lambda t: t / C, grad_of(lambda p, b: M.loss_fn(p, cfg, b),
@@ -5044,14 +5117,15 @@ def moe_tokens(vocab: int):
     return torch.from_numpy(rng.permutation(vocab)[ranks]).cuda()
 
 
-def moe_prompts(tokens):
+def cut_prompts(tokens):
     """8 prompts of 64-128 tokens (lengths from numpy seed 0), cut from the
-    rows of ``tokens`` (B x S): prompt i from row i % B at (i // B) S / 2."""
+    rows of ``tokens`` (B x S): prompt i from row i % B at (i // B) S / 2
+    (the moe and audio paths' prompts)."""
     import numpy as np
 
     rows = tokens.cpu().numpy()
     B, S = rows.shape
-    lens = np.random.default_rng(0).integers(*MOE["prompt_lens"], 8)
+    lens = np.random.default_rng(0).integers(64, 129, 8)
     return [rows[i % B, (i // B) * S // 2:][:n].tolist() for i, n in enumerate(lens)]
 
 
@@ -5173,7 +5247,7 @@ def phase_moe_serving(holder: dict) -> dict:
     # (b) batched greedy generation (prefill by teacher-forced decode)
     serve = ServeConfig(max_batch=MOE["max_batch"], cache_len=MOE["cache_len"])
     server = BatchServer(cfg, params, serve)
-    prompts = moe_prompts(tokens)
+    prompts = cut_prompts(tokens)
     new = MOE["new_tokens"]
     server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
     plen = max(len(p) for p in prompts)
@@ -5283,7 +5357,7 @@ def phase_moe_quant(holder: dict) -> dict:
     with tape.record():
         int8_last = run()
     plain = routed_replay(tape, run, int8_last, plain_attention)
-    prompts = [p[:plen] for p in moe_prompts(tokens)[:n]]
+    prompts = [p[:plen] for p in cut_prompts(tokens)[:n]]
     zero_launch_counts(SERVE_KERNELS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5433,6 +5507,380 @@ def phase_moe() -> dict:
     return {"parity": parity, "launches": launches}
 
 
+# ------------------------------------------------- audio (K4, K5, K4b, K3)
+def audio_frames(n: int, F: int, cfg, seed: int):
+    """(n, F, d_model) frame embeddings in the compute dtype, drawn on the
+    card from a `torch.Generator` seeded ``seed`` (unit normal, float32 first)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, F, cfg.d_model), generator=gen, device="cuda", dtype=torch.float32)
+    return x.to(getattr(torch, cfg.compute_dtype))
+
+
+def audio_tokens(vocab: int):
+    """The audio path's 4 x 2048 prefill tokens, uniform over the vocabulary (numpy seed 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    return torch.from_numpy(rng.integers(0, vocab, AUDIO["prefill"])).cuda()
+
+
+def audio_counts(cfg) -> tuple[dict, dict, dict]:
+    """K4 a prefill call (each encoder layer; each decoder layer's self- and
+    cross-attention), K5 a decode step (each decoder layer over the token
+    cache and over the cross cache), K4 a cache init (the encoder)."""
+    E, L = cfg.encoder_layers, cfg.num_layers
+    return ({"flash_attention": E + 2 * L, "decode_attention": 0},
+            {"flash_attention": 0, "decode_attention": 2 * L},
+            {"flash_attention": E, "decode_attention": 0})
+
+
+def audio_model(cfg, params) -> str:
+    from repro_torch.utils.tree import tree_leaves
+
+    n = sum(t.numel() for t in tree_leaves(params))
+    n_norms = (2 * cfg.encoder_layers + 3 * cfg.num_layers + 2) * cfg.d_model
+    check(cfg.name == AUDIO["arch"] and n == cfg.param_count() + n_norms,
+          f"{cfg.name}: {n} parameters, want {cfg.param_count()} + {n_norms} norm scales")
+    return (f"{cfg.name}: {cfg.encoder_layers} encoder layers (non-causal, RoPE at frame "
+            f"positions) + {cfg.num_layers} decoder layers (causal self-attention, "
+            f"cross-attention over the memory), d_model {cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads Dh {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, {cfg.param_dtype}, {n} parameters")
+
+
+def cross_causal():
+    """A planted fault: the decoder's cross-attention run causal (row i sees
+    frames 0..i), through whichever attention `ops.attention` holds."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    cross = layers.cross_attn_apply
+
+    def faulty(p, cfg, x, memory):
+        attention = ops.attention
+        with rebind(ops, attention=lambda q, k, v, **kw: attention(q, k, v, **{**kw,
+                                                                               "causal": True})):
+            return cross(p, cfg, x, memory)
+
+    return rebind(layers, cross_attn_apply=faulty)
+
+
+def encoder_causal():
+    """A planted fault: the encoder's self-attention run causal."""
+    from repro_torch.models import encdec, transformer
+
+    return rebind(encdec, _attn_cfg=lambda cfg, causal=True: transformer._attn_cfg(cfg))
+
+
+def cross_half_valid():
+    """A planted fault: K5 over the cross cache with only its first half of frames valid."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    return rebind(encdec, cross_valid=lambda F, device: torch.arange(F, device=device) < F // 2)
+
+
+AUDIO_PREFILL_FAULTS = {"k4_first_tile_skipped": lambda: plain_attention(fault=True),
+                        "cross_attention_causal": cross_causal,
+                        "encoder_causal": encoder_causal}
+
+
+def audio_prefill_check(run, want) -> dict:
+    """``run()`` (last-position logits) with the plain attention against
+    ``want`` (the kernels' run), and each of AUDIO_PREFILL_FAULTS against
+    the plain run; every fault must move the logits past SERVE_REL_TOL."""
+    with plain_attention():
+        plain = run()
+    res = {"rel_err_vs_plain": rel_err(want, plain), "planted_faults": {}}
+    for name, fault in AUDIO_PREFILL_FAULTS.items():
+        with fault():
+            res["planted_faults"][name] = rel_err(run(), plain)
+    return res
+
+
+def check_audio_prefill(res: dict, what: str) -> None:
+    check(res["rel_err_vs_plain"] <= SERVE_REL_TOL,
+          f"{what}: logits differ from the plain replay by {res['rel_err_vs_plain']}")
+    for name, err in res["planted_faults"].items():
+        check(err > SERVE_REL_TOL, f"{what}: the planted fault {name} moved the logits by "
+                                   f"only {err}")
+
+
+def phase_audio_parity() -> dict:
+    """K4 in the audio path's three roles (bf16, 16/16 heads, G = 1, Dh 64):
+    the encoder's self-attention (non-causal, F x F), the decoder's (causal)
+    and its cross-attention (non-causal, S x F), at the serving shapes
+    (4 x 2048 tokens over 4 x 1024 frames); K4b at the training shapes (2 x
+    1024 tokens over 2 x 256 frames); K5 over a 1024-frame cross
+    cache, every frame valid (float32 and bf16 caches).  Each with its
+    planted faults, timed queued beside SDPA (is_causal as the role)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = AUDIO["prefill"]
+    F = AUDIO["frames"]
+    St, Ft = RTRAIN["seq_len"], max(RTRAIN["seq_len"] // 4, 16)
+    roles = (("encoder", F, F, False), ("decoder_self", S, S, True), ("cross", S, F, False))
+    k4 = [dict(role=role, **k4_case(gen, B, sq, skv, 16, 16, 64, bf16, causal=causal,
+                                    plant_fault=True, queued=True))
+          for role, sq, skv, causal in roles]
+    train_roles = (("encoder", Ft, Ft, False), ("decoder_self", St, St, True),
+                   ("cross", St, Ft, False))
+    k4b = [dict(role=role, **k4b_case(gen, 2, sq, skv, 16, 16, 64, bf16, causal=causal,
+                                      timed=True))
+           for role, sq, skv, causal in train_roles]
+    k5 = [dict(role="cross cache", **k5_case(gen, 8, F, 16, 16, 64, bf16, c, "all"))
+          for c in (f32, bf16)]
+    emit({"phase": "audio_parity", "flash_attention": k4, "decode_attention": k5,
+          "flash_attention_bwd": k4b,
+          "library": "SDPA (K4: forward, is_causal as the role; K5: one decode call; K4b: "
+                     "forward + backward, and its backward alone), timed only as a yardstick"})
+    return {"flash_attention": k4, "decode_attention": k5, "flash_attention_bwd": k4b}
+
+
+def phase_audio_serving(holder: dict) -> dict:
+    """seamless-m4t-large-v2 at full width and depth in bf16 (seed-0 weights
+    on the card): prefill 4 x 2048 tokens over 4 x 1024 frames and generate
+    on 8 prompts over 8 x 1024 frames through K4 and K5, both replayed with
+    the plain attention and with their planted faults; a profile.  Leaves
+    the weights in ``holder`` for the int8 phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_config(AUDIO["arch"])
+    per_call, per_step, per_cache = audio_counts(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg)  # seed 0 on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = audio_model(cfg, params)
+
+    # (a) prefill: 4 x 2048 tokens over 4 x 1024 frames, last-position logits
+    prefill = make_prefill_step(cfg)
+    B, S = AUDIO["prefill"]
+    F = AUDIO["frames"]
+    tokens = audio_tokens(cfg.vocab_size)
+    frames = audio_frames(B, F, cfg, seed=2)
+    batch = {"tokens": tokens, "frames": frames}
+    prefill(params, {"tokens": tokens[:, :128], "frames": frames[:, :64]})  # warm-up
+    calls = MOE_PREFILL_CALLS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    want = {k: n * calls for k, n in per_call.items()}
+    check(prefill_counts == want, f"audio prefill launches {prefill_counts}, want {want}")
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"audio prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
+    check_pre = audio_prefill_check(lambda: prefill(params, batch), logits)
+    emit({"phase": "audio_prefill_check", **check_pre, "rel_tol": SERVE_REL_TOL})
+    check_audio_prefill(check_pre, "audio prefill")
+    emit({"phase": "audio_prefill", "model": model, "init_s": init_s, "batch": [B, S],
+          "frames": [B, F], "calls": calls, "s_per_call": prefill_s,
+          "tokens_per_s": B * S / prefill_s, "peak_mem_gb": prefill_peak / 1e9,
+          "launches": prefill_counts, "rel_err_vs_plain": check_pre["rel_err_vs_plain"],
+          "rel_tol": SERVE_REL_TOL, "max_abs_logit": logits.float().abs().max().item()})
+    del logits
+
+    # (b) batched greedy generation over 8 x 1024 frames (prefill by teacher-forced decode)
+    serve = ServeConfig(max_batch=AUDIO["max_batch"], cache_len=AUDIO["cache_len"])
+    server = BatchServer(cfg, params, serve)
+    prompts = cut_prompts(tokens)
+    gframes = audio_frames(len(prompts), F, cfg, seed=3)
+    new = AUDIO["new_tokens"]
+    server.generate([p[:8] for p in prompts], max_new_tokens=2, frames=gframes)  # warm-up
+    plen = max(len(p) for p in prompts)
+    steps = plen + new - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new, frames=gframes)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(SERVE_KERNELS)
+    gen_peak = torch.cuda.max_memory_allocated()
+    want = {k: per_step[k] * steps + per_cache[k] for k in per_step}
+    check(gen_counts == want, f"audio generate launches {gen_counts}, want {want} ({steps} "
+                              f"steps, one cache init)")
+    check(len(out) == len(prompts) and all(len(o) == new and all(0 <= t < cfg.vocab_size
+                                                                 for t in o) for o in out),
+          "audio generate returned malformed tokens")
+
+    # (c) teacher-forced replay: the kernels and the plain attention in
+    # lockstep, each run's cache built by its own encoder; the fault: K5 over
+    # the cross cache with only the first half of the frames valid
+    rep = decode_replay(cfg, params, prompts, out, serve.cache_len, frames=gframes,
+                        fault=lambda: entered(plain_attention(), cross_half_valid()))
+    emit({"phase": "audio_generate_check", **{k: rep[k] for k in REPLAY_CHECK_KEYS},
+          "fault": "cross cache: first half of the frames valid", "rel_tol": SERVE_REL_TOL})
+    check_decode_replay(rep, "audio ", kernel="cross-cache K5")
+    emit({"phase": "audio_generate", "prompts": [len(p) for p in prompts],
+          "frames": list(gframes.shape[:2]), "max_batch": serve.max_batch,
+          "cache_len": serve.cache_len, "cache_dtype": serve.cache_dtype, "new_tokens": new,
+          "decode_steps": steps, "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
+          "decode_floor_ms": audio_decode_floor_ms(cfg, len(prompts)),
+          "decode_tokens_per_s": len(prompts) * steps / gen_s,
+          "generated_tokens_per_s": len(prompts) * new / gen_s, "peak_mem_gb": gen_peak / 1e9,
+          "launches": gen_counts, "rel_tol": SERVE_REL_TOL, **rep})
+    phase_serving_profile(cfg, params, tokens, frames=frames)
+    holder.update(cfg=cfg, params=params, batch=batch, prompts=prompts, gframes=gframes)
+    return {"flash_attention": prefill_counts["flash_attention"] + gen_counts["flash_attention"],
+            "decode_attention": gen_counts["decode_attention"]}
+
+
+def audio_decode_floor_ms(cfg, rows: int) -> float:
+    """The least time of a decode step: the decoder's weights and the head
+    read once (bf16), and the cross cache's K and V (float32, ``rows`` x
+    frames) read once, over the card's memory rate; the token cache not
+    counted."""
+    d, L = cfg.d_model, cfg.num_layers
+    layer = 2 * (4 * d * cfg.num_heads * cfg.head_dim) + 3 * d * cfg.d_ff
+    nbytes = 2 * (L * layer + d * cfg.vocab_size)
+    nbytes += 4 * 2 * L * rows * AUDIO["frames"] * cfg.num_kv_heads * cfg.head_dim
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_audio_quant(holder: dict) -> dict:
+    """seamless-m4t-large-v2 in int8 (`BatchServer(quantize=True)`): its
+    bytes against bf16's, the last-position prefill logits against the bf16
+    model's (QUANT_LOGIT_GAP; the planted dequantisation fault beyond it),
+    the int8 prefill replayed with the plain attention (SERVE_REL_TOL), a
+    short generate; exact launch counts.  The bf16 weights are dropped once
+    quantized."""
+    import torch
+
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.utils.tree import tree_bytes
+
+    cfg, params, batch = holder.pop("cfg"), holder.pop("params"), holder.pop("batch")
+    prompts, gframes = holder.pop("prompts"), holder.pop("gframes")
+    per_call, per_step, per_cache = audio_counts(cfg)
+    bf16_bytes = tree_bytes(params)
+    prefill = make_prefill_step(cfg)
+    bf16_last = prefill(params, batch)
+    n, plen, new = QUANT_SHORT["prompts"], QUANT_SHORT["prompt_len"], QUANT_SHORT["new_tokens"]
+    t0 = time.perf_counter()
+    server = BatchServer(cfg, params, ServeConfig(max_batch=n, cache_len=AUDIO["cache_len"],
+                                                  quantize=True))
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    qparams = server.params
+    int8_bytes = tree_bytes(qparams)
+    calls = MOE_PREFILL_CALLS
+    zero_launch_counts(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        int8_last = prefill(qparams, batch)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+    gap = {"max_rel_gap": max_rel_gap(int8_last, bf16_last)}
+    with dequant_fault():
+        gap["planted_dequant_fault"] = max_rel_gap(prefill(qparams, batch), bf16_last)
+    with plain_attention():
+        plain = {"rel_err_vs_plain": rel_err(int8_last, prefill(qparams, batch))}
+    short = [p[:plen] for p in prompts[:n]]
+    zero_launch_counts(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.generate(short, max_new_tokens=new, frames=gframes[:n])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(SERVE_KERNELS)
+    steps = plen + new - 1
+    res = {"phase": "quant_audio", "model": f"{cfg.name}, int8 weights",
+           "bf16_tree_gb": bf16_bytes / 1e9, "int8_tree_gb": int8_bytes / 1e9,
+           "bytes_ratio": int8_bytes / bf16_bytes, "quantize_s": quantize_s,
+           "prefill_batch": list(batch["tokens"].shape), "prefill_s_per_call": prefill_s,
+           "prefill_tokens_per_s": batch["tokens"].numel() / prefill_s,
+           "prefill_launches": prefill_counts, "logit_gap_vs_bf16": gap,
+           "logit_gap_tol": QUANT_LOGIT_GAP, "prefill_vs_plain": plain, "rel_tol": SERVE_REL_TOL,
+           "generate": {"prompts": n, "prompt_len": plen, "new_tokens": new, "steps": steps,
+                        "ms_per_decode_step": gen_s / steps * 1e3, "launches": gen_counts}}
+    emit(res)
+    del server, qparams
+    torch.cuda.empty_cache()
+    check(res["bytes_ratio"] <= QUANT_BYTES_RATIO,
+          f"audio int8 tree {int8_bytes} bytes > {QUANT_BYTES_RATIO} x bf16's {bf16_bytes}")
+    want = {k: v * calls for k, v in per_call.items()}
+    check(prefill_counts == want, f"audio int8 prefill launches {prefill_counts}, want {want}")
+    want = {k: per_step[k] * steps + per_cache[k] for k in per_step}
+    check(gen_counts == want, f"audio int8 generate launches {gen_counts}, want {want}")
+    check(gap["max_rel_gap"] <= QUANT_LOGIT_GAP, f"audio int8 prefill logits {gap} from bf16's")
+    check(gap["planted_dequant_fault"] > QUANT_LOGIT_GAP,
+          f"a planted dequantisation fault moved the audio logits by only {gap}")
+    check(plain["rel_err_vs_plain"] <= SERVE_REL_TOL,
+          f"audio int8 prefill differs from its plain replay by {plain}")
+    check(len(out) == n and all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+                                for o in out), "audio int8 generate: malformed tokens")
+    return res
+
+
+def _audio_pass(cfg) -> dict:
+    n = cfg.encoder_layers + 2 * cfg.num_layers
+    return {"flash_attention": n, "flash_attention_bwd": n}
+
+
+AUDIO_TRAIN = TrainFamily(
+    label="audio", arch=AUDIO["arch"], kernels=ADAMW_KERNELS, per_pass=_audio_pass,
+    per_forward=lambda cfg: {**_audio_pass(cfg), "flash_attention_bwd": 0}, describe=audio_model,
+    randomize=lambda params, cfg, seed: None,
+    scan_fault=lambda: rebind(_kernel_module("flash_attention"), _BWD_SKIP_KEY_TILES=1),
+    replay_seq=RTRAIN_REPLAY_SEQ["audio"], reduced_tol=AUDIO_REDUCED_REL_TOL, reduced_seq=64)
+
+
+def phase_audio() -> dict:
+    """The audio path: parity in its roles, seamless-m4t-large-v2 served in
+    bf16 and int8 at full size, DeepSVRP and AdamW at full size, the reduced
+    model against the CPU."""
+    import torch
+
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    parity = timed("parity", phase_audio_parity)
+    holder = {}
+    serving = timed("serving", phase_audio_serving, holder)
+    timed("int8", phase_audio_quant, holder)
+    cfg, step, helpers, batch, train = timed("train", phase_recurrent_train, AUDIO_TRAIN)
+    timed("train_profile", phase_train_profile, step, helpers, batch,
+          label="audio_train_profile", groups=PROFILE_GROUPS["audio"])
+    timed("train_replay", phase_recurrent_replay, AUDIO_TRAIN, cfg, step, helpers, batch)
+    del cfg, step, helpers, batch
+    timed("adamw", phase_recurrent_adamw, AUDIO_TRAIN)
+    timed("reduced", phase_recurrent_reduced, AUDIO_TRAIN)
+    emit({"phase": "audio_seconds", **seconds, "total": sum(seconds.values())})
+    launches = {"flash_attention": serving["flash_attention"] + train["flash_attention"],
+                "decode_attention": serving["decode_attention"],
+                "flash_attention_bwd": train["flash_attention_bwd"],
+                "prox_update": train["prox_update"]}
+    return {"parity": parity, "launches": launches}
+
+
 # The design each kernel runs on the main path, for the kernels line where its
 # parity result names none (K4, K4b, K6 and K6b name theirs: `forward_route`,
 # `backward_route`, `scan_route`, `bwd_route`).
@@ -5450,7 +5898,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "twelve and prints the kernels line")
+                         "thirteen and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5537,6 +5985,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if run["moe"]:
             moe = phase_moe()
+            torch.cuda.empty_cache()
+        if run["audio"]:
+            audio = phase_audio()
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5546,7 +5997,8 @@ def main(argv=None) -> int:
     # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
     # server's default float32 cache); hybrid serving (K6), rwkv serving (K7;
     # launches: prefill and generate) and training in bf16.  The launches of
-    # K3, K4, K4b and K5 add the moe path's (prefill and generate, DeepSVRP).
+    # K3, K4, K4b and K5 add the moe and audio paths' (prefill and generate,
+    # DeepSVRP).
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -5586,7 +6038,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "kernel_route": p.get("route", KERNEL_ROUTES.get(name)),
             "source": source, "replaces": replaces,
-            "launches": counts[name] + moe["launches"].get(name, 0),
+            "launches": counts[name] + moe["launches"].get(name, 0)
+            + audio["launches"].get(name, 0),
             "max_abs_err": p["max_abs_err"], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p.get("library_ms"),

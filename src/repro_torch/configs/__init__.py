@@ -1,9 +1,9 @@
 """Architecture registry of the port: `get_config("<arch-id>")`.
 
-The dense family, the hybrid family (zamba2), the ssm family (rwkv6) and the
-moe family (deepseek-moe, qwen3-moe) are ported; every other architecture of
-the zoo is known by name and raises `NotImplementedError` until its slice
-lands.
+The dense family, the hybrid family (zamba2), the ssm family (rwkv6), the
+moe family (deepseek-moe, qwen3-moe) and the audio family (seamless-m4t) are
+ported; the other architecture of the zoo (internvl2, vlm) is known by name
+and raises `NotImplementedError` until its slice lands.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.configs import (
     qwen3_4b,
     qwen3_moe_235b_a22b,
     rwkv6_1_6b,
+    seamless_m4t_large_v2,
     zamba2_2_7b,
 )
 from repro_torch.configs.base import ModelConfig
@@ -23,13 +24,12 @@ REGISTRY: dict[str, ModelConfig] = {
     c.name: c
     for c in [qwen2_1_5b.CONFIG, granite_3_2b.CONFIG, llama3_2_3b.CONFIG, qwen3_4b.CONFIG,
               zamba2_2_7b.CONFIG, rwkv6_1_6b.CONFIG, deepseek_moe_16b.CONFIG,
-              qwen3_moe_235b_a22b.CONFIG]
+              qwen3_moe_235b_a22b.CONFIG, seamless_m4t_large_v2.CONFIG]
 }
 
 # The zoo's other architectures (name -> family), still served by `repro` alone.
 NOT_PORTED: dict[str, str] = {
     "internvl2-76b": "vlm",
-    "seamless-m4t-large-v2": "audio",
 }
 
 ARCH_IDS = list(REGISTRY)

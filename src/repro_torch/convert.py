@@ -7,9 +7,10 @@ problem, and ``dp_shift`` with the DP metadata for a DP-ERM one),
 `fed_lm_x0_from_numpy` a federated LM's flat parameter vector from the
 reference's parameter tree, `hparams_from_numpy` a per-trial hparam table,
 `dense_params_from_numpy`, `hybrid_params_from_numpy`,
-`ssm_params_from_numpy` and `moe_params_from_numpy` a dense, hybrid
-(zamba2), ssm (rwkv6) or moe (deepseek-moe, qwen3-moe) model's parameter
-tree (`params_from_numpy` any of the four by ``cfg.family``),
+`ssm_params_from_numpy`, `moe_params_from_numpy` and
+`audio_params_from_numpy` a dense, hybrid (zamba2), ssm (rwkv6), moe
+(deepseek-moe, qwen3-moe) or audio (seamless-m4t) model's parameter tree
+(`params_from_numpy` any of the five by ``cfg.family``),
 `svrp_state_from_numpy` a DeepSVRP train state and
 `adamw_state_from_numpy` an AdamW train state, so both packages compute on
 the same data, the same weights and the same state; `state_to_numpy`
@@ -154,11 +155,24 @@ def moe_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
     return _params_from_numpy(tree, cfg, "moe", device, dtype or getattr(torch, cfg.param_dtype))
 
 
+def audio_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The port's parameters of the audio model ``cfg`` (seamless-m4t) from
+    the reference's params pytree with numpy leaves: the same nested dicts,
+    ``enc_layers`` leaves stacked (L_enc, ...) and ``dec_layers`` leaves
+    (L_dec, ...) with ``self_attn`` and ``cross_attn`` inside, as tensors of
+    ``dtype`` (default ``cfg.param_dtype``) on ``device`` (default CUDA).
+    Raises unless the tree has exactly the keys and shapes `init_params`
+    gives ``cfg``."""
+    return _params_from_numpy(tree, cfg, "audio", device,
+                              dtype or getattr(torch, cfg.param_dtype))
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
     """The port's parameters of ``cfg`` from the reference's, by ``cfg.family``
     (`dense_params_from_numpy`, `hybrid_params_from_numpy`,
-    `ssm_params_from_numpy`, `moe_params_from_numpy`): every leaf in
-    ``dtype``, or, with ``dtype`` None, in the dtype `init_params` gives it."""
+    `ssm_params_from_numpy`, `moe_params_from_numpy`,
+    `audio_params_from_numpy`): every leaf in ``dtype``, or, with ``dtype``
+    None, in the dtype `init_params` gives it."""
     return _params_from_numpy(tree, cfg, cfg.family, device, dtype)
 
 

@@ -1,4 +1,4 @@
-"""Batched serving engine: static batching over the dense, hybrid, ssm and moe decode paths.
+"""Batched serving engine: static batching over the dense, hybrid, ssm, moe and audio decode paths.
 
 The port of `repro.launch.serve`:
 
@@ -17,7 +17,12 @@ scan kernel K7 with T = 1 in every time-mix layer, from the carried state
 (the family's cache is that state and ignores ``cache_len`` and
 ``cache_dtype``); in the moe family through K5 at every layer, the router
 and every expert run as the reference runs them at one token (a capacity
-of 1 a row: each step reads every routed expert's weights).
+of 1 a row: each step reads every routed expert's weights).  The audio
+family (seamless-m4t) takes ``generate(..., frames=)``, one (F, d_model)
+row of frame embeddings a prompt: each group's cache is built from its
+frames (the encoder runs once, K4, and fills the cross cache, cast to
+``cache_dtype`` after its projection), and every decode step runs K5 twice
+a decoder layer, over the token cache and over the cross cache.
 
 With ``quantize=True`` the server quantizes the weights once, at
 construction (`repro_torch.quant.quantize_params`: int8 with per-channel
@@ -66,25 +71,39 @@ class BatchServer:
             raise ValueError(f"params are on {on}, the server runs on {self.device}")
         self.params = quantize_params(params) if self.serve.quantize else params
 
-    def _fresh_cache(self, batch: int):
+    def _fresh_cache(self, batch: int, frames=None):
+        kw = {}
+        if self.cfg.family == "audio":
+            kw = dict(params=self.params, batch={"frames": frames})
         return M.init_decode_cache(self.cfg, batch, self.serve.cache_len,
-                                   dtype=getattr(torch, self.serve.cache_dtype), device=self.device)
+                                   dtype=getattr(torch, self.serve.cache_dtype), device=self.device,
+                                   **kw)
 
     @torch.inference_mode()
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
-                 generator: torch.Generator | None = None) -> list[list[int]]:
+                 generator: torch.Generator | None = None, frames=None) -> list[list[int]]:
         """Returns the generated continuation (without the prompt) per request.
         ``generator`` drives temperature sampling (default: seed 0 on the
-        server's device)."""
+        server's device).  The audio family needs ``frames`` (len(prompts),
+        F, d_model): each group of prompts is served over its rows."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        if self.cfg.family == "audio":
+            if frames is None:
+                raise ValueError(f"{self.cfg.name}: audio serving needs the encoder's frames")
+            frames = torch.as_tensor(frames, device=self.device)
+            if frames.ndim != 3 or frames.shape[0] != len(prompts):
+                raise ValueError(f"{self.cfg.name}: frames {tuple(frames.shape)} do not match "
+                                 f"{len(prompts)} prompts: one (F, d_model) row a prompt")
         out: list[list[int]] = []
         B = self.serve.max_batch
         for ofs in range(0, len(prompts), B):
-            out.extend(self._generate_group(prompts[ofs:ofs + B], max_new_tokens, generator))
+            rows = None if frames is None else frames[ofs:ofs + B]
+            out.extend(self._generate_group(prompts[ofs:ofs + B], max_new_tokens, generator,
+                                            rows))
         return out
 
-    def _generate_group(self, group, max_new, generator):
+    def _generate_group(self, group, max_new, generator, frames=None):
         n = len(group)
         plen = max(len(p) for p in group)
         if plen + max_new > self.serve.cache_len:
@@ -96,7 +115,7 @@ class BatchServer:
             toks[i, plen - len(p):] = p
         toks = torch.from_numpy(toks).to(self.device)
 
-        cache = self._fresh_cache(n)
+        cache = self._fresh_cache(n, frames)
         logits = None
         for t in range(plen):  # prefill (teacher-forced decode)
             logits, cache = M.decode_step(self.params, self.cfg, toks[:, t], cache, t)

@@ -10,7 +10,7 @@ maths is the same:
     step, helpers = make_adamw_train_step(cfg)  # the "ordinary distributed SGD" baseline
     state = helpers["init_state"]()             # AdamWTrainState: params, float32 moments
     state, metrics = step(state, batch)         # {"loss", "grad_norm"}; state updated in place
-    prefill = make_prefill_step(cfg)            # (params, {"tokens": (B, S)}) -> (B, V)
+    prefill = make_prefill_step(cfg)            # (params, {"tokens": (B, S)[, "frames"]}) -> (B, V)
     serve = make_serve_step(cfg)                # (params, cache, token, pos) -> (logits, cache)
 
 The prefill and serve steps take a parameter tree or its int8 form
@@ -49,7 +49,12 @@ def _check_trainable(cfg: ModelConfig) -> None:
 
 
 def _device_batch(batch, dev) -> dict:
-    return {k: torch.as_tensor(batch[k], device=dev).long() for k in ("tokens", "labels")}
+    """``tokens`` and ``labels`` as int64 on ``dev``; the audio family's
+    ``frames`` (B, F, d_model) too, in their own dtype."""
+    out = {k: torch.as_tensor(batch[k], device=dev).long() for k in ("tokens", "labels")}
+    if "frames" in batch:
+        out["frames"] = torch.as_tensor(batch["frames"], device=dev)
+    return out
 
 
 def _accumulate(acc, tree):
@@ -86,6 +91,10 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     of the hybrid family through K6 and K6b (``ops.ssm_scan``), the WKV scans
     of the ssm family through K7 and K7b (``ops.rwkv6_scan``); the moe
     family's loss carries its load-balance term (`models.model.loss_fn`).
+    The audio family's batch carries ``frames`` (B, F, d_model), split over
+    the cohorts with the tokens; its passes run K4 and K4b in the encoder,
+    in the decoder's self-attention and in its cross-attention, whose dK and
+    dV flow back through the memory into the encoder.
     """
     _check_trainable(cfg)
     dev = resolve_device(device)
@@ -99,13 +108,11 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
 
     def split(batch):
         batch = _device_batch(batch, dev)
-        tokens, labels = batch["tokens"], batch["labels"]
-        if tokens.shape[0] % cohorts:
-            raise ValueError(f"batch of {tokens.shape[0]} rows does not split over "
-                             f"{cohorts} cohorts")
-        b = tokens.shape[0] // cohorts
-        return [{"tokens": tokens[c * b:(c + 1) * b], "labels": labels[c * b:(c + 1) * b]}
-                for c in range(cohorts)]
+        rows = batch["tokens"].shape[0]
+        if rows % cohorts:
+            raise ValueError(f"batch of {rows} rows does not split over {cohorts} cohorts")
+        b = rows // cohorts
+        return [{k: v[c * b:(c + 1) * b] for k, v in batch.items()} for c in range(cohorts)]
 
     def step(state: SVRPServerState, batch, *, refresh: bool | None = None):
         shards = split(batch)
@@ -194,13 +201,18 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
     """Full-sequence forward: flash attention (K4) at every attention layer
     or site of the dense, hybrid and moe families, the Mamba-2 scan (K6) in every
     Mamba-2 layer of the hybrid family, the WKV scan (K7) in every time-mix
-    layer of the ssm family; the step returns the last position's logits
-    (B, V)."""
+    layer of the ssm family; in the audio family K4 in each encoder layer
+    over ``batch["frames"]`` and twice in each decoder layer (causal
+    self-attention, cross-attention over the memory).  The step returns the
+    last position's logits (B, V)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def step(params, batch):
-        logits, _ = M.forward(params, cfg, {"tokens": torch.as_tensor(batch["tokens"], device=dev)})
+        inputs = {"tokens": torch.as_tensor(batch["tokens"], device=dev)}
+        if "frames" in batch:
+            inputs["frames"] = torch.as_tensor(batch["frames"], device=dev)
+        logits, _ = M.forward(params, cfg, inputs)
         return logits[:, -1].clone()  # a view would keep all B x S x V logits alive
 
     return step
@@ -208,8 +220,9 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
 
 def make_serve_step(cfg: ModelConfig, *, device=None):
     """One-token decode: decode attention (K5) at every attention layer or
-    site of the dense, hybrid and moe families, the WKV scan (K7) with T = 1 in
-    every time-mix layer of the ssm family:
+    site of the dense, hybrid and moe families (twice a decoder layer in the
+    audio family: the token cache, the cross cache), the WKV scan (K7) with
+    T = 1 in every time-mix layer of the ssm family:
     (params, cache, token (B,), pos) -> (logits (B, V), cache updated in place)."""
     dev = resolve_device(device)
 

@@ -7,7 +7,8 @@ dicts of tensors), the same maths and the same dtype casts:
     y = *_apply(params, x, ...)
 
 Attention goes through `kernels.ops`: the hand-written kernels for CUDA
-tensors (K4 for a full sequence, K5 for one decode token), their plain
+tensors (K4 for a full sequence or a cross-attention over an encoder's
+memory, K5 for one decode token), their plain
 PyTorch versions for CPU tensors.  The large projections stay
 `torch.matmul`, as the reference leaves them to XLA; an int8 weight
 (`repro_torch.quant`) is dequantised into the compute dtype just before its
@@ -142,6 +143,22 @@ def attn_apply(p, cfg: AttnConfig, x, rope):
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, rope)
     o = kops.attention(q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window)
+    return linear_apply(p["wo"], o.reshape(B, S, cfg.num_heads * cfg.head_dim))
+
+
+def cross_attn_apply(p, cfg: AttnConfig, x, memory):
+    """Cross-attention: queries from x (B, S, d), keys and values from the
+    encoder's memory (B, Sm, d); no RoPE, every memory row visible (K4
+    non-causal with Sq = S, Skv = Sm on the card)."""
+    B, S, _ = x.shape
+    Sm = memory.shape[1]
+    q = linear_apply(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = linear_apply(p["wk"], memory).reshape(B, Sm, cfg.num_kv_heads, cfg.head_dim)
+    v = linear_apply(p["wv"], memory).reshape(B, Sm, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q)
+        k = rmsnorm_apply(p["k_norm"], k)
+    o = kops.attention(q, k, v, causal=False, sliding_window=None)
     return linear_apply(p["wo"], o.reshape(B, S, cfg.num_heads * cfg.head_dim))
 
 

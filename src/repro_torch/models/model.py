@@ -1,5 +1,6 @@
 """Uniform model API — the port of `repro.models.model` for the dense,
-hybrid (zamba2), ssm (rwkv6) and moe (deepseek-moe, qwen3-moe) families.
+hybrid (zamba2), ssm (rwkv6), moe (deepseek-moe, qwen3-moe) and audio
+(seamless-m4t) families.
 
     params = init_params(cfg, generator, device=)  # weights from a torch.Generator
     logits, aux = forward(params, cfg, batch)        # batch: {tokens (B,S), labels (B,S)}
@@ -7,12 +8,17 @@ hybrid (zamba2), ssm (rwkv6) and moe (deepseek-moe, qwen3-moe) families.
     cache = init_decode_cache(cfg, batch_size, cache_len, device=)
     logits, cache = decode_step(params, cfg, token, cache, pos)
 
+The audio family's batches add ``frames`` (B, F, d_model), the precomputed
+frame embeddings its encoder reads, and its decode cache is built from them
+(``init_decode_cache(..., params=, batch={"frames": ...})``: the encoder runs
+once and fills the cross-attention cache).
+
 The ssm family's decode cache is its recurrent state (token shifts and WKV
 states, float32, constant in the sequence length): it ignores ``cache_len``
 and ``dtype``, as the reference's does.
 
-Every other family of the zoo raises `NotImplementedError` until its slice
-of the port lands.
+The vlm family raises `NotImplementedError` until its slice of the port
+lands.
 """
 from __future__ import annotations
 
@@ -20,31 +26,34 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, moe, rwkv, transformer
+from repro_torch.models import encdec, hybrid, moe, rwkv, transformer
 from repro_torch.models import layers as nn
 
 MOE_AUX_WEIGHT = 0.01
 
 
-def _zero_aux(forward):
-    """A family's forward returning (logits, aux) with aux 0: only the moe
-    family has a load-balance loss."""
-    def fwd(params, cfg, tokens):
-        logits = forward(params, cfg, tokens)
+def _zero_aux(forward, *keys):
+    """A family's forward of ``batch[k] for k in keys`` returning (logits,
+    aux) with aux 0: only the moe family has a load-balance loss."""
+    def fwd(params, cfg, batch):
+        logits = forward(params, cfg, *(batch[k] for k in keys))
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     return fwd
 
 
-# family -> (init, forward -> (logits, aux), cache_init, decode_step)
+# family -> (init, forward(params, cfg, batch) -> (logits, aux), cache_init, decode_step)
 _FAMILIES = {
-    "dense": (transformer.dense_init, _zero_aux(transformer.dense_forward),
+    "dense": (transformer.dense_init, _zero_aux(transformer.dense_forward, "tokens"),
               transformer.dense_cache_init, transformer.dense_decode_step),
-    "hybrid": (hybrid.hybrid_init, _zero_aux(hybrid.hybrid_forward),
+    "hybrid": (hybrid.hybrid_init, _zero_aux(hybrid.hybrid_forward, "tokens"),
                hybrid.hybrid_cache_init, hybrid.hybrid_decode_step),
-    "ssm": (rwkv.rwkv_init, _zero_aux(rwkv.rwkv_forward), rwkv.rwkv_cache_init,
+    "ssm": (rwkv.rwkv_init, _zero_aux(rwkv.rwkv_forward, "tokens"), rwkv.rwkv_cache_init,
             rwkv.rwkv_decode_step),
-    "moe": (moe.moe_init, moe.moe_forward, moe.moe_cache_init, moe.moe_decode_step),
+    "moe": (moe.moe_init, lambda params, cfg, batch: moe.moe_forward(params, cfg, batch["tokens"]),
+            moe.moe_cache_init, moe.moe_decode_step),
+    "audio": (encdec.encdec_init, _zero_aux(encdec.encdec_forward, "frames", "tokens"),
+              encdec.encdec_cache_init, encdec.encdec_decode_step),
 }
 
 
@@ -59,7 +68,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *, d
     norms 1, biases 0; the hybrid family's SSM and LoRA leaves and the ssm
     family's time-mix leaves as `models.ssm`, `models.hybrid` and
     `models.rwkv` say; the moe family's stacks drawn into place, layer by
-    layer, `models.moe`), from ``generator`` (default: seed 0 on ``device``),
+    layer, `models.moe`; the audio family's encoder, decoder, embedding and
+    head in the reference's key order, `models.encdec`), from ``generator``
+    (default: seed 0 on ``device``),
     on ``device`` (default CUDA)."""
     init = _family(cfg)[0]
     dev = resolve_device(device)
@@ -69,8 +80,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *, d
 
 def forward(params, cfg: ModelConfig, batch):
     """Returns (logits, aux): aux the moe family's load-balance loss averaged
-    over its MoE layers, 0 for the other families."""
-    return _family(cfg)[1](params, cfg, batch["tokens"])
+    over its MoE layers, 0 for the other families.  ``batch`` holds
+    ``tokens``, and for the audio family ``frames`` too."""
+    return _family(cfg)[1](params, cfg, batch)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -80,8 +92,23 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 def init_decode_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
-                      dtype=torch.bfloat16, device=None):
-    return _family(cfg)[2](cfg, batch_size, cache_len, dtype, resolve_device(device))
+                      dtype=torch.bfloat16, device=None, params=None, batch=None):
+    """The family's decode cache for ``batch_size`` rows.  The audio family's
+    runs the encoder over ``batch["frames"]`` (``batch_size`` rows) with
+    ``params`` and fills the cross-attention cache from its memory; it
+    raises without them."""
+    cache_init = _family(cfg)[2]
+    dev = resolve_device(device)
+    if cfg.family != "audio":
+        return cache_init(cfg, batch_size, cache_len, dtype, dev)
+    if params is None or batch is None or "frames" not in batch:
+        raise ValueError(f"{cfg.name}: the audio cache runs the encoder: pass params= and "
+                         f"batch={{'frames': (B, F, d_model)}}")
+    frames = torch.as_tensor(batch["frames"])
+    if frames.ndim != 3 or frames.shape[0] != batch_size or frames.shape[2] != cfg.d_model:
+        raise ValueError(f"{cfg.name}: frames {tuple(frames.shape)} are not ({batch_size}, F, "
+                         f"{cfg.d_model})")
+    return cache_init(params, cfg, frames, cache_len, dtype, dev)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int):

@@ -21,7 +21,9 @@ from repro_torch.models import layers as nn
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
-def _attn_cfg(cfg: ModelConfig) -> nn.AttnConfig:
+def _attn_cfg(cfg: ModelConfig, causal: bool = True) -> nn.AttnConfig:
+    """``cfg``'s attention; ``causal=False`` for the audio family's encoder
+    self-attention and its cross-attention."""
     return nn.AttnConfig(
         d_model=cfg.d_model,
         num_heads=cfg.num_heads,
@@ -31,6 +33,7 @@ def _attn_cfg(cfg: ModelConfig) -> nn.AttnConfig:
         qk_norm=cfg.qk_norm,
         rope_theta=cfg.rope_theta,
         sliding_window=cfg.sliding_window,
+        causal=causal,
     )
 
 

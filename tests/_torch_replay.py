@@ -134,7 +134,9 @@ def jax_batch(batch):
 
 
 def torch_batch(batch):
-    return {k: torch.from_numpy(np.asarray(v)).long() for k, v in batch.items()}
+    """Integer leaves as int64 (tokens, labels), float leaves as they are (frames)."""
+    out = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    return {k: v if v.is_floating_point() else v.long() for k, v in out.items()}
 
 
 def assert_tree_close(got, want, tol, what):
@@ -167,8 +169,10 @@ def mixed_coin_prob(key, steps=3):
 SVRP_KW = dict(eta=1.0, local_lr=0.05, local_steps=3)
 
 
-def deep_step_matches_reference(jcfg, tcfg, tree, dtype="float32", rounds=2, seq=16):
-    """One cohort of 2 x ``seq`` tokens: the port's `make_svrp_train_step`
+def deep_step_matches_reference(jcfg, tcfg, tree, dtype="float32", rounds=2, seq=16,
+                                frames=None):
+    """One cohort of 2 x ``seq`` tokens (with ``frames``, a (2, F, d_model)
+    numpy array, for the audio family): the port's `make_svrp_train_step`
     against the reference's on a 1 x 1 debug mesh, ``rounds`` rounds from the
     weights ``tree`` (numpy) with gbar = the gradient at x0 (SVRP's
     invariant; the port's, handed to both), the reference's refresh coins
@@ -200,6 +204,8 @@ def deep_step_matches_reference(jcfg, tcfg, tree, dtype="float32", rounds=2, seq
     p, coins = mixed_coin_prob(key, rounds)
     svrp_kw = dict(SVRP_KW, anchor_prob=p)
     batch = lm_batch(tcfg.vocab_size, 1, b=2, seq=seq)
+    if frames is not None:
+        batch["frames"] = frames
     mesh = make_debug_mesh(data=1, model=1)
     make_step, helpers = ref_make_svrp_train_step(jcfg, mesh, jdeep.DeepSVRPConfig(**svrp_kw))
     jstep = make_step(jax_batch(batch))

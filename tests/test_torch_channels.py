@@ -53,14 +53,23 @@ def test_round_trip_is_the_references_bit_for_bit(name, shape, dtype):
 def test_float64_casts_round_once():
     """Values just off a 16-bit midpoint: PyTorch's own float64 -> float16
     conversion rounds through float32 and lands on the wrong side; the
-    channel rounds once, as the reference does."""
+    channel rounds once (`_narrow`'s contract), bit for bit with numpy's
+    float64 -> float16 conversion, which rounds once and correctly.
+
+    The reference's compiled cast16 is not the target here: XLA's CPU
+    conversion rounds through float32 on some hosts as well (on an AMD EPYC
+    host it agreed with numpy in 50.6% of these values and with PyTorch's
+    double rounding in all of them; ROADMAP.md §3), so it is only
+    reported."""
     rng = np.random.default_rng(1)
     h = rng.standard_normal(20000).astype(np.float16).astype(np.float64)
     up = np.nextafter(h.astype(np.float16), np.float16(np.inf)).astype(np.float64)
     a = (h + up) / 2 * (1 + rng.choice([-1.0, 1.0], h.shape) * 1e-10)
-    want = np.asarray(jax.jit(rch.CHANNELS["cast16"].up)(jnp.asarray(a)))
+    want = a.astype(np.float16).astype(np.float64)
     np.testing.assert_array_equal(tch.CHANNELS["cast16"].up(torch.from_numpy(a)).numpy(), want)
-    assert (torch.from_numpy(a).half().double().numpy() != want).any()
+    assert (torch.from_numpy(a).half().double().numpy() != want).any()  # double rounding fails
+    ref = np.asarray(jax.jit(rch.CHANNELS["cast16"].up)(jnp.asarray(a)))
+    print(f"the reference's cast16 agrees with numpy in {np.mean(ref == want):.4f} of the values")
 
 
 def test_zero_blocks_quantize_to_exact_zeros():

@@ -52,6 +52,13 @@ GRID = {"eta": 1.0, "local_lr": 0.2, "anchor_prob": 0.5}
 ROUNDS, LOCAL_STEPS = 3, 2
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 QUANT8_RTOL = 1e-3
+# DeepSVRP's loss over the recurrent families, the port's against the
+# reference's, both float32.  Measured against both packages run in float64
+# (tests/measure_f32_drift.py): the reference's loss lies up to 9.94e-6 from
+# it (zamba2; rwkv6 2.09e-6), the port's up to 9.4e-7 (rwkv6; zamba2
+# 8.6e-8), so the two lie within 1.003e-5 of each other: the gap is the
+# reference's float32 summation order, the port being the nearer to float64.
+DIST_RTOL = 1.2e-5
 
 
 def _cfg(registry):
@@ -176,7 +183,7 @@ def test_deep_svrp_on_the_recurrent_families_matches_the_reference(name):
     in float32 (3 clients of 2 x 16 tokens; the weights' zeros and ones
     randomised, `randomize_recurrent`), 2 rounds of 2 local steps, against
     the reference's run_batch with its coins replayed: every gradient
-    through the plain K6b and K4b, or K7b; the loss rtol 1e-5, comm and
+    through the plain K6b and K4b, or K7b; the loss rtol DIST_RTOL, comm and
     comm_bytes equal.  The reference's problem is built as its
     `make_fed_lm_problem` builds it, from the same tokens, around the
     randomised weights (its own eager init of these layers takes seconds)."""
@@ -209,7 +216,7 @@ def test_deep_svrp_on_the_recurrent_families_matches_the_reference(name):
                     device="cpu")
     np.testing.assert_array_equal(got.comm.numpy(), np.asarray(ref.comm))
     np.testing.assert_array_equal(got.comm_bytes, np.asarray(ref.comm_bytes))
-    np.testing.assert_allclose(got.dist_sq.numpy(), np.asarray(ref.dist_sq), rtol=1e-5)
+    np.testing.assert_allclose(got.dist_sq.numpy(), np.asarray(ref.dist_sq), rtol=DIST_RTOL)
 
 
 def test_quant8_prices_a_flat_model_at_a_quarter(fed):

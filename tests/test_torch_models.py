@@ -81,7 +81,7 @@ def test_configs_are_the_references():
     assert get_config("llama3.2-3b").with_sliding_window(64).sliding_window == 64
 
 
-@pytest.mark.parametrize("name", ["seamless-m4t-large-v2", "internvl2-76b"])
+@pytest.mark.parametrize("name", ["internvl2-76b"])
 def test_other_families_are_not_ported_yet(name):
     assert name in JAX_REGISTRY
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -101,6 +101,24 @@ def test_moe_family_is_ported(name):
         jax.tree.map(lambda t: 0, shapes))
     assert [tuple(t.shape) for t in jax.tree.leaves(meta)] == [
         tuple(s.shape) for s in jax.tree.leaves(shapes)]
+
+
+def test_audio_family_is_ported():
+    """seamless-m4t-large-v2's config is the reference's, and `init_params`
+    on meta tensors has the reference's tree at full size, 2,034,784,256
+    parameters (nothing allocated)."""
+    name = "seamless-m4t-large-v2"
+    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(JAX_REGISTRY[name])
+    assert (dataclasses.asdict(get_config(name).reduced())
+            == dataclasses.asdict(JAX_REGISTRY[name].reduced()))
+    assert get_config(name).param_count() == JAX_REGISTRY[name].param_count()
+    shapes = jax.eval_shape(lambda k: JM.init_params(JAX_REGISTRY[name], k), jax.random.key(0))
+    meta = TM.init_params(get_config(name), torch.Generator(), device="meta")
+    assert jax.tree.structure(jax.tree.map(lambda t: 0, meta)) == jax.tree.structure(
+        jax.tree.map(lambda t: 0, shapes))
+    assert [(tuple(t.shape), str(t.dtype).split(".")[-1]) for t in jax.tree.leaves(meta)] == [
+        (tuple(s.shape), str(s.dtype)) for s in jax.tree.leaves(shapes)]
+    assert sum(t.numel() for t in jax.tree.leaves(meta)) == 2_034_784_256
 
 
 # -------------------------------------------------------------------- layers

@@ -12,8 +12,9 @@ runs 3 steps against the reference's step body composed from
 `jax.value_and_grad(M.loss_fn)`, `clip_by_global_norm` and `adamw_update`
 (the body of `repro.launch.steps.make_adamw_train_step`, without its mesh),
 from the same state carried across by `convert.adamw_state_from_numpy`:
-the loss rtol 1e-6; the gradient norm rtol 1e-6 against the float64 norm
-of the reference's gradients, not against the norm the reference reports:
+the loss rtol 1e-6; the gradient norm rtol 3e-6 (NORM_RTOL, from a float64
+measurement) against the float64 norm of the reference's gradients, not
+against the norm the reference reports:
 XLA's CPU dot sums a float32 vdot in sequence, 1.4e-3 off over these
 131,072-element leaves (torch's vdot 1e-8).  Each parameter leaf within
 1e-5 in relative L2 (read: at most 2.3e-6), but for the biases (zeros at
@@ -51,10 +52,17 @@ from repro_torch.launch import make_adamw_train_step  # noqa: E402
 from repro_torch.utils.tree import tree_map  # noqa: E402
 
 F32_RTOL = 1e-6
-# The gradient norm of the hybrid family: its float32 gradients lie ~2e-6
-# apart between the packages (summation order of the chunked scan; the
-# model tests' gradient tolerance is 1e-4), and the norm reads 1.4e-6.
-NORM_RTOL = {"hybrid": 1e-5}
+# The gradient norm the port's step reports (float32 sums, on one thread)
+# against the float64 norm of the reference's float32 gradients, for every
+# family.  Measured against both packages run in float64
+# (tests/measure_f32_drift.py): the port's reported norm lies at most
+# 1.18e-6 from the float64 run (zamba2; rwkv6 9.2e-7), the reference's
+# gradients' norm at most 1.34e-6 (zamba2; rwkv6 5.0e-7), so the two lie
+# within 2.52e-6 of each other.  The port's own gradients are no further
+# from float64 than the reference's in any family (their float64 norms:
+# 1.5e-7 against 1.3e-6 at most), and the reference's own float32 norm is
+# 1.3e-3 to 2.1e-3 off: the gap is float32 summation order.
+NORM_RTOL = 3e-6
 KEY_BIAS = ("layers", "attn", "wk", "b")
 BIAS_REL = 1e-3
 SHAPES = {"a": (7, 5), "blk": {"b": (13,), "c": (3, 4, 2)}}
@@ -241,8 +249,7 @@ def test_adamw_train_step_matches_reference(name):
                                                       for k, v in batch.items()})
         tstate, metrics = step(tstate, batch)
         np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-6)
-        np.testing.assert_allclose(metrics["grad_norm"].item(), float(jexact),
-                                   rtol=NORM_RTOL.get(tcfg.family, 1e-6))
+        np.testing.assert_allclose(metrics["grad_norm"].item(), float(jexact), rtol=NORM_RTOL)
         assert float(jnorm) > clip  # the clip acts
         want = jax.tree.map(np.asarray, jstate["params"])
         for path, got in _paths(tstate.params):
@@ -258,6 +265,6 @@ def test_adamw_train_step_matches_reference(name):
 
 
 def test_adamw_step_refuses_an_unported_family():
-    audio = dataclasses.replace(_configs("qwen2-1.5b")[1], family="audio")
-    with pytest.raises(NotImplementedError, match="the audio family is not ported yet"):
-        make_adamw_train_step(audio, device="cpu")
+    vlm = dataclasses.replace(_configs("qwen2-1.5b")[1], family="vlm")
+    with pytest.raises(NotImplementedError, match="the vlm family is not ported yet"):
+        make_adamw_train_step(vlm, device="cpu")
