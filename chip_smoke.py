@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives thirteen paths of the port: the paper's fused sweep (K1, K2), the
+It drives fourteen paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
 federated transformer through the engine (K1, K4, K4b), the online round
@@ -17,8 +17,11 @@ Qwen2-1.5B (K4, K4b), int8 weight-only serving of the three families
 (K4, K5, K6, K7), DeepSVRP and AdamW training of Zamba2-2.7B (K6, K6b,
 K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3), the moe family on
 deepseek-moe-16b, served in bf16 and int8 and trained (K4, K5, K4b, K3),
-and the audio family on seamless-m4t-large-v2, served in bf16 and int8 and
-trained (K4 non-causal and cross, K5 over the encoder's memory, K4b, K3).
+the audio family on seamless-m4t-large-v2, served in bf16 and int8 and
+trained (K4 non-causal and cross, K5 over the encoder's memory, K4b, K3),
+and the vlm family on internvl2-76b at full width and cut depths, served in
+bf16 and int8 over patches and text and trained (K4, K5, K4b at 64/8 heads,
+G = 8, K3).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -341,10 +344,37 @@ Phases, each printed as one JSON line:
    at 256 tokens a row, the
    reduced model in float32 on the card against the CPU with K4b's fault
    beyond the limit; an `audio_seconds` line;
-36. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
+36. vlm — the memory plan (`vlm_memory_plan`: the bytes that set the
+   serving depth, 32 of 80 layers, and the training depth, the deepest of
+   1, 2 and 4 layers whose DeepSVRP round stays under 70 GB); K4 at 64/8
+   heads, G = 8, Dh 128, bf16 at 4 x 2048 and 2 x 1024 with the planted
+   skipped tile, K5 (B 8, 1024 slots) with its faults, K4b at 2 x 1024 on
+   the wgmma route's cluster of 8 blocks with its faults, and each of its
+   8 group ranks left out in turn (each must fail); each timed queued
+   beside SDPA (enable_gqa).  internvl2-76b at full width and 32 layers in
+   bf16 (29,575,621,760 parameters, seed 0, the projector's norm
+   randomised): `make_prefill_step` on 4 x (512 patches + 1536 tokens)
+   (K4 32 a call), replayed with the plain attention (SERVE_REL_TOL),
+   against which K4's skipped tile, the patch prefix dropped and the text's
+   RoPE positions restarted after it must exceed the limit;
+   `BatchServer(max_batch=8, cache_len=1024).generate` on 8 text prompts of
+   64-128 tokens, 16 greedy tokens (K5 32 a step), replayed teacher-forced
+   with a planted K5 fault; a profile; int8, quantized in place a leaf at a
+   time (`quantize_in_place`, `quantize_params`' rule leaf by leaf: the bf16
+   tree and its int8 form do not fit together), its gap to the bf16 logits recorded before,
+   the dequantisation fault, the plain replay, a generate of 2 prompts of
+   32 tokens and 8 greedy tokens; DeepSVRP
+   (RTRAIN's settings, 2 rounds; rows of 256 patches + 768 uniform tokens:
+   K4 = K4b = 1 a pass at 1 layer, K3 8 a round) and 2 AdamW steps at full
+   width and the reckoned depth with exact counts, a round profile, the
+   round replayed with the plain versions at 128 + 384 a row with a
+   planted loss fault (the labels not padded over the patches) beyond the
+   gradient's limit; the reduced model in float32 on the card against the
+   CPU with K4b's fault beyond the limit; a `vlm_seconds` line;
+37. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
    K7b, each with the design it ran on the main path as `kernel_route`;
-   the launches of K3, K4, K4b and K5 add the moe and audio paths'), then
-   the `ok` line.
+   the launches of K3, K4, K4b and K5 add the moe, audio and vlm paths'),
+   then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -621,6 +651,24 @@ MOE_REDUCED_REL_TOL = RTRAIN_REDUCED_REL_TOL["hybrid"]
 AUDIO = dict(arch="seamless-m4t-large-v2", prefill=(4, 2048), frames=1024, max_batch=8,
              cache_len=1024, new_tokens=32)
 AUDIO_REDUCED_REL_TOL = RECURRENT_PATHS_REL_TOL
+# The vlm path (internvl2-76b, 70.6e9 parameters: 141.3 GB in bf16, more than
+# one card holds) runs at full width with its depth cut, each cut reckoned in
+# `vlm_memory_plan`: served at 32 of 80 layers (59.2 GB of weights) in bf16,
+# then quantized in place to int8; trained at 1 layer (3.05e9 parameters,
+# 69% of them the embedding and the head), the deepest whose DeepSVRP round
+# (~18 bytes a parameter of trees, gbar float32) stays under 70 GB.  Prefill
+# 4 x (512 patches + 1536 tokens) (P = min(frontend_len, S // 4), the
+# reference's input shapes); generate on 8 prompts of 64-128 tokens with 16
+# greedy tokens (the server takes text alone, as the reference's); int8's
+# generate on 2 prompts of 32 tokens with 8 greedy tokens (int8 decode read
+# 183 ms a step on an H100 80GB HBM3 at 700 W: a dequantised copy of every
+# matrix a step); training rows
+# of 256 patches + 768 tokens, replayed at 128 + 384.
+VLM = dict(arch="internvl2-76b", prefill=(4, 2048), max_batch=8, cache_len=1024, new_tokens=16,
+           serve_layers=32, train_layers=1, replay_seq=512,
+           int8_generate=dict(prompts=2, prompt_len=32, new_tokens=8))
+VLM_VISION_DIM = 3200  # the projector's input width (`models.vlm.DEFAULT_VISION_DIM`)
+VLM_REDUCED_REL_TOL = RTRAIN_REDUCED_REL_TOL["hybrid"]
 
 class SmokeFailure(Exception):
     pass
@@ -756,7 +804,7 @@ ADAMW_KERNELS = ("flash_attention", "flash_attention_bwd")
 HYBRID_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd", "flash_attention", "flash_attention_bwd")
 RWKV_TRAIN_KERNELS = ("rwkv6_scan", "rwkv6_scan_bwd")
 PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training", "optim",
-         "quant", "recurrent_train", "moe", "audio")
+         "quant", "recurrent_train", "moe", "audio", "vlm")
 
 
 def _wrapper(name):
@@ -2590,12 +2638,13 @@ def phase_serving():
     return cfg, params, tokens, launches
 
 
-def phase_serving_profile(cfg, params, tokens, frames=None) -> None:
+def phase_serving_profile(cfg, params, tokens, frames=None, patches=None) -> None:
     """Where serving time goes: one prefill call, and 16 decode steps of the
     8-row batch at positions 528-543 of a 1024-slot float32 cache (after a
     warm-up round of 16 steps from position 512).  With ``frames`` (the audio
     family), the prefill reads them and the cache is built from their rows,
-    repeated to 8."""
+    repeated to 8; with ``patches`` (the vlm family), the prefill reads them
+    before the tokens."""
     import torch
 
     from repro_torch.launch import make_prefill_step, make_serve_step
@@ -2609,6 +2658,8 @@ def phase_serving_profile(cfg, params, tokens, frames=None) -> None:
         inputs["frames"] = frames
         rows = frames[torch.arange(8, device=frames.device) % frames.shape[0]]
         kw = dict(params=params, batch={"frames": rows})
+    if patches is not None:
+        inputs["patches"] = patches
     with torch.inference_mode():
         cache = init_decode_cache(cfg, 8, 1024, dtype=torch.float32, **kw)
     tok = tokens.reshape(-1)[:8]
@@ -2619,6 +2670,8 @@ def phase_serving_profile(cfg, params, tokens, frames=None) -> None:
             step(params, cache, tok, next(pos))
 
     B, S = tokens.shape
+    if patches is not None:
+        S += patches.shape[1]
     for label, fn in ((f"prefill {B} x {S}", lambda: prefill(params, inputs)),
                       ("decode 16 steps x 8 rows", decode16)):
         wall_ms, kernels = profiled(fn, 1)
@@ -3681,6 +3734,7 @@ PROFILE_GROUPS = {
                      "(anonymous namespace)::body<", "(anonymous namespace)::du_reduce(")},
 }
 PROFILE_GROUPS["audio"] = {k: PROFILE_GROUPS["hybrid"][k] for k in ("K4b", "K4")}
+PROFILE_GROUPS["vlm"] = PROFILE_GROUPS["audio"]
 
 
 def phase_train_profile(step, helpers, batch, label: str = "train_profile",
@@ -4555,6 +4609,7 @@ class TrainFamily(NamedTuple):
     reduced_tol: float  # the reduced float32 card-against-CPU limit
     reduced_seq: int  # the reduced check's tokens a row (K6b: three chunks)
     layers: int = 0  # the full-size model's depth cut to this many layers (0: none)
+    loss_fault: Callable | None = None  # () -> context: a planted loss fault the replay rejects
 
 
 def train_config(fam: TrainFamily):
@@ -4633,17 +4688,21 @@ def recurrent_batch(cfg, per_cohort_batch: int, seq_len: int) -> dict:
     seed 0; the Markov draw is the slower the larger the vocabulary), and its
     rows also get F =
     max(S // 4, 16) frames each (the reference's training shapes,
-    `repro/configs/shapes.py`), `audio_frames`."""
+    `repro/configs/shapes.py`), `audio_frames`.  The vlm family's rows are
+    P = min(frontend_len, S // 4) patches (`vlm_patches`) and S - P uniform
+    tokens, as the reference's training shapes lay them out."""
     import numpy as np
     import torch
 
     from repro_torch.data import ShardedBatcher, SyntheticLMDataset
 
     C = RTRAIN["cohorts"]
-    key = (cfg.vocab_size, per_cohort_batch, seq_len)
-    if key not in _RECURRENT_BATCHES and cfg.family == "audio":
+    P = vlm_patch_count(cfg, seq_len) if cfg.family == "vlm" else 0
+    uniform = cfg.family in ("audio", "vlm")
+    key = (cfg.vocab_size, per_cohort_batch, seq_len - P, uniform)
+    if key not in _RECURRENT_BATCHES and uniform:
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                 (C * per_cohort_batch, seq_len + 1))
+                                                 (C * per_cohort_batch, seq_len - P + 1))
         _RECURRENT_BATCHES[key] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if key not in _RECURRENT_BATCHES:
         ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=C, alpha=0.5, seed=0)
@@ -4654,6 +4713,8 @@ def recurrent_batch(cfg, per_cohort_batch: int, seq_len: int) -> dict:
     if cfg.family == "audio":
         batch["frames"] = audio_frames(batch["tokens"].shape[0], max(seq_len // 4, 16), cfg,
                                        seed=7)
+    if cfg.family == "vlm":
+        batch["patches"] = vlm_patches(batch["tokens"].shape[0], P, cfg, seed=7)
     return batch
 
 
@@ -4718,7 +4779,7 @@ def phase_recurrent_train(fam: TrainFamily):
     steady = float(np.mean(ms[1:]))
     emit({"phase": f"{fam.label}_train", "model": model, "params": n_params,
           "batch": list(batch["tokens"].shape),
-          **({"frames": list(batch["frames"].shape[:2])} if "frames" in batch else {}),
+          **{k: list(batch[k].shape[:2]) for k in ("frames", "patches") if k in batch},
           "cohorts": C, "local_steps": K,
           "eta": RTRAIN["eta"], "local_lr": RTRAIN["local_lr"], "coins": list(RTRAIN["coins"]),
           "losses": losses, "ms_per_round": ms, "ms_per_round_after_first": steady,
@@ -4739,7 +4800,12 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=Non
     ``fam.replay_seq`` tokens a row: the cohort-mean gradient at x0 with the
     loss there, and the round's update.  With a `RoutingTape` (the moe
     family), the kernels' run records its routing and the plain run is
-    routed by it, the flips counted."""
+    routed by it, the flips counted.  The plain run's gradient at x0 is
+    compared with the kernels' and both are dropped before the plain round,
+    which runs beside the kernels' update alone (internvl2-76b's 1-layer
+    round would not fit beside two float32 gradients).  With
+    ``fam.loss_fault``, the kernels' gradient at x0 is taken again under it
+    and must leave TRAIN_GRAD_REL_TOL."""
     import torch
 
     from repro_torch.models import model as M
@@ -4748,9 +4814,14 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=Non
     C = RTRAIN["cohorts"]
     b = batch["tokens"].shape[0] // C
     S = fam.replay_seq
+    P = 0
+    if "patches" in batch:  # the row's share of patches, kept at S positions
+        n = batch["patches"].shape[1]
+        P = n * S // (n + batch["tokens"].shape[1])
 
-    def cut(rows):  # tokens and labels cut to S; an audio row's frames whole
-        return {k: v[rows] if k == "frames" else v[rows, :S].long() for k, v in batch.items()}
+    def cut(rows):  # S positions a row: P patches and S - P tokens; an audio row's frames whole
+        return {k: v[rows] if k == "frames" else v[rows, :P] if k == "patches"
+                else v[rows, :S - P].long() for k, v in batch.items()}
 
     shards = [cut(slice(c * b, (c + 1) * b)) for c in range(C)]
 
@@ -4765,27 +4836,47 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=Non
         tape.reset_counts()
         return tape.follow()
 
+    def grad_at(params):  # the cohort-mean gradient (float32) and loss
+        g0, loss0 = None, 0.0
+        for shard in shards:
+            l, g = value_and_grad(loss, params, shard)
+            loss0 += l.item() / C
+            g0 = _tree(lambda t: t.float() / C, g) if g0 is None else \
+                _tree(lambda a, t: a.add_(t.float() / C), g0, g)
+            del g
+        return g0, loss0
+
     results, kept = {}, {}
     for mode in ("kernels", "plain"):
         state = helpers["init_state"]()
         x0 = state.params
-        g0, loss0 = None, 0.0
+        entry, aside = {}, 0.0
         t0 = time.perf_counter()
         with recurrent_train_ops("kernels" if mode == "kernels" else "plain"), routing(mode):
-            for shard in shards:
-                l, g = value_and_grad(loss, x0, shard)
-                loss0 += l.item() / C
-                g0 = _tree(lambda t: t.float() / C, g) if g0 is None else \
-                    _tree(lambda a, t: a.add_(t.float() / C), g0, g)
-                del g
+            g0, loss0 = grad_at(x0)
+            if mode == "kernels":
+                kept["grad"] = g0
+            else:
+                t1 = time.perf_counter()
+                entry["grad_rel_l2"], entry["grad_worst_leaf_rel_l2"] = tree_rel_err(
+                    g0, kept.pop("grad"))
+                aside += time.perf_counter() - t1
+            if mode == "kernels" and fam.loss_fault is not None:
+                t1 = time.perf_counter()
+                with fam.loss_fault():
+                    gf, lf = grad_at(x0)
+                entry["planted_loss_fault"] = {"grad_rel_l2": tree_rel_err(gf, g0)[0],
+                                               "loss_rel_err": abs(lf - loss0) / abs(loss0)}
+                del gf
+                aside += time.perf_counter() - t1
+            g0 = None
             new, _ = step(state, cut(slice(None)), refresh=False)
         torch.cuda.synchronize()
-        entry = {"wall_s": time.perf_counter() - t0, "loss_at_x0": loss0}
+        entry = {"wall_s": time.perf_counter() - t0 - aside, "loss_at_x0": loss0, **entry}
         if mode == "kernels":
-            kept = {"grad": g0, "x": new.params}
+            kept["x"] = new.params
             entry["update_norm"] = tree_dist(new.params, x0)
         else:
-            entry["grad_rel_l2"], entry["grad_worst_leaf_rel_l2"] = tree_rel_err(g0, kept["grad"])
             entry["update_rel_l2"] = tree_dist(new.params, kept["x"]) / \
                 results["kernels"]["update_norm"]
             entry["loss_rel_err"] = abs(loss0 - results["kernels"]["loss_at_x0"]) / \
@@ -4805,6 +4896,10 @@ def phase_recurrent_replay(fam: TrainFamily, cfg, step, helpers, batch, tape=Non
           and plain["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
           and plain["update_rel_l2"] <= TRAIN_UPDATE_REL_TOL,
           f"{fam.label} replay: the plain run differs from the kernels' by {plain}")
+    if fam.loss_fault is not None:
+        fault = results["kernels"]["planted_loss_fault"]
+        check(fault["grad_rel_l2"] > TRAIN_GRAD_REL_TOL,
+              f"{fam.label} replay: a planted loss fault moved the gradient by only {fault}")
     return results
 
 
@@ -4841,6 +4936,10 @@ def phase_recurrent_reduced(fam: TrainFamily) -> dict:
     if cfg.family == "audio":  # (4, frontend_len, d_model) frames from the same numpy seed
         batch_cpu["frames"] = torch.from_numpy(
             rng.standard_normal((4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":  # (4, P, vision width) patches from the same numpy seed
+        P = vlm_patch_count(cfg, fam.reduced_seq)
+        batch_cpu["patches"] = torch.from_numpy(
+            rng.standard_normal((4, P, VLM_VISION_DIM)).astype(np.float32))
     C = 2
     svrp = DeepSVRPConfig(eta=1.0, local_lr=0.05, local_steps=2, anchor_prob=0.5)
     gbar = _tree(lambda t: t / C, grad_of(lambda p, b: M.loss_fn(p, cfg, b),
@@ -5589,20 +5688,21 @@ AUDIO_PREFILL_FAULTS = {"k4_first_tile_skipped": lambda: plain_attention(fault=T
                         "encoder_causal": encoder_causal}
 
 
-def audio_prefill_check(run, want) -> dict:
+def prefill_fault_check(run, want, faults) -> dict:
     """``run()`` (last-position logits) with the plain attention against
-    ``want`` (the kernels' run), and each of AUDIO_PREFILL_FAULTS against
-    the plain run; every fault must move the logits past SERVE_REL_TOL."""
+    ``want`` (the kernels' run), and under each of ``faults`` (name ->
+    context) against the plain run; every fault must move the logits past
+    SERVE_REL_TOL (`check_prefill_faults`)."""
     with plain_attention():
         plain = run()
     res = {"rel_err_vs_plain": rel_err(want, plain), "planted_faults": {}}
-    for name, fault in AUDIO_PREFILL_FAULTS.items():
+    for name, fault in faults.items():
         with fault():
             res["planted_faults"][name] = rel_err(run(), plain)
     return res
 
 
-def check_audio_prefill(res: dict, what: str) -> None:
+def check_prefill_faults(res: dict, what: str) -> None:
     check(res["rel_err_vs_plain"] <= SERVE_REL_TOL,
           f"{what}: logits differ from the plain replay by {res['rel_err_vs_plain']}")
     for name, err in res["planted_faults"].items():
@@ -5686,9 +5786,9 @@ def phase_audio_serving(holder: dict) -> dict:
     check(prefill_counts == want, f"audio prefill launches {prefill_counts}, want {want}")
     check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"audio prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
-    check_pre = audio_prefill_check(lambda: prefill(params, batch), logits)
+    check_pre = prefill_fault_check(lambda: prefill(params, batch), logits, AUDIO_PREFILL_FAULTS)
     emit({"phase": "audio_prefill_check", **check_pre, "rel_tol": SERVE_REL_TOL})
-    check_audio_prefill(check_pre, "audio prefill")
+    check_prefill_faults(check_pre, "audio prefill")
     emit({"phase": "audio_prefill", "model": model, "init_s": init_s, "batch": [B, S],
           "frames": [B, F], "calls": calls, "s_per_call": prefill_s,
           "tokens_per_s": B * S / prefill_s, "peak_mem_gb": prefill_peak / 1e9,
@@ -5881,6 +5981,472 @@ def phase_audio() -> dict:
     return {"parity": parity, "launches": launches}
 
 
+# ---------------------------------------------------- vlm (K4, K5, K4b, K3)
+def vlm_patch_count(cfg, seq_len: int) -> int:
+    """Patches in a row of ``seq_len`` positions, min(frontend_len, S // 4)
+    (the reference's input shapes, `repro/configs/shapes.py`); the rest of
+    the row is text."""
+    return min(cfg.frontend_len, seq_len // 4)
+
+
+def vlm_patches(n: int, P: int, cfg, seed: int):
+    """(n, P, VLM_VISION_DIM) patch embeddings in the compute dtype, drawn on
+    the card from a `torch.Generator` seeded ``seed`` (unit normal, float32 first)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, P, VLM_VISION_DIM), generator=gen, device="cuda", dtype=torch.float32)
+    return x.to(getattr(torch, cfg.compute_dtype))
+
+
+def vlm_config(layers: int):
+    """internvl2-76b at full width, its depth cut to ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(VLM["arch"]), num_layers=layers)
+
+
+def vlm_param_count(cfg) -> int:
+    """Every leaf of the vlm tree: `param_count()` (the decoder's matrices,
+    the embedding and the head), the 2 L + 1 norm scales and the projector
+    (its norm over the vision width, fc1, fc2)."""
+    d = cfg.d_model
+    return cfg.param_count() + (2 * cfg.num_layers + 1) * d + VLM_VISION_DIM * (1 + d) + d * d
+
+
+def vlm_model(cfg, params) -> str:
+    from repro_torch.utils.tree import tree_leaves
+
+    n = sum(t.numel() for t in tree_leaves(params))
+    check(cfg.name == VLM["arch"] and n == vlm_param_count(cfg),
+          f"{cfg.name}: {n} parameters, want {vlm_param_count(cfg)}")
+    return (f"{cfg.name}: {cfg.num_layers} of 80 layers (depth cut, full width), d_model "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads Dh {cfg.head_dim} (G = "
+            f"{cfg.num_heads // cfg.num_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"projector {VLM_VISION_DIM} -> {cfg.d_model} -> {cfg.d_model} (tanh GELU), "
+            f"{cfg.param_dtype}, {n} parameters")
+
+
+def randomize_vlm(params, cfg, seed: int) -> None:
+    """Fill the projector's norm scale (ones at init, where a norm applied
+    without its scale would pass) with seeded values uniform in [0.5, 1.5],
+    in place."""
+    import torch
+
+    t = params["projector"]["ln"]["scale"]
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    t.copy_(torch.rand(t.shape, generator=gen, device=t.device) + 0.5)
+
+
+def vlm_train_gb(layers: int) -> dict:
+    """The bytes a DeepSVRP round and an AdamW step hold at ``layers``, bf16
+    trees: the round's trees ~18 bytes a parameter (x = w 2, gbar 4, the
+    cohort sum 4, and z, y, g and the next y 2 each), AdamW's 12 (the
+    parameters and gradients 2 each, the moments 8); both plus the float32
+    temporaries of the largest leaf (two of the embedding's) and one
+    cohort's logits (2 x 1024 x V in bf16, float32 and its gradient)."""
+    cfg = vlm_config(layers)
+    n = vlm_param_count(cfg)
+    extra = 2 * 4 * cfg.vocab_size * cfg.d_model + 2 * RTRAIN["seq_len"] * cfg.vocab_size * 10
+    return {"params": n, "deepsvrp_gb": (18 * n + extra) / 1e9,
+            "adamw_gb": (12 * n + extra) / 1e9}
+
+
+def vlm_memory_plan() -> dict:
+    """The reckoning that sets each depth, before any run: serving at
+    VLM["serve_layers"] (the bf16 weights, the prefill's logits, the plain
+    replay's float32 scores and their softmax for one layer; int8 in place,
+    the bf16 tree and one stacked leaf's int8 form together), training at
+    the deepest of 1, 2 and 4 layers whose DeepSVRP round stays under 70 GB
+    (`vlm_train_gb`), which must be VLM["train_layers"]."""
+    cfg = vlm_config(VLM["serve_layers"])
+    B, S = VLM["prefill"]
+    n = vlm_param_count(cfg)
+    weights = 2 * n
+    logits = 2 * B * S * cfg.vocab_size
+    scores = 2 * 4 * B * cfg.num_heads * S * S
+    stacked = cfg.num_layers * cfg.d_model * cfg.d_ff  # one MLP stack's int8 values
+    train = {layers: vlm_train_gb(layers) for layers in (1, 2, 4)}
+    chosen = max(layers for layers, t in train.items() if t["deepsvrp_gb"] <= 70.0)
+    plan = {"phase": "vlm_memory_plan", "serve_layers": VLM["serve_layers"],
+            "serve_params": n, "serve_weights_gb": weights / 1e9,
+            "prefill_logits_gb": logits / 1e9, "plain_scores_one_layer_gb": scores / 1e9,
+            "prefill_plain_gb": (weights + logits + scores) / 1e9,
+            "int8_in_place_gb": (weights + stacked) / 1e9,
+            "full_model_params": vlm_param_count(vlm_config(80)),
+            "train": {str(k): v for k, v in train.items()}, "train_layers": chosen}
+    emit(plan)
+    check(chosen == VLM["train_layers"],
+          f"vlm: the reckoning puts training at {chosen} layers, VLM says {VLM['train_layers']}")
+    return plan
+
+
+def patch_prefix_dropped():
+    """A planted model fault: the projected patches left out, the text alone."""
+    from repro_torch.models import vlm
+
+    return rebind(vlm, project_patches=lambda params, cfg, patches: patches.new_zeros(
+        (patches.shape[0], 0, cfg.d_model)))
+
+
+def text_rope_restarted(P: int):
+    """A planted model fault: the text's RoPE positions restart at 0 after
+    the P patches (a full sequence's tables only; decode's one position is
+    left as it is)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    tables = layers.rope_tables
+
+    def restarted(positions, head_dim, theta=10000.0):
+        if positions.ndim == 1 and positions.shape[0] > P:
+            positions = torch.cat([positions[:P], positions[P:] - P])
+        return tables(positions, head_dim, theta)
+
+    return rebind(layers, rope_tables=restarted)
+
+
+def vlm_labels_unpadded():
+    """A planted loss fault: the labels laid over the first S positions, the
+    -1 pad after them, so the patch positions are scored (and the last P
+    text positions are not)."""
+    import torch
+
+    from repro_torch.models import vlm
+
+    def unpadded(labels, patches):
+        pad = torch.full((labels.shape[0], patches.shape[1]), -1, dtype=labels.dtype,
+                         device=labels.device)
+        return torch.cat([labels, pad], dim=1)
+
+    return rebind(vlm, loss_labels=unpadded)
+
+
+def vlm_prefill_faults(P: int) -> dict:
+    return {"k4_first_tile_skipped": lambda: plain_attention(fault=True),
+            "patch_prefix_dropped": patch_prefix_dropped,
+            "text_rope_restarted": lambda: text_rope_restarted(P)}
+
+
+def phase_vlm_parity() -> dict:
+    """K4 at the vlm path's shapes (64 query heads over 8 kv heads, G = 8,
+    Dh 128, bf16: 4 x 2048 and 2 x 1024), K5 (B 8, a 1024-slot cache,
+    float32 and bf16) and K4b at 2 x 1024, the wgmma route's cluster of 8
+    blocks, against their plain versions with their planted faults, timed
+    queued beside SDPA; and K4b with each of the 8 group ranks left out of
+    dK and dV in turn, each of which must fail the check (the group sum
+    reads all 8)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = VLM["prefill"]
+    H, KVH, Dh = 64, 8, 128
+    k4 = [k4_case(gen, B, S, S, H, KVH, Dh, bf16, plant_fault=True, queued=True),
+          k4_case(gen, 2, 1024, 1024, H, KVH, Dh, bf16, plant_fault=True, queued=True)]
+    k5 = [k5_case(gen, 8, VLM["cache_len"], H, KVH, Dh, bf16, c, "prefix") for c in (f32, bf16)]
+    k4b = k4b_case(gen, 2, 1024, 1024, H, KVH, Dh, bf16, timed=True)
+    check(k4b["route"] == "wgmma_tma", f"K4b at G = 8 took the {k4b['route']} route")
+    q, do = (torch.randn(2, 1024, H, Dh, generator=gen, device="cuda", dtype=bf16)
+             for _ in range(2))
+    k, v = (torch.randn(2, 1024, KVH, Dh, generator=gen, device="cuda", dtype=bf16)
+            for _ in range(2))
+    out, lse = fa.flash_attention(q, k, v, with_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    ranks = {}
+    for r in range(H // KVH):
+        fa._BWD_DROP_GROUP_RANK = r
+        try:
+            ranks[r] = k4b_verdict(fa.flash_attention_bwd(q, k, v, out, lse, do), want, "bfloat16")
+        finally:
+            fa._BWD_DROP_GROUP_RANK = -1
+    k4b["group_rank_faults"] = {r: {"ok": v["ok"], "dk_rel_l2": v["dk"]["rel_l2"]}
+                                for r, v in ranks.items()}
+    emit({"phase": "vlm_parity", "flash_attention": k4, "decode_attention": k5,
+          "flash_attention_bwd": k4b,
+          "library": "SDPA (enable_gqa; K4: forward; K5: one decode call; K4b: forward + "
+                     "backward, and its backward alone), timed only as a yardstick"})
+    for r, v in ranks.items():
+        check(not v["ok"], f"K4b at G = 8 with group rank {r} left out passed the check: {v}")
+    return {"flash_attention": k4, "decode_attention": k5, "flash_attention_bwd": k4b}
+
+
+def vlm_prefill_tflop(cfg, B: int, S: int) -> float:
+    """A prefill call's products: 2 x (the layers' and the head's matrices)
+    a position, the attention's 4 Dh H a (query, key) pair of the causal
+    mask, and the projector over the patches."""
+    d, P = cfg.d_model, vlm_patch_count(cfg, S)
+    mats = cfg.param_count() - cfg.vocab_size * d
+    attn = 4 * cfg.head_dim * cfg.num_heads * attention_pairs(S, S, True, None) * cfg.num_layers
+    proj = 2 * P * (VLM_VISION_DIM * d + d * d)
+    return B * (2 * mats * S + attn + proj) / 1e12
+
+
+def vlm_decode_floor_ms(cfg) -> float:
+    """The least time of a decode step: the weights it reads (every layer's
+    matrices and norms, the final norm and the head, bf16; not the
+    embedding table, of which it gathers 8 rows, nor the projector) over
+    the card's memory rate; the cache not counted."""
+    d = cfg.d_model
+    n = cfg.param_count() - cfg.vocab_size * d + (2 * cfg.num_layers + 1) * d
+    return 2 * n / HBM_BYTES_PER_S * 1e3
+
+
+def phase_vlm_serving(holder: dict) -> dict:
+    """internvl2-76b at full width and VLM["serve_layers"] layers in bf16
+    (seed-0 weights on the card, the projector's norm randomised): prefill
+    4 x (512 patches + 1536 tokens) through K4, replayed with the plain
+    attention, with its three planted faults beyond the limit; generate on
+    8 text prompts through K5, replayed teacher-forced with the plain
+    attention and a planted K5 fault; a profile.  Leaves the weights, the
+    batch and the bf16 logits in ``holder`` for the int8 phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = vlm_config(VLM["serve_layers"])
+    per_call, per_step = moe_counts(cfg)  # K4 a layer a call, K5 a layer a step
+    t0 = time.perf_counter()
+    params = init_params(cfg)  # seed 0 on the card
+    randomize_vlm(params, cfg, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = vlm_model(cfg, params)
+
+    # (a) prefill: 4 x (512 patches + 1536 tokens), last-position logits
+    prefill = make_prefill_step(cfg)
+    B, S = VLM["prefill"]
+    P = vlm_patch_count(cfg, S)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                                (B, S - P))).cuda()
+    patches = vlm_patches(B, P, cfg, seed=2)
+    batch = {"tokens": tokens, "patches": patches}
+    prefill(params, {"tokens": tokens[:, :96], "patches": patches[:, :32]})  # warm-up
+    calls = MOE_PREFILL_CALLS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    want = {k: n * calls for k, n in per_call.items()}
+    check(prefill_counts == want, f"vlm prefill launches {prefill_counts}, want {want}")
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"vlm prefill logits {tuple(logits.shape)} not finite of shape ({B}, {cfg.vocab_size})")
+    torch.cuda.reset_peak_memory_stats()
+    check_pre = prefill_fault_check(lambda: prefill(params, batch), logits,
+                                    vlm_prefill_faults(P))
+    replay_peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "vlm_prefill_check", **check_pre, "rel_tol": SERVE_REL_TOL})
+    check_prefill_faults(check_pre, "vlm prefill")
+    tflop = vlm_prefill_tflop(cfg, B, S)
+    emit({"phase": "vlm_prefill", "model": model, "init_s": init_s, "batch": [B, S],
+          "patches": [B, P], "tokens": [B, S - P], "calls": calls, "s_per_call": prefill_s,
+          "tokens_per_s": B * S / prefill_s, "tflop_per_call": tflop,
+          "tflop_per_s": tflop / prefill_s, "peak_mem_gb": prefill_peak / 1e9,
+          "plain_replay_peak_mem_gb": replay_peak / 1e9, "launches": prefill_counts,
+          "rel_err_vs_plain": check_pre["rel_err_vs_plain"], "rel_tol": SERVE_REL_TOL,
+          "max_abs_logit": logits.float().abs().max().item()})
+
+    # (b) batched greedy generation on text prompts (prefill by teacher-forced decode)
+    serve = ServeConfig(max_batch=VLM["max_batch"], cache_len=VLM["cache_len"])
+    server = BatchServer(cfg, params, serve)
+    prompts = cut_prompts(tokens)
+    new = VLM["new_tokens"]
+    server.generate([p[:8] for p in prompts], max_new_tokens=2)  # warm-up
+    plen = max(len(p) for p in prompts)
+    steps = plen + new - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(SERVE_KERNELS)
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(SERVE_KERNELS)
+    gen_peak = torch.cuda.max_memory_allocated()
+    del server
+    want = {k: n * steps for k, n in per_step.items()}
+    check(gen_counts == want, f"vlm generate launches {gen_counts}, want {want} ({steps} steps)")
+    check(len(out) == len(prompts) and all(len(o) == new and all(0 <= t < cfg.vocab_size
+                                                                 for t in o) for o in out),
+          "vlm generate returned malformed tokens")
+
+    # (c) teacher-forced replay: the kernels and the plain attention in lockstep
+    rep = decode_replay(cfg, params, prompts, out, serve.cache_len)
+    emit({"phase": "vlm_generate_check", **{k: rep[k] for k in REPLAY_CHECK_KEYS},
+          "rel_tol": SERVE_REL_TOL})
+    check_decode_replay(rep, "vlm ")
+    emit({"phase": "vlm_generate", "prompts": [len(p) for p in prompts],
+          "max_batch": serve.max_batch, "cache_len": serve.cache_len,
+          "cache_dtype": serve.cache_dtype, "new_tokens": new, "decode_steps": steps,
+          "wall_s": gen_s, "ms_per_decode_step": gen_s / steps * 1e3,
+          "decode_floor_ms": vlm_decode_floor_ms(cfg),
+          "decode_tokens_per_s": len(prompts) * steps / gen_s,
+          "generated_tokens_per_s": len(prompts) * new / gen_s, "peak_mem_gb": gen_peak / 1e9,
+          "launches": gen_counts, "rel_tol": SERVE_REL_TOL, **rep})
+    phase_serving_profile(cfg, params, tokens, patches=patches)
+    holder.update(cfg=cfg, params=params, batch=batch, prompts=prompts, bf16_last=logits)
+    return {"flash_attention": prefill_counts["flash_attention"],
+            "decode_attention": gen_counts["decode_attention"]}
+
+
+def quantize_in_place(tree: dict) -> dict:
+    """``tree`` with `quantize_params`' values, each leaf replaced in its own
+    dict as soon as its int8 form exists (`quantize_named`), so the float
+    leaf is dropped then and the float tree and its int8 form are never held
+    whole together (32 layers of internvl2-76b are 59.2 GB in bf16 and 29.7
+    GB in int8)."""
+    from repro_torch.quant import quantize_named
+
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            quantize_in_place(tree[k])
+        else:
+            tree[k] = quantize_named(k, tree[k])
+    return tree
+
+
+def phase_vlm_quant(holder: dict) -> dict:
+    """The served vlm in int8, quantized IN PLACE (`quantize_in_place`: the
+    bf16 tree and its int8 form do not fit one card together): its bytes against bf16's, the last-position prefill logits
+    against the bf16 model's recorded before (QUANT_LOGIT_GAP; the planted
+    dequantisation fault beyond it), the int8 prefill replayed with the
+    plain attention (SERVE_REL_TOL), a short generate; exact launch
+    counts."""
+    import torch
+
+    from repro_torch.launch import BatchServer, ServeConfig, make_prefill_step
+    from repro_torch.utils.tree import tree_bytes
+
+    cfg, params, batch = holder.pop("cfg"), holder.pop("params"), holder.pop("batch")
+    prompts, bf16_last = holder.pop("prompts"), holder.pop("bf16_last")
+    per_call, per_step = moe_counts(cfg)
+    bf16_bytes = tree_bytes(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quantize_in_place(params)  # each bf16 leaf dropped once its int8 form exists
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    quantize_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    int8_bytes = tree_bytes(params)
+    prefill = make_prefill_step(cfg)
+    calls = MOE_PREFILL_CALLS
+    zero_launch_counts(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        int8_last = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / calls
+    prefill_counts = launch_counts(SERVE_KERNELS)
+    gap = {"max_rel_gap": max_rel_gap(int8_last, bf16_last)}
+    with dequant_fault():
+        gap["planted_dequant_fault"] = max_rel_gap(prefill(params, batch), bf16_last)
+    with plain_attention():
+        plain = {"rel_err_vs_plain": rel_err(int8_last, prefill(params, batch))}
+    n, plen, new = (VLM["int8_generate"][k] for k in ("prompts", "prompt_len", "new_tokens"))
+    server = BatchServer(cfg, params, ServeConfig(max_batch=n, cache_len=VLM["cache_len"]))
+    short = [p[:plen] for p in prompts[:n]]
+    zero_launch_counts(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.generate(short, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = launch_counts(SERVE_KERNELS)
+    steps = plen + new - 1
+    rows, text = batch["tokens"].shape
+    res = {"phase": "quant_vlm", "model": f"{cfg.name} at {cfg.num_layers} layers, int8 weights "
+                                          f"(quantized in place)",
+           "bf16_tree_gb": bf16_bytes / 1e9, "int8_tree_gb": int8_bytes / 1e9,
+           "bytes_ratio": int8_bytes / bf16_bytes, "quantize_s": quantize_s,
+           "quantize_peak_mem_gb": quantize_peak / 1e9,
+           "prefill_batch": [rows, batch["patches"].shape[1] + text],
+           "prefill_s_per_call": prefill_s, "prefill_launches": prefill_counts,
+           "logit_gap_vs_bf16": gap, "logit_gap_tol": QUANT_LOGIT_GAP,
+           "prefill_vs_plain": plain, "rel_tol": SERVE_REL_TOL,
+           "generate": {"prompts": n, "prompt_len": plen, "new_tokens": new, "steps": steps,
+                        "ms_per_decode_step": gen_s / steps * 1e3,
+                        "bf16_decode_floor_ms": vlm_decode_floor_ms(cfg),
+                        "launches": gen_counts}}
+    emit(res)
+    del server, params
+    torch.cuda.empty_cache()
+    check(res["bytes_ratio"] <= QUANT_BYTES_RATIO,
+          f"vlm int8 tree {int8_bytes} bytes > {QUANT_BYTES_RATIO} x bf16's {bf16_bytes}")
+    want = {k: v * calls for k, v in per_call.items()}
+    check(prefill_counts == want, f"vlm int8 prefill launches {prefill_counts}, want {want}")
+    want = {k: v * steps for k, v in per_step.items()}
+    check(gen_counts == want, f"vlm int8 generate launches {gen_counts}, want {want}")
+    check(gap["max_rel_gap"] <= QUANT_LOGIT_GAP, f"vlm int8 prefill logits {gap} from bf16's")
+    check(gap["planted_dequant_fault"] > QUANT_LOGIT_GAP,
+          f"a planted dequantisation fault moved the vlm logits by only {gap}")
+    check(plain["rel_err_vs_plain"] <= SERVE_REL_TOL,
+          f"vlm int8 prefill differs from its plain replay by {plain}")
+    check(len(out) == n and all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+                                for o in out), "vlm int8 generate: malformed tokens")
+    return res
+
+
+VLM_TRAIN = TrainFamily(
+    label="vlm", arch=VLM["arch"], kernels=ADAMW_KERNELS, per_pass=_moe_pass,
+    per_forward=lambda cfg: {**_moe_pass(cfg), "flash_attention_bwd": 0}, describe=vlm_model,
+    randomize=randomize_vlm,
+    scan_fault=lambda: rebind(_kernel_module("flash_attention"), _BWD_SKIP_KEY_TILES=1),
+    replay_seq=VLM["replay_seq"], reduced_tol=VLM_REDUCED_REL_TOL, reduced_seq=64,
+    layers=VLM["train_layers"], loss_fault=vlm_labels_unpadded)
+
+
+def phase_vlm() -> dict:
+    """The vlm path: the memory plan, parity at its shapes (G = 8),
+    internvl2-76b served in bf16 and int8 at full width and a cut depth,
+    DeepSVRP and AdamW at full width and the reckoned depth, the reduced
+    model against the CPU."""
+    import torch
+
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    vlm_memory_plan()
+    parity = timed("parity", phase_vlm_parity)
+    holder = {}
+    serving = timed("serving", phase_vlm_serving, holder)
+    timed("int8", phase_vlm_quant, holder)
+    cfg, step, helpers, batch, train = timed("train", phase_recurrent_train, VLM_TRAIN)
+    timed("train_profile", phase_train_profile, step, helpers, batch,
+          label="vlm_train_profile", groups=PROFILE_GROUPS["vlm"])
+    timed("train_replay", phase_recurrent_replay, VLM_TRAIN, cfg, step, helpers, batch)
+    del cfg, step, helpers, batch
+    timed("adamw", phase_recurrent_adamw, VLM_TRAIN)
+    timed("reduced", phase_recurrent_reduced, VLM_TRAIN)
+    emit({"phase": "vlm_seconds", **seconds, "total": sum(seconds.values())})
+    launches = {"flash_attention": serving["flash_attention"] + train["flash_attention"],
+                "decode_attention": serving["decode_attention"],
+                "flash_attention_bwd": train["flash_attention_bwd"],
+                "prox_update": train["prox_update"]}
+    return {"parity": parity, "launches": launches}
+
+
 # The design each kernel runs on the main path, for the kernels line where its
 # parity result names none (K4, K4b, K6 and K6b name theirs: `forward_route`,
 # `backward_route`, `scan_route`, `bwd_route`).
@@ -5898,7 +6464,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "thirteen and prints the kernels line")
+                         "fourteen and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5988,6 +6554,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if run["audio"]:
             audio = phase_audio()
+            torch.cuda.empty_cache()
+        if run["vlm"]:
+            vlm = phase_vlm()
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5997,8 +6566,8 @@ def main(argv=None) -> int:
     # The sweep runs in float64; serving in bf16 (K5: bf16 q against the
     # server's default float32 cache); hybrid serving (K6), rwkv serving (K7;
     # launches: prefill and generate) and training in bf16.  The launches of
-    # K3, K4, K4b and K5 add the moe and audio paths' (prefill and generate,
-    # DeepSVRP).
+    # K3, K4, K4b and K5 add the moe, audio and vlm paths' (prefill and
+    # generate, DeepSVRP).
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -6038,8 +6607,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "kernel_route": p.get("route", KERNEL_ROUTES.get(name)),
             "source": source, "replaces": replaces,
-            "launches": counts[name] + moe["launches"].get(name, 0)
-            + audio["launches"].get(name, 0),
+            "launches": counts[name] + sum(path["launches"].get(name, 0)
+                                           for path in (moe, audio, vlm)),
             "max_abs_err": p["max_abs_err"], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p.get("library_ms"),

@@ -1,15 +1,16 @@
 """Architecture registry of the port: `get_config("<arch-id>")`.
 
-The dense family, the hybrid family (zamba2), the ssm family (rwkv6), the
-moe family (deepseek-moe, qwen3-moe) and the audio family (seamless-m4t) are
-ported; the other architecture of the zoo (internvl2, vlm) is known by name
-and raises `NotImplementedError` until its slice lands.
+Every architecture of the zoo is ported: the dense family, the hybrid
+family (zamba2), the ssm family (rwkv6), the moe family (deepseek-moe,
+qwen3-moe), the audio family (seamless-m4t) and the vlm family (internvl2).
+An unknown name raises `KeyError`, as the reference's registry does.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
     deepseek_moe_16b,
     granite_3_2b,
+    internvl2_76b,
     llama3_2_3b,
     qwen2_1_5b,
     qwen3_4b,
@@ -24,25 +25,17 @@ REGISTRY: dict[str, ModelConfig] = {
     c.name: c
     for c in [qwen2_1_5b.CONFIG, granite_3_2b.CONFIG, llama3_2_3b.CONFIG, qwen3_4b.CONFIG,
               zamba2_2_7b.CONFIG, rwkv6_1_6b.CONFIG, deepseek_moe_16b.CONFIG,
-              qwen3_moe_235b_a22b.CONFIG, seamless_m4t_large_v2.CONFIG]
-}
-
-# The zoo's other architectures (name -> family), still served by `repro` alone.
-NOT_PORTED: dict[str, str] = {
-    "internvl2-76b": "vlm",
+              qwen3_moe_235b_a22b.CONFIG, seamless_m4t_large_v2.CONFIG,
+              internvl2_76b.CONFIG]
 }
 
 ARCH_IDS = list(REGISTRY)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} ({NOT_PORTED[name]} family) is not ported yet; repro_torch has {ARCH_IDS}"
-        )
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return REGISTRY[name]
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "NOT_PORTED", "REGISTRY", "get_config"]
+__all__ = ["ARCH_IDS", "ModelConfig", "REGISTRY", "get_config"]

@@ -7,10 +7,11 @@ problem, and ``dp_shift`` with the DP metadata for a DP-ERM one),
 `fed_lm_x0_from_numpy` a federated LM's flat parameter vector from the
 reference's parameter tree, `hparams_from_numpy` a per-trial hparam table,
 `dense_params_from_numpy`, `hybrid_params_from_numpy`,
-`ssm_params_from_numpy`, `moe_params_from_numpy` and
-`audio_params_from_numpy` a dense, hybrid (zamba2), ssm (rwkv6), moe
-(deepseek-moe, qwen3-moe) or audio (seamless-m4t) model's parameter tree
-(`params_from_numpy` any of the five by ``cfg.family``),
+`ssm_params_from_numpy`, `moe_params_from_numpy`,
+`audio_params_from_numpy` and `vlm_params_from_numpy` a dense, hybrid
+(zamba2), ssm (rwkv6), moe (deepseek-moe, qwen3-moe), audio (seamless-m4t)
+or vlm (internvl2) model's parameter tree (`params_from_numpy` any of the
+six by ``cfg.family``),
 `svrp_state_from_numpy` a DeepSVRP train state and
 `adamw_state_from_numpy` an AdamW train state, so both packages compute on
 the same data, the same weights and the same state; `state_to_numpy`
@@ -167,12 +168,22 @@ def audio_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
                               dtype or getattr(torch, cfg.param_dtype))
 
 
+def vlm_params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The port's parameters of the vlm model ``cfg`` (internvl2) from the
+    reference's params pytree with numpy leaves: the dense decoder's tree
+    (``layers`` leaves stacked (L, ...)) and ``projector`` (``ln`` over the
+    vision width, ``fc1``, ``fc2``), as tensors of ``dtype`` (default
+    ``cfg.param_dtype``) on ``device`` (default CUDA).  Raises unless the
+    tree has exactly the keys and shapes `init_params` gives ``cfg``."""
+    return _params_from_numpy(tree, cfg, "vlm", device, dtype or getattr(torch, cfg.param_dtype))
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
     """The port's parameters of ``cfg`` from the reference's, by ``cfg.family``
     (`dense_params_from_numpy`, `hybrid_params_from_numpy`,
     `ssm_params_from_numpy`, `moe_params_from_numpy`,
-    `audio_params_from_numpy`): every leaf in ``dtype``, or, with ``dtype``
-    None, in the dtype `init_params` gives it."""
+    `audio_params_from_numpy`, `vlm_params_from_numpy`): every leaf in
+    ``dtype``, or, with ``dtype`` None, in the dtype `init_params` gives it."""
     return _params_from_numpy(tree, cfg, cfg.family, device, dtype)
 
 

@@ -1,4 +1,4 @@
-"""Batched serving engine: static batching over the dense, hybrid, ssm, moe and audio decode paths.
+"""Batched serving engine: static batching over the decode paths of every family.
 
 The port of `repro.launch.serve`:
 
@@ -22,7 +22,9 @@ family (seamless-m4t) takes ``generate(..., frames=)``, one (F, d_model)
 row of frame embeddings a prompt: each group's cache is built from its
 frames (the encoder runs once, K4, and fills the cross cache, cast to
 ``cache_dtype`` after its projection), and every decode step runs K5 twice
-a decoder layer, over the token cache and over the cross cache.
+a decoder layer, over the token cache and over the cross cache.  The vlm
+family (internvl2) serves as the dense family does, as the reference's
+server does: text prompts, K5 at every layer a step, no patches.
 
 With ``quantize=True`` the server quantizes the weights once, at
 construction (`repro_torch.quant.quantize_params`: int8 with per-channel

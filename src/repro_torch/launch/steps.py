@@ -10,7 +10,7 @@ maths is the same:
     step, helpers = make_adamw_train_step(cfg)  # the "ordinary distributed SGD" baseline
     state = helpers["init_state"]()             # AdamWTrainState: params, float32 moments
     state, metrics = step(state, batch)         # {"loss", "grad_norm"}; state updated in place
-    prefill = make_prefill_step(cfg)            # (params, {"tokens": (B, S)[, "frames"]}) -> (B, V)
+    prefill = make_prefill_step(cfg)            # (params, {"tokens", ["frames" | "patches"]}) -> (B, V)
     serve = make_serve_step(cfg)                # (params, cache, token, pos) -> (logits, cache)
 
 The prefill and serve steps take a parameter tree or its int8 form
@@ -43,6 +43,10 @@ class SVRPServerState(NamedTuple):
     rng: torch.Generator  # the refresh coins of a native run (host)
 
 
+# A batch's precomputed embeddings beside its tokens: audio frames, vision patches.
+_EMBEDDED_INPUTS = ("frames", "patches")
+
+
 def _check_trainable(cfg: ModelConfig) -> None:
     """Raise unless ``cfg``'s family is ported (`models.model`)."""
     M._family(cfg)
@@ -50,10 +54,12 @@ def _check_trainable(cfg: ModelConfig) -> None:
 
 def _device_batch(batch, dev) -> dict:
     """``tokens`` and ``labels`` as int64 on ``dev``; the audio family's
-    ``frames`` (B, F, d_model) too, in their own dtype."""
+    ``frames`` (B, F, d_model) and the vlm family's ``patches`` (B, P,
+    vision_dim) too, in their own dtype."""
     out = {k: torch.as_tensor(batch[k], device=dev).long() for k in ("tokens", "labels")}
-    if "frames" in batch:
-        out["frames"] = torch.as_tensor(batch["frames"], device=dev)
+    for k in _EMBEDDED_INPUTS:
+        if k in batch:
+            out[k] = torch.as_tensor(batch[k], device=dev)
     return out
 
 
@@ -94,7 +100,10 @@ def make_svrp_train_step(cfg: ModelConfig, svrp: DeepSVRPConfig, *, cohorts: int
     The audio family's batch carries ``frames`` (B, F, d_model), split over
     the cohorts with the tokens; its passes run K4 and K4b in the encoder,
     in the decoder's self-attention and in its cross-attention, whose dK and
-    dV flow back through the memory into the encoder.
+    dV flow back through the memory into the encoder.  The vlm family's
+    carries ``patches`` (B, P, vision_dim), split the same way; its passes
+    run K4 and K4b causal over the P + S sequence in every layer, and the
+    gradient reaches the projector through the patch positions.
     """
     _check_trainable(cfg)
     dev = resolve_device(device)
@@ -203,15 +212,17 @@ def make_prefill_step(cfg: ModelConfig, *, device=None):
     Mamba-2 layer of the hybrid family, the WKV scan (K7) in every time-mix
     layer of the ssm family; in the audio family K4 in each encoder layer
     over ``batch["frames"]`` and twice in each decoder layer (causal
-    self-attention, cross-attention over the memory).  The step returns the
-    last position's logits (B, V)."""
+    self-attention, cross-attention over the memory); in the vlm family K4
+    in every layer over ``batch["patches"]`` and then the tokens.  The step
+    returns the last position's logits (B, V)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def step(params, batch):
         inputs = {"tokens": torch.as_tensor(batch["tokens"], device=dev)}
-        if "frames" in batch:
-            inputs["frames"] = torch.as_tensor(batch["frames"], device=dev)
+        for k in _EMBEDDED_INPUTS:
+            if k in batch:
+                inputs[k] = torch.as_tensor(batch[k], device=dev)
         logits, _ = M.forward(params, cfg, inputs)
         return logits[:, -1].clone()  # a view would keep all B x S x V logits alive
 

@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
-from repro_torch.models.transformer import _attn_cfg, _stack, layer_params
+from repro_torch.models.transformer import _attn_cfg, layer_params, stacked_init
 
 
 # ------------------------------------------------------------------ init
@@ -56,8 +56,8 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig, device):
     in the order of the reference's keys (k_e, k_d, k_emb, k_h), laid out
     under its leaf names and in its order."""
     dtype = getattr(torch, cfg.param_dtype)
-    enc = _stack([_enc_layer_init(gen, cfg, dtype, device) for _ in range(cfg.encoder_layers)])
-    dec = _stack([_dec_layer_init(gen, cfg, dtype, device) for _ in range(cfg.num_layers)])
+    enc = stacked_init(cfg.encoder_layers, lambda: _enc_layer_init(gen, cfg, dtype, device))
+    dec = stacked_init(cfg.num_layers, lambda: _dec_layer_init(gen, cfg, dtype, device))
     embed = nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
     head = nn.linear_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
     return {

@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
 from repro_torch.models.ssm import mamba_apply, mamba_decode_step, mamba_init, mamba_state_init
-from repro_torch.models.transformer import _attn_cfg, _stack, layer_params
+from repro_torch.models.transformer import _attn_cfg, layer_params, stacked_init
 from repro_torch.utils.tree import tree_map
 
 
@@ -60,9 +60,9 @@ def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device):
     dtype = getattr(torch, cfg.param_dtype)
     G, per_group = _groups(cfg)
     embed = nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
-    mamba = _stack([mamba_init(gen, cfg, dtype, device) for _ in range(G * per_group)])
+    mamba = stacked_init(G * per_group, lambda: mamba_init(gen, cfg, dtype, device))
     mamba = tree_map(lambda t: t.reshape(G, per_group, *t.shape[1:]), mamba)
-    loras = _stack([_site_lora_init(gen, cfg, dtype, device) for _ in range(G)])
+    loras = stacked_init(G, lambda: _site_lora_init(gen, cfg, dtype, device))
     return {
         "embed": embed,
         "mamba_layers": mamba,  # leaves (G, per_group, ...)

@@ -1,6 +1,6 @@
-"""Uniform model API — the port of `repro.models.model` for the dense,
-hybrid (zamba2), ssm (rwkv6), moe (deepseek-moe, qwen3-moe) and audio
-(seamless-m4t) families.
+"""Uniform model API — the port of `repro.models.model` for every family of
+the zoo: dense, hybrid (zamba2), ssm (rwkv6), moe (deepseek-moe, qwen3-moe),
+audio (seamless-m4t) and vlm (internvl2).
 
     params = init_params(cfg, generator, device=)  # weights from a torch.Generator
     logits, aux = forward(params, cfg, batch)        # batch: {tokens (B,S), labels (B,S)}
@@ -13,12 +13,16 @@ frame embeddings its encoder reads, and its decode cache is built from them
 (``init_decode_cache(..., params=, batch={"frames": ...})``: the encoder runs
 once and fills the cross-attention cache).
 
+The vlm family's batches add ``patches`` (B, P, vision_dim), the
+precomputed vision-patch embeddings its projector reads: the logits cover
+the P patches and the text, and `loss_fn` masks the patch positions out.
+Its decode is the dense family's (text tokens only).
+
 The ssm family's decode cache is its recurrent state (token shifts and WKV
 states, float32, constant in the sequence length): it ignores ``cache_len``
 and ``dtype``, as the reference's does.
 
-The vlm family raises `NotImplementedError` until its slice of the port
-lands.
+An unknown family raises `ValueError`, as the reference's does.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid, moe, rwkv, transformer
+from repro_torch.models import encdec, hybrid, moe, rwkv, transformer, vlm
 from repro_torch.models import layers as nn
 
 MOE_AUX_WEIGHT = 0.01
@@ -54,12 +58,14 @@ _FAMILIES = {
             moe.moe_cache_init, moe.moe_decode_step),
     "audio": (encdec.encdec_init, _zero_aux(encdec.encdec_forward, "frames", "tokens"),
               encdec.encdec_cache_init, encdec.encdec_decode_step),
+    "vlm": (vlm.vlm_init, _zero_aux(vlm.vlm_forward, "patches", "tokens"), vlm.vlm_cache_init,
+            vlm.vlm_decode_step),
 }
 
 
 def _family(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet")
+        raise ValueError(f"unknown family {cfg.family}")
     return _FAMILIES[cfg.family]
 
 
@@ -68,8 +74,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *, d
     norms 1, biases 0; the hybrid family's SSM and LoRA leaves and the ssm
     family's time-mix leaves as `models.ssm`, `models.hybrid` and
     `models.rwkv` say; the moe family's stacks drawn into place, layer by
-    layer, `models.moe`; the audio family's encoder, decoder, embedding and
-    head in the reference's key order, `models.encdec`), from ``generator``
+    layer, `models.moe`, as the dense decoder's are; the audio family's
+    encoder, decoder, embedding and head in the reference's key order,
+    `models.encdec`; the vlm family's decoder, then its projector,
+    `models.vlm`), from ``generator``
     (default: seed 0 on ``device``),
     on ``device`` (default CUDA)."""
     init = _family(cfg)[0]
@@ -81,14 +89,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *, d
 def forward(params, cfg: ModelConfig, batch):
     """Returns (logits, aux): aux the moe family's load-balance loss averaged
     over its MoE layers, 0 for the other families.  ``batch`` holds
-    ``tokens``, and for the audio family ``frames`` too."""
+    ``tokens``, and for the audio family ``frames`` too, for the vlm family
+    ``patches`` (its logits then cover the P patches and the text)."""
     return _family(cfg)[1](params, cfg, batch)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Cross entropy plus ``MOE_AUX_WEIGHT`` times the load-balance loss."""
+    """Cross entropy plus ``MOE_AUX_WEIGHT`` times the load-balance loss; in
+    the vlm family the patch positions are masked out (`vlm.loss_labels`)."""
     logits, aux = forward(params, cfg, batch)
-    return nn.cross_entropy_loss(logits, batch["labels"]) + MOE_AUX_WEIGHT * aux
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        labels = vlm.loss_labels(labels, batch["patches"])
+    return nn.cross_entropy_loss(logits, labels) + MOE_AUX_WEIGHT * aux
 
 
 def init_decode_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,

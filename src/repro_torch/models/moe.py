@@ -43,8 +43,8 @@ from repro_torch.models.transformer import (
     _attn_cfg,
     _layer_apply,
     _layer_init,
-    _stack,
     layer_params,
+    stacked_init,
 )
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -99,18 +99,20 @@ def moe_mlp_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
 
 def _moe_layers_init(gen, cfg: ModelConfig, n: int, dtype, device):
     """The ``n`` MoE layers, every leaf allocated once at its stacked shape
-    ``(n, ...)`` and drawn layer by layer into its slices (the attention of
-    one layer drawn, then copied in), so no second copy of the weights is
-    held: 32.75 GB for deepseek-moe-16b in bf16."""
+    ``(n, ...)`` and drawn layer by layer (the attention by `stacked_init`,
+    each layer's experts into their slices right after its attention), so no
+    second copy of the weights is held: 32.75 GB for deepseek-moe-16b in
+    bf16."""
     acfg = _attn_cfg(cfg)
-    attn = None
     moe_p = _mlp_empty(cfg, (n,), dtype, device)
-    for i in range(n):
+    experts = (tree_map(lambda t, i=i: t[i], moe_p) for i in range(n))
+
+    def draw():
         one = nn.attn_init(gen, acfg, dtype, device)
-        if attn is None:
-            attn = tree_map(lambda t: t.new_empty((n, *t.shape)), one)
-        tree_map(lambda dst, src, i=i: dst[i].copy_(src), attn, one)
-        _draw_mlp_(tree_map(lambda t, i=i: t[i], moe_p), gen)
+        _draw_mlp_(next(experts), gen)
+        return one
+
+    attn = stacked_init(n, draw)
     ones = torch.ones((n, cfg.d_model), dtype=dtype, device=device)
     return {"ln1": {"scale": ones}, "attn": attn, "ln2": {"scale": ones.clone()}, "moe": moe_p}
 
@@ -119,8 +121,8 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device):
     dtype = getattr(torch, cfg.param_dtype)
     p = {"embed": nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)}
     if cfg.first_dense_layers:
-        p["dense_layers"] = _stack([_layer_init(gen, cfg, dtype, device)
-                                    for _ in range(cfg.first_dense_layers)])
+        p["dense_layers"] = stacked_init(cfg.first_dense_layers,
+                                         lambda: _layer_init(gen, cfg, dtype, device))
     p["moe_layers"] = _moe_layers_init(gen, cfg, cfg.num_layers - cfg.first_dense_layers, dtype,
                                        device)
     p["ln_f"] = nn.rmsnorm_init(cfg.d_model, dtype, device)

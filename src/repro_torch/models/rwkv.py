@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as nn
-from repro_torch.models.transformer import _stack, layer_params
+from repro_torch.models.transformer import layer_params, stacked_init
 
 _DECAY_RANK = 64
 
@@ -142,7 +142,7 @@ def rwkv_layer_init(gen, cfg: ModelConfig, dtype, device=None):
 def rwkv_init(gen: torch.Generator, cfg: ModelConfig, device):
     dtype = getattr(torch, cfg.param_dtype)
     embed = nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
-    layers = _stack([rwkv_layer_init(gen, cfg, dtype, device) for _ in range(cfg.num_layers)])
+    layers = stacked_init(cfg.num_layers, lambda: rwkv_layer_init(gen, cfg, dtype, device))
     return {
         "embed": embed,
         "layers": layers,  # leaves (L, ...)

@@ -45,12 +45,6 @@ def layer_params(layers) -> list:
     return [tree_map(lambda views, i=i: views[i], unbound) for i in range(n)]
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def _layer_init(gen, cfg: ModelConfig, dtype, device):
     return {
         "ln1": nn.rmsnorm_init(cfg.d_model, dtype, device),
@@ -60,10 +54,25 @@ def _layer_init(gen, cfg: ModelConfig, dtype, device):
     }
 
 
+def stacked_init(n: int, draw):
+    """``n`` layers drawn in turn by ``draw()``, each copied into leaves
+    allocated once at their stacked (n, ...) shape: the values of
+    `torch.stack` over the same draws, without a second copy of the weights
+    (32 layers of internvl2-76b are 55 GB in bf16)."""
+    stack = None
+    for i in range(n):
+        one = draw()
+        if stack is None:
+            stack = tree_map(lambda t: t.new_empty((n, *t.shape)), one)
+        tree_map(lambda dst, src, i=i: dst[i].copy_(src), stack, one)
+        del one
+    return stack
+
+
 def dense_init(gen: torch.Generator, cfg: ModelConfig, device):
     dtype = getattr(torch, cfg.param_dtype)
     embed = nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
-    layers = _stack([_layer_init(gen, cfg, dtype, device) for _ in range(cfg.num_layers)])
+    layers = stacked_init(cfg.num_layers, lambda: _layer_init(gen, cfg, dtype, device))
     return {
         "embed": embed,
         "layers": layers,
@@ -78,10 +87,15 @@ def _layer_apply(lp, cfg: ModelConfig, x, rope):
     return x + nn.mlp_apply(lp["mlp"], nn.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps))
 
 
-def dense_forward(params, cfg: ModelConfig, tokens):
-    """tokens: (B, S) int -> logits (B, S, V)."""
+def dense_forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None):
+    """tokens: (B, S) int -> logits (B, S, V); or precomputed
+    ``inputs_embeds`` (B, S, d_model) in place of the tokens' embeddings (the
+    vlm family's patches and text), at RoPE positions 0..S-1."""
     cdt = getattr(torch, cfg.compute_dtype)
-    x = nn.embed_apply(params["embed"], tokens).to(cdt)
+    if inputs_embeds is None:
+        x = nn.embed_apply(params["embed"], tokens).to(cdt)
+    else:
+        x = inputs_embeds.to(cdt)
     rope = nn.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta)
     for lp in layer_params(params["layers"]):
         x = _layer_apply(lp, cfg, x, rope)

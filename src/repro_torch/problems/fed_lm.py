@@ -173,12 +173,13 @@ def make_fed_lm_problem(cfg: ModelConfig, *, num_clients: int, per_client_batch:
     `torch.Generator` seeded with ``seed``, ravelled in the reference's
     order, and client m's tokens ``SyntheticLMDataset(...).sample(m, ...)``
     (equal to the reference's for one seed).  Float32 products stay in
-    float32 (no TF32).  Clients hold token rows only, so the audio family,
-    whose loss also reads frame embeddings, is refused, as the reference's
-    problem cannot run it either."""
-    if cfg.family == "audio":
+    float32 (no TF32).  Clients hold token rows only, so the audio and vlm
+    families, whose losses also read frame or patch embeddings, are refused,
+    as the reference's problem cannot run them either."""
+    needs = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if needs:
         raise NotImplementedError(f"{cfg.name}: the federated LM's clients hold tokens only; "
-                                  f"the audio family also needs frames")
+                                  f"the {cfg.family} family also needs {needs}")
     dev = resolve_device(device)
     full_precision_matmul()
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, num_clients=num_clients,

@@ -5,6 +5,7 @@ from repro_torch.quant.quant import (
     dequantize_params,
     quantization_error,
     quantize_leaf,
+    quantize_named,
     quantize_params,
 )
 
@@ -14,5 +15,6 @@ __all__ = [
     "dequantize_params",
     "quantization_error",
     "quantize_leaf",
+    "quantize_named",
     "quantize_params",
 ]

@@ -80,10 +80,22 @@ def quantize_leaf(w: torch.Tensor, reduce_axis: int = -1) -> dict:
     return _quantize_matrix(w, reduce_axis=reduce_axis)
 
 
+def quantize_named(name: str, leaf: torch.Tensor):
+    """`quantize_params`' rule for one tensor leaf under key ``name``: a
+    large 2D+ ``w`` / ``emb`` leaf as a ``{"q", "s"}`` dict, any other as it
+    is.  A caller that cannot hold a float tree and its int8 form together
+    replaces its leaves one at a time with this."""
+    if name in ("w", "emb") and leaf.ndim >= 2 and leaf.numel() >= _MIN_QUANT_SIZE:
+        # embeddings (V, D): a scale a row; matmuls (..., d_in, d_out): a scale a column
+        return _quantize_matrix(leaf, reduce_axis=-1 if name == "emb" else -2)
+    return leaf
+
+
 def quantize_params(params: PyTree) -> PyTree:
-    """Every large 2D+ ``w`` / ``emb`` leaf as a ``{"q", "s"}`` dict; the
-    other leaves pass through BY DESIGN, but must be tensors: a malformed
-    leaf (None, a python scalar) raises here, naming its path."""
+    """Every large 2D+ ``w`` / ``emb`` leaf as a ``{"q", "s"}`` dict
+    (`quantize_named`); the other leaves pass through BY DESIGN, but must be
+    tensors: a malformed leaf (None, a python scalar) raises here, naming its
+    path."""
 
     def visit(node, names):
         if isinstance(node, dict):
@@ -91,11 +103,7 @@ def quantize_params(params: PyTree) -> PyTree:
         if not isinstance(node, torch.Tensor):
             raise TypeError(f"quantize_params: leaf at {'/'.join(names) or '<root>'} is "
                             f"{type(node).__name__}, expected an array")
-        if names and names[-1] in ("w", "emb") and node.ndim >= 2 \
-                and node.numel() >= _MIN_QUANT_SIZE:
-            # embeddings (V, D): a scale a row; matmuls (..., d_in, d_out): a scale a column
-            return _quantize_matrix(node, reduce_axis=-1 if names[-1] == "emb" else -2)
-        return node
+        return quantize_named(names[-1], node) if names else node
 
     return visit(params, [])
 

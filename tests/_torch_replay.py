@@ -16,8 +16,9 @@ For the DeepSVRP training tests: `deep_coins` replays the refresh coins the
 reference flips from ``fold_in(rng, step)``, `mixed_coin_prob` picks an
 anchor probability whose first rounds hold both kinds of round, and the
 reduced qwen2 configs, a cohort-major batch and tree comparisons are shared;
-`deep_step_matches_reference` runs one cohort's train step in both packages
-from given weights (the recurrent families' tests).
+`deep_step_matches_reference` runs C cohorts' train step in both packages
+from given weights (the families' tests; the reference in a subprocess with
+C host devices when C > 1).
 """
 from __future__ import annotations
 
@@ -134,7 +135,7 @@ def jax_batch(batch):
 
 
 def torch_batch(batch):
-    """Integer leaves as int64 (tokens, labels), float leaves as they are (frames)."""
+    """Integer leaves as int64 (tokens, labels), float leaves as they are (frames, patches)."""
     out = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
     return {k: v if v.is_floating_point() else v.long() for k, v in out.items()}
 
@@ -169,17 +170,93 @@ def mixed_coin_prob(key, steps=3):
 SVRP_KW = dict(eta=1.0, local_lr=0.05, local_steps=3)
 
 
+_REFERENCE_ROUNDS = r"""
+import pickle, sys
+import jax
+jax.config.update("jax_enable_x64", True)
+from _torch_replay import reference_rounds
+
+with open(sys.argv[1], "rb") as f:
+    args = pickle.load(f)
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(reference_rounds(**args), f)
+"""
+
+
+def reference_rounds(jcfg, x0, gbar, batch, svrp_kw, coins, cohorts):
+    """The reference's `make_svrp_train_step` on a ``cohorts`` x 1 debug mesh
+    from x = w = ``x0`` and ``gbar`` (numpy trees), with its state built as
+    its ``init_state`` builds it, without its eager init, and placed on the
+    step's shardings (its second round would compile the step again for
+    unplaced inputs): per round of ``coins`` (its own refresh coins) (loss,
+    {x, w, gbar as numpy}, step)."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import deep as jdeep
+    from repro.launch.mesh import make_debug_mesh
+    from repro.launch.steps import SVRPServerState as JState
+    from repro.launch.steps import make_svrp_train_step as ref_make_svrp_train_step
+    from repro.models import model as JM
+
+    key = jax.random.key(0)
+    mesh = make_debug_mesh(data=cohorts, model=1)
+    make_step, helpers = ref_make_svrp_train_step(jcfg, mesh, jdeep.DeepSVRPConfig(**svrp_kw))
+    jstep = make_step(jax_batch(batch))
+    shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k), key)
+    jparams = jax.tree.map(lambda like, a: jnp.asarray(a, like.dtype), shapes, x0)
+    jstate = JState(params=jparams, anchor=jparams, anchor_grad=jax.tree.map(jnp.asarray, gbar),
+                    step=jnp.zeros((), jnp.int32), rng=jax.random.key_data(key))
+    zero = jax.tree.map(lambda spec: NamedSharding(mesh, spec), helpers["zero_specs"],
+                        is_leaf=lambda x: isinstance(x, P))
+    jstate = jax.device_put(jstate, JState(zero, zero, zero, NamedSharding(mesh, P()),
+                                           NamedSharding(mesh, P())))
+    assert deep_coins(jax.random.wrap_key_data(jstate.rng), len(coins),
+                      svrp_kw["anchor_prob"]) == coins
+    out = []
+    for _ in coins:
+        jstate, metrics = jstep(jstate, jax_batch(batch))
+        out.append((float(metrics["loss"]),
+                    {f: np_tree(getattr(jstate, f)) for f in ("params", "anchor", "anchor_grad")},
+                    int(jstate.step)))
+    return out
+
+
+def _reference_rounds_apart(**args):
+    """`reference_rounds` in a subprocess with ``cohorts`` host devices (this
+    process's jax has one)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={args['cohorts']}",
+               PYTHONPATH=os.pathsep.join([os.path.join(os.path.dirname(here), "src"), here]),
+               JAX_PLATFORMS="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, out = os.path.join(tmp, "args.pkl"), os.path.join(tmp, "rounds.pkl")
+        with open(inp, "wb") as f:
+            pickle.dump(args, f)
+        r = subprocess.run([sys.executable, "-c", _REFERENCE_ROUNDS, inp, out],
+                           capture_output=True, text=True, env=env, timeout=600)
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+
 def deep_step_matches_reference(jcfg, tcfg, tree, dtype="float32", rounds=2, seq=16,
-                                frames=None):
-    """One cohort of 2 x ``seq`` tokens (with ``frames``, a (2, F, d_model)
-    numpy array, for the audio family): the port's `make_svrp_train_step`
-    against the reference's on a 1 x 1 debug mesh, ``rounds`` rounds from the
-    weights ``tree`` (numpy) with gbar = the gradient at x0 (SVRP's
-    invariant; the port's, handed to both), the reference's refresh coins
-    injected (a refresh and a plain round among them).  The reference's state
-    is built as its ``init_state`` builds it, without its eager init, and
-    placed on the step's shardings (its second round would compile the step
-    again for unplaced inputs).  After
+                                frames=None, patches=None, cohorts=1):
+    """``cohorts`` cohorts of 2 x ``seq`` tokens each (with ``frames``, a
+    (2 cohorts, F, d_model) numpy array, for the audio family; with
+    ``patches``, a (2 cohorts, P, vision_dim) one, for the vlm family): the
+    port's `make_svrp_train_step` against the reference's on a ``cohorts`` x
+    1 debug mesh (`reference_rounds`; in a subprocess with that many host
+    devices when ``cohorts`` > 1), ``rounds`` rounds from the weights
+    ``tree`` (numpy) with gbar = the cohort mean of the gradients at x0
+    (SVRP's invariant; the port's, handed to both), the reference's refresh
+    coins injected (a refresh and a plain round among them).  After
     every round the loss, x and w are held to ``ROUND_TOL[dtype]``, gbar (a
     gradient, taken at x after a refresh) to the gradient tolerance of the
     float32 model tests, ``GRAD_TOL``: the Mamba-2 model's gradients reach
@@ -187,55 +264,45 @@ def deep_step_matches_reference(jcfg, tcfg, tree, dtype="float32", rounds=2, seq
     (0.35% of the embedding's elements over ROUND_TOL's atol of 1e-6), as far
     as its gradient at one point is between the packages (8e-7) grown by the
     round's step."""
-    from repro.core import deep as jdeep
-    from repro.launch.mesh import make_debug_mesh
-    from repro.launch.steps import SVRPServerState as JState
-    from repro.launch.steps import make_svrp_train_step as ref_make_svrp_train_step
     from repro.models import model as JM
     from repro_torch import convert
     from repro_torch.core import deep as tdeep
     from repro_torch.launch import make_svrp_train_step
     from repro_torch.models import model as TM
     from repro_torch.utils.tree import tree_map
-    from jax.sharding import NamedSharding
-    from jax.sharding import PartitionSpec as P
 
     key = jax.random.key(0)
     p, coins = mixed_coin_prob(key, rounds)
     svrp_kw = dict(SVRP_KW, anchor_prob=p)
-    batch = lm_batch(tcfg.vocab_size, 1, b=2, seq=seq)
+    batch = lm_batch(tcfg.vocab_size, cohorts, b=2, seq=seq)
     if frames is not None:
         batch["frames"] = frames
-    mesh = make_debug_mesh(data=1, model=1)
-    make_step, helpers = ref_make_svrp_train_step(jcfg, mesh, jdeep.DeepSVRPConfig(**svrp_kw))
-    jstep = make_step(jax_batch(batch))
+    if patches is not None:
+        batch["patches"] = patches
     shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k), key)
-    jparams = jax.tree.map(lambda like, a: jnp.asarray(a, like.dtype), shapes, tree)
-    x0 = np_tree(jparams)
+    x0 = np_tree(jax.tree.map(lambda like, a: jnp.asarray(a, like.dtype), shapes, tree))
     params = convert.params_from_numpy(x0, tcfg, device="cpu")
-    grads = tdeep.grad_of(lambda q, b: TM.loss_fn(q, tcfg, b), torch_batch(batch))(params)
-    gbar = tree_map(lambda g: g.detach().float().numpy(), grads)
-    jstate = JState(params=jparams, anchor=jparams, anchor_grad=jax.tree.map(jnp.asarray, gbar),
-                    step=jnp.zeros((), jnp.int32), rng=jax.random.key_data(key))
-    zero = jax.tree.map(lambda spec: NamedSharding(mesh, spec), helpers["zero_specs"],
-                        is_leaf=lambda x: isinstance(x, P))
-    jstate = jax.device_put(jstate, JState(zero, zero, zero, NamedSharding(mesh, P()),
-                                           NamedSharding(mesh, P())))
-    assert deep_coins(jax.random.wrap_key_data(jstate.rng), rounds, p) == coins
-    step, _ = make_svrp_train_step(tcfg, tdeep.DeepSVRPConfig(**svrp_kw), device="cpu")
+    tb = torch_batch(batch)
+    grads = [tdeep.grad_of(lambda q, b: TM.loss_fn(q, tcfg, b),
+                           {k: v[2 * c:2 * (c + 1)] for k, v in tb.items()})(params)
+             for c in range(cohorts)]
+    gbar = tree_map(lambda *g: (sum(t.detach().float() for t in g) / cohorts).numpy(), *grads)
+    args = dict(jcfg=jcfg, x0=x0, gbar=gbar, batch=batch, svrp_kw=svrp_kw, coins=coins,
+                cohorts=cohorts)
+    want = reference_rounds(**args) if cohorts == 1 else _reference_rounds_apart(**args)
+    step, _ = make_svrp_train_step(tcfg, tdeep.DeepSVRPConfig(**svrp_kw), cohorts=cohorts,
+                                   device="cpu")
     state = convert.svrp_state_from_numpy(
         {"params": x0, "anchor": x0, "anchor_grad": gbar, "step": 0}, tcfg, device="cpu")
     tol = ROUND_TOL[dtype]
-    for r, coin in enumerate(coins):
-        jstate, metrics = jstep(jstate, jax_batch(batch))
+    for r, (coin, (loss, fields, n)) in enumerate(zip(coins, want)):
         state, tmetrics = step(state, batch, refresh=coin)
-        np.testing.assert_allclose(tmetrics["loss"].item(), float(metrics["loss"]), **tol)
-        for field in ("params", "anchor", "anchor_grad"):
-            got = getattr(state, field)
-            assert_tree_close(got, np_tree(getattr(jstate, field)),
+        np.testing.assert_allclose(tmetrics["loss"].item(), loss, **tol)
+        for field, ref in fields.items():
+            assert_tree_close(getattr(state, field), ref,
                               GRAD_TOL if field == "anchor_grad" and dtype == "float32" else tol,
                               f"round {r} {field}")
-        assert state.step == int(jstate.step) == r + 1
+        assert state.step == n == r + 1
 
 
 def reference_params(jcfg, seed: int = 0):

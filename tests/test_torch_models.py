@@ -28,7 +28,7 @@ from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import REGISTRY, get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, REGISTRY, get_config  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
@@ -81,13 +81,35 @@ def test_configs_are_the_references():
     assert get_config("llama3.2-3b").with_sliding_window(64).sliding_window == 64
 
 
-@pytest.mark.parametrize("name", ["internvl2-76b"])
-def test_other_families_are_not_ported_yet(name):
-    assert name in JAX_REGISTRY
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config(name)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_params(JAX_REGISTRY[name].reduced(), device="cpu")
+def test_vlm_family_is_ported():
+    """internvl2-76b's config is the reference's, and `init_params` on meta
+    tensors has the reference's tree at full size: 70,647,032,960
+    parameters (the decoder's and the projector's; nothing allocated),
+    `param_count()` 70,552,387,584 as the reference's."""
+    name = "internvl2-76b"
+    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(JAX_REGISTRY[name])
+    assert (dataclasses.asdict(get_config(name).reduced())
+            == dataclasses.asdict(JAX_REGISTRY[name].reduced()))
+    assert get_config(name).param_count() == JAX_REGISTRY[name].param_count() == 70_552_387_584
+    shapes = jax.eval_shape(lambda k: JM.init_params(JAX_REGISTRY[name], k), jax.random.key(0))
+    meta = TM.init_params(get_config(name), torch.Generator(), device="meta")
+    assert jax.tree.structure(jax.tree.map(lambda t: 0, meta)) == jax.tree.structure(
+        jax.tree.map(lambda t: 0, shapes))
+    assert [(tuple(t.shape), str(t.dtype).split(".")[-1]) for t in jax.tree.leaves(meta)] == [
+        (tuple(s.shape), str(s.dtype)) for s in jax.tree.leaves(shapes)]
+    assert sum(t.numel() for t in jax.tree.leaves(meta)) == 70_647_032_960
+
+
+def test_every_reference_architecture_is_ported():
+    """The port's registry holds every architecture of the reference's, and
+    an unknown name or family is refused as the reference refuses it
+    (`KeyError`, `ValueError`)."""
+    assert set(ARCH_IDS) == set(JAX_REGISTRY)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    with pytest.raises(ValueError, match="unknown family vision"):
+        TM.init_params(dataclasses.replace(get_config("llama3.2-3b").reduced(), family="vision"),
+                       device="cpu")
 
 
 @pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "deepseek-moe-16b"])

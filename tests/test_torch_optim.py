@@ -265,6 +265,8 @@ def test_adamw_train_step_matches_reference(name):
 
 
 def test_adamw_step_refuses_an_unported_family():
-    vlm = dataclasses.replace(_configs("qwen2-1.5b")[1], family="vlm")
-    with pytest.raises(NotImplementedError, match="the vlm family is not ported yet"):
-        make_adamw_train_step(vlm, device="cpu")
+    """Every family of the zoo is ported: an unknown one raises `ValueError`,
+    as the reference's model table does."""
+    unknown = dataclasses.replace(_configs("qwen2-1.5b")[1], family="vision")
+    with pytest.raises(ValueError, match="unknown family vision"):
+        make_adamw_train_step(unknown, device="cpu")

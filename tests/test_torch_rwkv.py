@@ -285,17 +285,18 @@ def test_prefill_and_serve_steps_match_reference():
 
 
 def test_what_is_not_ported_is_refused():
-    """A family the port has not taken (vlm) by both train steps; the card
-    by default when there is none."""
+    """A family the zoo does not have (every one of its families is ported)
+    by both train steps, with `ValueError` as the reference's model table;
+    the card by default when there is none."""
     from repro_torch.core.deep import DeepSVRPConfig
     from repro_torch.launch import make_adamw_train_step, make_svrp_train_step
 
     _, tcfg = _configs("float32")
-    vlm = dataclasses.replace(tcfg, family="vlm")
-    with pytest.raises(NotImplementedError, match="the vlm family is not ported"):
-        make_svrp_train_step(vlm, DeepSVRPConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="the vlm family is not ported"):
-        make_adamw_train_step(vlm, device="cpu")
+    unknown = dataclasses.replace(tcfg, family="vision")
+    with pytest.raises(ValueError, match="unknown family vision"):
+        make_svrp_train_step(unknown, DeepSVRPConfig(), device="cpu")
+    with pytest.raises(ValueError, match="unknown family vision"):
+        make_adamw_train_step(unknown, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TM.init_params(tcfg)
