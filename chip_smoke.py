@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an H100, the CUDA toolkit
 (`nvcc`) and PyTorch built for CUDA.  It imports nothing of JAX or `repro`.
-It drives fourteen paths of the port: the paper's fused sweep (K1, K2), the
+It drives fifteen paths of the port: the paper's fused sweep (K1, K2), the
 engine's registry and sequential substrates with composite SVRP, the lossy
 channels and DP-ERM (K1's loop form and K2 where fused), DeepSVRP on a
 federated transformer through the engine (K1, K4, K4b), the online round
@@ -19,9 +19,10 @@ K4, K4b, K3) and rwkv6-1.6b (K7, K7b, K3), the moe family on
 deepseek-moe-16b, served in bf16 and int8 and trained (K4, K5, K4b, K3),
 the audio family on seamless-m4t-large-v2, served in bf16 and int8 and
 trained (K4 non-causal and cross, K5 over the encoder's memory, K4b, K3),
-and the vlm family on internvl2-76b at full width and cut depths, served in
+the vlm family on internvl2-76b at full width and cut depths, served in
 bf16 and int8 over patches and text and trained (K4, K5, K4b at 64/8 heads,
-G = 8, K3).
+G = 8, K3), and the engine's shard modes over torch.distributed (K1, its
+loop form and K2 on each rank's resident block).
 Phases, each printed as one JSON line:
 
 1. device  — `nvidia-smi` name and power limit, torch/CUDA versions, and the
@@ -371,10 +372,29 @@ Phases, each printed as one JSON line:
    planted loss fault (the labels not padded over the patches) beyond the
    gradient's limit; the reduced model in float32 on the card against the
    CPU with K4b's fault beyond the limit; a `vlm_seconds` line;
-37. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
+37. shard — `run_batch(shard="data" | "clients")` (`--only shard`).  In a
+   world of one over NCCL (what a single-process ``shard=`` call on the card
+   does): fused svrp, svrp_minibatch and deep_svrp (100 rounds) on Figure 1,
+   fused svrp on Figure 2 and on the DP-ERM a9a problem, each unsharded,
+   ``"clients"`` and ``"data"`` with the same draws: data bit for bit,
+   clients within SHARD_TOL with comm equal, the kernel launches of each
+   mode equal, and the all_reduce count exact (data 1; clients 1 a round,
+   plus the round-0 anchor and one a refresh event).  Then SHARD_WORLD gloo
+   ranks on the one card (spawned; the kernels built by this process, the
+   group and the join under SHARD_TIMEOUT_S): Figure-1 fused svrp and
+   deep_svrp (250 clients a rank) and a synthetic quadratic with M = 5
+   (rank 3 holds only pads) under registry svrp, against the world of one
+   (SHARD_TOL, comm equal, every rank equal to rank 0 bit for bit); two
+   planted faults must fail that check: the round's sum without the owner
+   mask (every rank adds its clamped row; Figure-1 svrp) and a valid mask
+   that counts the pads in the anchor mean (M = 5).  Times: rounds/s of
+   Figure-1 fused svrp unsharded, in the world of one and over the gloo
+   ranks, us per all_reduce at the (16, 40) float64 payload for each
+   backend, and the path's seconds;
+38. the `kernels` line (eleven rows: K1, its loop form, K2-K7, K4b, K6b and
    K7b, each with the design it ran on the main path as `kernel_route`;
-   the launches of K3, K4, K4b and K5 add the moe, audio and vlm paths'),
-   then the `ok` line.
+   the launches of K3, K4, K4b and K5 add the moe, audio and vlm paths',
+   those of K1, its loop form and K2 the shard path's), then the `ok` line.
 
 Any failed check exits non-zero before the `ok` line.  Without CUDA, or
 without the repository beside it, the script exits 1 and prints no result.
@@ -804,7 +824,7 @@ ADAMW_KERNELS = ("flash_attention", "flash_attention_bwd")
 HYBRID_TRAIN_KERNELS = ("ssm_scan", "ssm_scan_bwd", "flash_attention", "flash_attention_bwd")
 RWKV_TRAIN_KERNELS = ("rwkv6_scan", "rwkv6_scan_bwd")
 PATHS = ("sweep", "engine", "deep", "online", "serving", "hybrid", "ssm", "training", "optim",
-         "quant", "recurrent_train", "moe", "audio", "vlm")
+         "quant", "recurrent_train", "moe", "audio", "vlm", "shard")
 
 
 def _wrapper(name):
@@ -878,11 +898,12 @@ def sweep_draws(kw, M: int):
     if ALGOS[kw["algo"]].deterministic:
         return None
     seeds = np.repeat(np.arange(kw["seeds"]), grid_size(kw["grid"]))
-    p = kw["grid"].get("p")
+    p = kw["grid"].get("p", kw["grid"].get("anchor_prob"))
     if kw["algo"] == "catalyzed_svrp":
         return draw_schedule(seeds, M, kw["inner_steps"], p, num_outer=kw["num_outer"])
     rounds = kw["num_steps"] if "num_steps" in kw else kw["num_rounds"]
-    return draw_schedule(seeds, M, rounds, p, batch_clients=kw.get("batch_clients"))
+    return draw_schedule(seeds, M, rounds, p, batch_clients=kw.get("batch_clients"),
+                         clients=kw["algo"] != "deep_svrp")
 
 
 def replay_head(kw, draws):
@@ -6447,6 +6468,322 @@ def phase_vlm() -> dict:
     return {"parity": parity, "launches": launches}
 
 
+# ------------------------------------------------ shard (the shard modes)
+SHARD_WORLD = 4  # gloo ranks on the one card
+SHARD_TIMEOUT_S = 120  # on the group and on joining the ranks
+SHARD_TOL = dict(rtol=1e-5, atol=1e-24)  # shard="clients": tests/test_client_sharded.py's
+SHARD_DEEP_ROUNDS = 100
+SHARD_M5_ROUNDS = 200
+ALLREDUCE_REPS = 100
+
+
+def shard_sweeps(qprob, lprob, l_star, dp, dp_star):
+    """The shard path's sweeps, (label, problem, x_star, run_batch kwargs):
+    the main path's fused svrp and svrp_minibatch on Figure 1 and svrp on
+    Figure 2, fused deep_svrp on Figure 1, and the engine slice's fused svrp
+    on the DP-ERM a9a problem."""
+    from repro_torch.core import theorem2_stepsize
+
+    by = {label: kw for label, _, kw in sweeps(qprob, lprob, l_star)}
+    M, L = qprob.num_clients, float(qprob.smoothness_max())
+    eta = theorem2_stepsize(float(qprob.strong_convexity()), float(qprob.similarity()))
+    leta = theorem2_stepsize(dp.lam, float(dp.similarity_at(dp_star)))
+    x_q = qprob.minimizer()
+    return [
+        ("svrp/fig1_quadratic", qprob, x_q, by["svrp/fig1_quadratic"]),
+        ("svrp_minibatch/fig1_quadratic", qprob, x_q, by["svrp_minibatch/fig1_quadratic"]),
+        ("deep_svrp/fig1_quadratic", qprob, x_q, dict(
+            algo="deep_svrp", grid={"eta": [eta, eta / 2], "local_lr": 1.0 / (L + 2.0 / eta),
+                                    "anchor_prob": 1.0 / M},
+            num_steps=SHARD_DEEP_ROUNDS, local_steps=4, fused=True, seeds=8)),
+        ("svrp/fig2_logistic", lprob, l_star, by["svrp/fig2_logistic"]),
+        ("svrp/dp_a9a", dp, dp_star, dict(
+            algo="svrp", grid={"eta": [leta, leta / 2], "p": 1.0 / dp.num_clients,
+                               "smoothness": float(dp.smoothness_max())},
+            num_steps=DP_ROUNDS, prox_solver="gd", prox_steps=20, fused=True, seeds=8)),
+    ]
+
+
+def expected_all_reduces(kw, draws, shard) -> int:
+    """The collective model: shard="data" one (the assembly); "clients" one
+    a round, plus the round-0 anchor and one a refresh event where the
+    algorithm has an anchor (the rounds whose host refresh mask is set)."""
+    if shard is None:
+        return 0
+    if shard == "data":
+        return 1
+    rounds = kw["num_steps"]
+    return rounds if draws.refresh is None else 1 + rounds + int(draws.refresh.sum())
+
+
+def same_run(a, b) -> bool:
+    """Two runs' dist_sq, comm and x_final equal bit for bit, dtypes too."""
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) and getattr(a, f).dtype ==
+               getattr(b, f).dtype for f in ("dist_sq", "comm", "x_final"))
+
+
+def close_run(a, b) -> tuple[bool, float]:
+    """shard="clients" against the unsharded run: comm equal (and its
+    dtype), dist_sq and x_final within SHARD_TOL."""
+    import torch
+
+    import numpy as np
+
+    with np.errstate(over="ignore"):  # a planted fault's gap may overflow
+        ok, rel = traj_gap(a, b, SHARD_TOL)
+    return ok and torch.allclose(a.x_final, b.x_final, rtol=SHARD_TOL["rtol"], atol=1e-12), rel
+
+
+def allreduce_us(mesh, payload) -> float:
+    """Host-clock us a call of `launch.mesh.all_reduce` on ``payload``, the
+    calls back to back and synchronised."""
+    import torch
+
+    for _ in range(5):
+        mesh.all_reduce(payload)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        mesh.all_reduce(payload)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ALLREDUCE_REPS * 1e6
+
+
+def shard_rank(rank, world, init, tmp):
+    """One of the SHARD_WORLD gloo ranks on the card: the cases of
+    ``tmp/cases.pt`` (tensors on the CPU), results to ``tmp/rank<r>.pt``.
+    The kernels were built by the parent: the rank only loads them."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    from repro_torch.device import full_precision_matmul
+
+    full_precision_matmul()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        from repro_torch.core import Draws, rounds
+        from repro_torch.experiments import run_batch
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.problems import QuadraticProblem, client_shard
+
+        cases = torch.load(f"{tmp}/cases.pt")
+        out = {}
+        # A short run of the first case first: the rank's first kernel and
+        # collective calls (library loads, handles) stay out of the timed ones.
+        warm = dict(next(iter(cases.values())), fault=None)
+        warm["kw"] = {**warm["kw"], "num_steps": 2}
+        warm["clients"], warm["coins"] = warm["clients"][:2], warm["coins"][:2]
+        for name, case in [("warm-up", warm), *cases.items()]:
+            problem = QuadraticProblem(A=case["A"].cuda(), b=case["b"].cuda())
+            kw = dict(case["kw"])
+            draws = Draws(case["clients"], case["coins"]).to("cuda")
+            rounds._UNMASKED_PSUM = case["fault"] == "unmasked_psum"
+            client_shard._VALID_COUNTS_PADS = case["fault"] == "valid_counts_pads"
+            try:
+                n0 = mesh_mod.all_reduce.all_reduces
+                res, wall = _timed(lambda: run_batch(kw.pop("algo"), problem, shard="clients",
+                                                     x_star=case["x_star"].cuda(), draws=draws,
+                                                     **kw))
+            finally:
+                rounds._UNMASKED_PSUM = client_shard._VALID_COUNTS_PADS = False
+            out[name] = {"dist_sq": res.dist_sq.cpu(), "comm": res.comm.cpu(),
+                         "x_final": res.x_final.cpu(), "wall_s": wall,
+                         "all_reduces": mesh_mod.all_reduce.all_reduces - n0}
+        mesh = mesh_mod.make_client_mesh()
+        out["allreduce_us"] = {
+            f"{dev} {shape}": allreduce_us(mesh, torch.zeros(shape, dtype=torch.float64,
+                                                            device=dev))
+            for dev, shape in (("cuda", (16, 40)), ("cuda", (1,)), ("cpu", (16, 40)))}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_shard_world(cases: dict) -> list:
+    """SHARD_WORLD spawned gloo ranks on the card over ``cases``; their
+    results in rank order.  A rank's failure, or the ranks not finishing
+    within SHARD_TIMEOUT_S, fails the phase (and stops every rank)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(cases, f"{tmp}/cases.pt")
+        ctx = mp.start_processes(shard_rank, args=(SHARD_WORLD, f"tcp://localhost:{port}", tmp),
+                                 nprocs=SHARD_WORLD, join=False, start_method="spawn")
+        end = time.monotonic() + SHARD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+                check(time.monotonic() < end,
+                      f"shard: the {SHARD_WORLD} ranks did not finish in {SHARD_TIMEOUT_S} s")
+        except mp.ProcessRaisedException as e:
+            raise SmokeFailure(f"shard: a rank failed: {e}") from e
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        return [torch.load(f"{tmp}/rank{r}.pt") for r in range(SHARD_WORLD)]
+
+
+def phase_shard() -> dict:
+    """`run_batch(shard=...)` on the card: a world of one over NCCL (what a
+    single-process ``shard=`` call does), then SHARD_WORLD gloo ranks on the
+    one card, two planted faults, and the times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.experiments import run_batch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.problems import make_dp_a9a_problem, make_synthetic_quadratic
+
+    t_path = time.perf_counter()
+    qprob, lprob = fig1_quadratic("cuda"), fig2_logistic("cuda")
+    dp = make_dp_a9a_problem(60, n_per_client=2000, lam=0.1, n_pool=32561, seed=0, sigma=1.0,
+                             clip=1.0, device="cuda")
+    plan = shard_sweeps(qprob, lprob, lprob.minimizer(), dp, dp.minimizer())
+    # 1. The world of one (NCCL): every sweep unsharded, clients and data,
+    # after one all_reduce that sets up the communicator.
+    mesh_mod.make_client_mesh(device="cuda").all_reduce(torch.zeros(1, device="cuda"))
+    zero_launch_counts(SWEEP_KERNELS)
+    world_of_one = {}
+    for label, problem, x_star, kw in plan:
+        draws = sweep_draws(kw, problem.num_clients)
+        rest = {k: v for k, v in kw.items() if k != "algo"}
+        runs, walls = {}, {}
+        # The timed sweep runs each mode twice, in turns (A B C C B A): its
+        # rounds/s is each mode's faster run, the repeat equal bit for bit.
+        order = (None, "clients", "data")
+        timed_sweep = label == "svrp/fig1_quadratic"
+        for shard in order + (order[::-1] if timed_sweep else ()):
+            before, n0 = launch_counts(SWEEP_KERNELS), mesh_mod.all_reduce.all_reduces
+            res, wall = _timed(lambda: run_batch(kw["algo"], problem, x_star=x_star, draws=draws,
+                                                 shard=shard, **rest))
+            launched = {k: n - before[k] for k, n in launch_counts(SWEEP_KERNELS).items()}
+            walls.setdefault(shard, []).append(wall)
+            if shard in runs:
+                check(same_run(res, runs[shard][0]), f"shard {label}: shard={shard!r} run "
+                                                       "twice differs")
+                continue
+            runs[shard] = (res, wall, launched, mesh_mod.all_reduce.all_reduces - n0)
+        runs = {s: (r[0], min(walls[s]), r[2], r[3]) for s, r in runs.items()}
+        plain = runs[None][0]
+        d2 = plain.dist_sq.cpu().numpy()
+        check(np.isfinite(d2).all(), f"shard {label}: non-finite dist_sq")
+        clients_ok, rel = close_run(runs["clients"][0], plain)
+        info = {"phase": "shard_world_of_one", "sweep": label, "backend": "nccl",
+                "trials": plain.num_trials, "rounds": d2.shape[1],
+                "data_bit_for_bit": same_run(runs["data"][0], plain),
+                "clients_ok": clients_ok, "clients_dist_sq_max_rel": rel,
+                **{f"{s or 'unsharded'}_rounds_per_s": d2.shape[1] / runs[s][1] for s in runs},
+                "launches": {s or "unsharded": runs[s][2] for s in runs},
+                "all_reduces": {s or "unsharded": runs[s][3] for s in runs}}
+        emit(info)
+        check(info["data_bit_for_bit"], f"shard {label}: shard='data' differs from the "
+                                        "unsharded run")
+        check(clients_ok, f"shard {label}: shard='clients' differs from the unsharded run "
+                          f"(rel {rel})")
+        for s in ("clients", "data"):
+            check(runs[s][2] == runs[None][2], f"shard {label}: shard={s!r} launched "
+                                               f"{runs[s][2]}, unsharded {runs[None][2]}")
+        for s, (_, _, _, n) in runs.items():
+            want = expected_all_reduces(kw, draws, s)
+            check(n == want, f"shard {label}: shard={s!r} made {n} all_reduces, expected {want}")
+        world_of_one[label] = dict(kw=kw, draws=draws, x_star=x_star, runs=runs)
+    launches = launch_counts(SWEEP_KERNELS)
+    for name, count in launches.items():
+        check(count > 0, f"shard path never launched {name}")
+    nccl_us = {f"cuda {shape}": allreduce_us(mesh_mod.make_client_mesh(device="cuda"),
+                                             torch.zeros(shape, dtype=torch.float64,
+                                                         device="cuda"))
+               for shape in ((16, 40), (1,))}
+    # 2. SHARD_WORLD gloo ranks on the card (CUDA tensors), with the planted
+    # faults: every rank adding its clamped row to the round's sum, and a
+    # valid mask that counts the pads in the anchor mean.
+    from repro_torch.core import theorem2_stepsize
+
+    M5 = make_synthetic_quadratic(5, qprob.dim, mu=1.0, L=3330.0, delta=10.0, seed=0,
+                                  device="cuda")
+    eta5 = theorem2_stepsize(float(M5.strong_convexity()), float(M5.similarity()))
+    m5_kw = dict(algo="svrp", grid={"eta": [eta5, eta5 / 2], "p": 0.2},
+                 num_steps=SHARD_M5_ROUNDS, seeds=8)
+    m5_draws, m5_star = sweep_draws(m5_kw, 5), M5.minimizer()
+    fig1, deep_label = world_of_one["svrp/fig1_quadratic"], "deep_svrp/fig1_quadratic"
+    deep = world_of_one[deep_label]
+
+    def case(problem, kw, draws, x_star, fault=None):
+        return {"A": problem.A.cpu(), "b": problem.b.cpu(), "kw": kw, "clients": None if
+                draws.clients is None else draws.clients.cpu(), "coins": draws.coins.cpu(),
+                "x_star": x_star.cpu(), "fault": fault}
+
+    cases = {
+        "svrp/fig1_quadratic": case(qprob, fig1["kw"], fig1["draws"], fig1["x_star"]),
+        deep_label: case(qprob, deep["kw"], deep["draws"], deep["x_star"]),
+        "svrp/m5_registry": case(M5, m5_kw, m5_draws, m5_star),
+        "fault/unmasked_psum": case(qprob, fig1["kw"], fig1["draws"], fig1["x_star"],
+                                    "unmasked_psum"),
+        "fault/valid_counts_pads": case(M5, m5_kw, m5_draws, m5_star, "valid_counts_pads"),
+    }
+    t_world = time.perf_counter()
+    ranks = run_shard_world(cases)
+    world_s = time.perf_counter() - t_world
+    want = {"svrp/fig1_quadratic": fig1["runs"]["clients"][0],
+            deep_label: deep["runs"]["clients"][0],
+            "svrp/m5_registry": run_batch("svrp", M5, x_star=m5_star, draws=m5_draws,
+                                          **{k: v for k, v in m5_kw.items() if k != "algo"})}
+    want["fault/unmasked_psum"] = want["svrp/fig1_quadratic"]
+    want["fault/valid_counts_pads"] = want["svrp/m5_registry"]
+
+    class _Run(NamedTuple):
+        dist_sq: object
+        comm: object
+        x_final: object
+
+    verdicts = {}
+    for name in cases:
+        got = [_Run(*(r[name][f].cuda() for f in ("dist_sq", "comm", "x_final"))) for r in ranks]
+        ok, rel = close_run(got[0], want[name])
+        agree = all(same_run(g, got[0]) for g in got[1:])
+        verdicts[name] = {"ok": ok, "dist_sq_max_rel": rel, "ranks_agree": agree,
+                          "all_reduces": [r[name]["all_reduces"] for r in ranks],
+                          "rank0_wall_s": ranks[0][name]["wall_s"]}
+        emit({"phase": "shard_gloo_world", "case": name, "ranks": SHARD_WORLD,
+              **verdicts[name]})
+        check(agree, f"shard {name}: the ranks' results differ")
+        if name.startswith("fault/"):
+            check(not ok, f"shard: the planted fault {name} passed the check (rel {rel})")
+        else:
+            check(ok, f"shard {name}: {SHARD_WORLD} gloo ranks differ from the world of one "
+                      f"(rel {rel})")
+    K = fig1["kw"]["num_steps"]
+    timing = {
+        "phase": "shard_times", "sweep": "svrp/fig1_quadratic fused",
+        "rounds_per_s": {"unsharded": K / fig1["runs"][None][1],
+                         "nccl_world_of_one": K / fig1["runs"]["clients"][1],
+                         f"gloo_{SHARD_WORLD}_ranks": K / ranks[0]["svrp/fig1_quadratic"]["wall_s"]},
+        "allreduce_payload": [16, 40, "float64"],
+        "allreduce_us": {"nccl_world_of_one": nccl_us,
+                         f"gloo_{SHARD_WORLD}_ranks": [r["allreduce_us"] for r in ranks]},
+        "rounds_per_s_note": "each mode's faster of two runs in turns; gloo: rank 0's run",
+        "gloo_world_s": world_s, "path_s": time.perf_counter() - t_path,
+    }
+    emit(timing)
+    print(f"{CARD}: shard path {timing['path_s']:.1f} s; svrp fig1 rounds/s {timing['rounds_per_s']}; "
+          f"all_reduce us {timing['allreduce_us']}", flush=True)
+    return {"launches": launches}
+
+
 # The design each kernel runs on the main path, for the kernels line where its
 # parity result names none (K4, K4b, K6 and K6b name theirs: `forward_route`,
 # `backward_route`, `scan_route`, `bwd_route`).
@@ -6464,7 +6801,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=PATHS, default=None,
                     help="drive one path only (for development); the default drives all "
-                         "fourteen and prints the kernels line")
+                         "fifteen and prints the kernels line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -6557,6 +6894,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if run["vlm"]:
             vlm = phase_vlm()
+            torch.cuda.empty_cache()
+        if run["shard"]:
+            shard = phase_shard()
     except (SmokeFailure, AssertionError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6567,7 +6907,8 @@ def main(argv=None) -> int:
     # server's default float32 cache); hybrid serving (K6), rwkv serving (K7;
     # launches: prefill and generate) and training in bf16.  The launches of
     # K3, K4, K4b and K5 add the moe, audio and vlm paths' (prefill and
-    # generate, DeepSVRP).
+    # generate, DeepSVRP); those of K1, its loop form and K2 add the shard
+    # path's (its sweeps unsharded, clients and data in the world of one).
     rows = {
         "prox_update_batched": ("src/repro_torch/kernels/csrc/prox_update.cu",
                                 "src/repro/kernels/prox_update.py:91",
@@ -6608,7 +6949,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "kernel_route": p.get("route", KERNEL_ROUTES.get(name)),
             "source": source, "replaces": replaces,
             "launches": counts[name] + sum(path["launches"].get(name, 0)
-                                           for path in (moe, audio, vlm)),
+                                           for path in (moe, audio, vlm, shard)),
             "max_abs_err": p["max_abs_err"], "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "library_ms": p.get("library_ms"),

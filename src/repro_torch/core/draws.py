@@ -90,6 +90,14 @@ class Draws:
         return Draws(_opt(self.clients, lambda c: c[sl]), _opt(self.coins, lambda c: c[sl]),
                      refresh, self.batched)
 
+    def trials(self, idx: torch.Tensor) -> "Draws":
+        """Trials ``idx`` of a batched record, in that order (a rank's block
+        of a ``shard="data"`` sweep, padded by repeating its last trial),
+        with the host refresh mask of those trials alone."""
+        axis = (self.coins if self.coins is not None else self.clients).ndim - 1
+        return Draws(_opt(self.clients, lambda t: t.index_select(axis, idx.to(t.device))),
+                     _opt(self.coins, lambda t: t.index_select(axis, idx.to(t.device))))
+
     def trial(self, i: int) -> "Draws":
         """Trial ``i`` of a batched record, as one trial's record."""
         axis = (self.coins if self.coins is not None else self.clients).ndim - 1

@@ -75,7 +75,11 @@ same-shaped quadratic sweeps as one lane batch (a session pool's tick).
 The streaming server binds `core.draws.ResidentDraws` in place of a record:
 its sampling over the resident clients is a draw source, not a callback.
 
-Not ported yet: the client-sharded substrate (ROADMAP §1 item 6).
+The fourth substrate, client-sharded (`ClientShardedOps`,
+`client_sharded_scan`, `client_sharded_step_def`), lays the CLIENT axis over
+the ranks of a process group (`launch.mesh`): each rank holds a contiguous
+block of the clients and runs the same round definitions, with one
+`all_reduce` a round and one a refresh event (see its section below).
 """
 from __future__ import annotations
 
@@ -714,6 +718,183 @@ def catalyst_step_def(stage_ops: Callable, x0, hp, draws: Draws, *,
         return s.x_prev if s.inner is None else s.inner[0]
 
     return StepDef(init, step, final)
+
+
+# =============================================== client-sharded substrate
+#
+# The fourth substrate: the CLIENT axis (not the trial axis) over the ranks
+# of a process group (`launch.mesh.make_client_mesh`).  Each rank holds a
+# contiguous block of client state (data rows, DP noise shifts, per-client
+# spectral factors; `problems.client_shard.shard_clients`) and runs the
+# round definitions unchanged against `ClientShardedOps`.  The draws,
+# hyperparameters and iterates are replicated, so every rank samples the
+# same clients and the host refresh mask (`Draws.refresh`) decides every
+# refresh on every rank alike: no rank reads its own block to decide
+# whether to issue a collective.  The collective model, every collective an
+# `all_reduce` (the reference's ``psum``):
+#
+# * per-client oracles (``grad`` / ``cohort_grad``) are computed by the
+#   OWNER rank only and zeroed elsewhere: NO collective.  The wrong prox
+#   inputs this leaves on the other ranks are discarded by the mask below;
+# * the prox result is assembled by ONE `all_reduce` a round: the owner's
+#   value plus zeros, exact, so the round's iterates are those of the
+#   unsharded substrates bit for bit.  The local solves take LOCAL, clamped
+#   client rows (`ClientShards.local_index`): the fused kernels read client
+#   data unchecked;
+# * the anchor refresh is one more `all_reduce` a refresh EVENT (a round
+#   where some trial's coin is set): each rank's sum over its true clients,
+#   summed and divided by the global M, and so is the round-0 anchor.  Only
+#   there does the summation order differ from the unsharded substrates.
+#
+# Non-divisible M pads the client axis with zero rows at its end: the
+# draws use the TRUE M (pads are never sampled) and ``valid`` keeps the pads
+# out of every client mean, so padding never reaches a result.
+
+# Planted fault for chip_smoke.py's checks: every rank adds its clamped
+# local row to the round's sum, not only the owner (False in every real run).
+_UNMASKED_PSUM = False
+
+
+class ClientShardedOps(RoundOps):
+    """`RoundOps` over a rank's resident client block.
+
+    ``local_problem`` is this rank's contiguous block of ``M_local`` clients
+    (global clients ``[rank M_local, ...)``); ``num_clients`` is the GLOBAL
+    M, so sampling and the Section-4.2 accounting are those of every other
+    substrate (comm integer-exact); ``valid`` is the replicated ``(M_pad,)``
+    mask of the true clients."""
+
+    def __init__(self, local_problem, hp, x_star, dtype, *, draws: Draws, mesh,
+                 num_clients: int, valid, cohort_size: int | None = None, channel=None):
+        from repro_torch.problems.client_shard import ClientShards
+
+        super().__init__(local_problem, hp, x_star, dtype, draws=draws,
+                         cohort_size=cohort_size, channel=channel)
+        self.shards = ClientShards(local_problem, valid, mesh)
+        self.M_local = local_problem.num_clients
+        self.M = num_clients  # GLOBAL M: sampling + comm accounting
+
+    def local_index(self, m):
+        """Global client ids -> (the clamped local row, this rank owns it)."""
+        return self.shards.local_index(m)
+
+    def masked_psum(self, value, resident):
+        """Assemble owner-computed rows: zeros elsewhere make the
+        `all_reduce` exact.  ``resident`` broadcasts against ``value``'s
+        leading axes."""
+        if _UNMASKED_PSUM:
+            resident = torch.ones_like(resident)
+        return self.shards.assemble(value, resident)
+
+    def all_clients(self):
+        """Full participation over this rank's block: the global ids of its
+        rows (every one resident), ``S + (M_local,)``."""
+        ids = self.shards.offset + torch.arange(self.M_local, device=self.device)
+        return ids.expand(self.lanes + (self.M_local,))
+
+    def client_mean(self, y):
+        """DeepSVRP's client mean of the block's rows: the sum over its true
+        clients, the round's one `all_reduce`, divided by the global M.  The
+        uplink channel compresses each row before this, as on every
+        substrate."""
+        return self.shards.row_mean(y)
+
+    # ------------------------------------------------------------- oracles
+    def grad(self, m, y):
+        """Owner-masked sampled-client gradient, deliberately NOT summed:
+        it only feeds the same client's prox input, whose result the
+        round's single `masked_psum` assembles."""
+        local, resident = self.local_index(m)
+        g = self._grad(local, y)
+        return torch.where(resident.unsqueeze(-1), g, torch.zeros_like(g))
+
+    def cohort_grad(self, ms, y):
+        local, resident = self.local_index(ms)
+        g = self._grad(local, y[..., None, :].expand(ms.shape + y.shape[-1:]))
+        return torch.where(resident.unsqueeze(-1), g, torch.zeros_like(g))
+
+    def full_grad(self, w):
+        """The anchor gradient at per-trial ``w``: one `all_reduce`."""
+        return self.shards.full_grad(w)
+
+    def init_full_grad(self, x0):
+        """The round-0 anchor at the trial-shared ``x0``: one `all_reduce`."""
+        return self.tile(self.shards.full_grad(x0))
+
+
+def make_client_sharded_ops(
+    algo: str, local_problem, x0, x_star, hp, draws: Draws, *,
+    mesh, num_clients: int, valid, fused: bool = False, inner_steps: int | None = None,
+    prox_solver: str = "exact", prox_steps: int = 50, prox_tol: float = 1e-10,
+    batch_clients: int | None = None, local_steps: int | None = None, channel=None,
+) -> ClientShardedOps:
+    """Bind one rounds-defined algorithm to the client-sharded substrate.
+
+    Mirrors `make_registry_ops` (registry solvers prepared on the LOCAL
+    block: the spectral solver factorizes only the resident clients) and
+    `_fused_ops` (``fused=True``: `prox_gd_fused`, K1's loop form for the
+    quadratic and K2's indexed entry for the logistic problem and the DP
+    fold, on the resident block), each local solve wrapped in the owner
+    mask and the round's single `all_reduce`.  DeepSVRP's local loop is
+    `deep_local_prox_gd` over the resident rows (elementwise K1 a step),
+    whose raw rows the round's `client_mean` assembles after the uplink
+    channel."""
+    from repro_torch.core.prox import get_prox_solver
+
+    dtype, dev = x0.dtype, x0.device
+    ops = ClientShardedOps(local_problem, hp, x_star, dtype, draws=draws, mesh=mesh,
+                           num_clients=num_clients, valid=valid, cohort_size=batch_clients,
+                           channel=channel)
+    if algo == "deep_svrp":
+        steps = inner_steps if fused else local_steps
+        ops.local_prox_gd = deep_local_prox_gd(local_problem, hp, draws.lanes, dtype, dev, steps)
+        return ops
+    lanes = draws.lanes
+    eta = torch.as_tensor(hp.eta, dtype=dtype, device=dev).broadcast_to(lanes).contiguous()
+    L = torch.as_tensor(getattr(hp, "smoothness", 0.0), dtype=dtype,
+                        device=dev).broadcast_to(lanes).contiguous()
+    b = batch_clients
+    if fused:
+        eta_c, L_c = eta.repeat_interleave(b or 1), L.repeat_interleave(b or 1)
+
+        def solve(m, z, e, s):  # kernel rows: (R,) clients, (R, d) targets
+            return prox_gd_fused(local_problem, m.reshape(-1), z.reshape(-1, z.shape[-1]), e, s,
+                                 inner_steps).reshape(z.shape)
+    else:
+        solver = get_prox_solver(prox_solver, local_problem)
+        factors = solver.prepare(local_problem)
+        eta_c = eta.unsqueeze(-1).expand(lanes + (b,)) if b else eta
+        L_c = L.unsqueeze(-1).expand(lanes + (b,)) if b else L
+
+        def solve(m, z, e, s):
+            return solver.solve(local_problem, factors, m, z, e,
+                                smoothness=s, steps=prox_steps, tol=prox_tol)
+
+    def prox(m, z):
+        local, resident = ops.local_index(m)
+        return ops.masked_psum(solve(local, z, eta_c, L_c), resident)
+
+    if algo == "svrp_minibatch":
+        ops.cohort_prox = prox
+    else:
+        ops.prox = prox
+    return ops
+
+
+def client_sharded_step_def(algo: str, local_problem, x0, x_star, hp, draws, **binding) -> StepDef:
+    """The client-sharded substrate's incremental unit (the session layer's
+    ``substrate="clients"``); ``binding`` forwards to
+    `make_client_sharded_ops` (mesh, num_clients, valid, the solver)."""
+    ops = make_client_sharded_ops(algo, local_problem, x0, x_star, hp, draws, **binding)
+    return round_step_def(ROUND_DEFS[algo], ops, x0)
+
+
+def client_sharded_scan(algo: str, local_problem, x0, x_star, draws, hp, *,
+                        num_steps: int, **binding) -> RunResult:
+    """Run one rounds-defined algorithm on the client-sharded substrate: this
+    rank's share of ``run_batch(shard="clients")``."""
+    return scan_step_def(
+        client_sharded_step_def(algo, local_problem, x0, x_star, hp, draws, **binding), num_steps)
 
 
 # ------------------------------------------------- pod (pytree) local solver

@@ -40,8 +40,27 @@ acc_extragradient) draw nothing.  Both entry points run on CUDA unless
 definitions over the same record, stepped a chunk at a time until every
 trial has reached ``dist_sq <= stop_eps`` (or the horizon runs out).
 
-Not ported yet (raises `NotImplementedError` naming its ROADMAP item):
-``shard=`` (item 6).
+``shard=`` runs the sweep SPMD over the ranks of a `torch.distributed`
+process group (`launch.mesh`; ``group=``, by default the initialised
+default group, else a world of one on the device's backend): every rank
+calls `run_batch` with the same arguments and the same problem, and every
+rank returns the whole result.  Every collective is one `all_reduce`
+(`launch.mesh.all_reduce`, counted).
+
+* ``shard="data"`` splits the TRIAL axis: B is padded to a multiple of the
+  ranks with copies of the last trial (its seed, hyperparameters and draws),
+  each rank runs its contiguous block through the unsharded path's body,
+  with no collective inside the rounds, and one `all_reduce` after the last
+  round assembles the result (each rank's block written into zeros), the
+  pad cut off;
+* ``shard="clients"`` splits the CLIENT axis (`problems.client_shard`):
+  each rank holds a contiguous block of the problem padded with zero
+  clients, the draws, hyperparameters and iterates are replicated, and the
+  rounds-defined algorithms run `rounds.client_sharded_scan` (one
+  `all_reduce` a round, one a refresh event and one for the round-0
+  anchor) while the others run their drivers against the
+  `ClientShardedProblem` view (one `all_reduce` an oracle call).  The
+  problem must declare ``client_shardable``.
 """
 from __future__ import annotations
 
@@ -63,12 +82,6 @@ from repro_torch.core.types import RunResult
 from repro_torch.device import full_precision_matmul, problem_device
 from repro_torch.experiments.grid import trial_labels
 from repro_torch.experiments.spec import ALGOS, AlgoSpec, RunSpec, as_runspec, horizon_rounds
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP §1 {item}); use repro for it"
-    )
 
 
 class BatchResult(NamedTuple):
@@ -222,14 +235,100 @@ def _fused_body(algo: str, static_items: tuple) -> Callable:
     return run
 
 
-def _prepare(spec_: RunSpec, problem, device, shard):
-    """Shared by both entry points: the device, the unported options, the
-    resolved run."""
+def _prepare(spec_: RunSpec, problem, device):
+    """Shared by the entry points: the device and the resolved run."""
     dev = problem_device(problem, device)
     full_precision_matmul()
-    if shard is not None:
-        raise _not_ported(f"shard={shard!r} (the client-sharded substrate)", "item 6")
     return dev, spec_.resolve(problem)
+
+
+def _sweep_body(rr, fused: bool) -> Callable:
+    """The sweep driver ``(problem, x0, x_star, draws, hp) -> RunResult`` of
+    the unsharded path, which under ``shard="data"`` runs each rank's block:
+    the fused substrate, the registry binding of the rounds-defined
+    algorithms, or the algorithm's ``scan_fn`` over the lanes."""
+    algo, cfg = rr.algo, rr.cfg
+    if fused:
+        return _fused_body(algo, tuple(sorted(cfg.items())))
+    if algo in ROUND_DEFS:
+        return lambda p, x0, xs, d, hp: registry_batched_scan(algo, p, x0, xs, d, hp, **cfg)
+    return lambda p, x0, xs, d, hp: rr.aspec.scan_fn(p, x0, xs, d, hp, **cfg)
+
+
+# ------------------------------------------------------------- sharded sweeps
+# Float and integer outputs travel through the assembly's all_reduce as
+# int64 words holding their bits (floats viewed as the integer of their
+# width): the sum of one owner's words and zeros is the owner's, exactly.
+_WORD = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+
+
+def _to_words(t: torch.Tensor) -> torch.Tensor:
+    if t.is_floating_point():
+        t = t.contiguous().view(_WORD[t.element_size()])
+    return t.reshape(t.shape[0], -1).to(torch.int64)
+
+
+def _from_words(w: torch.Tensor, like: torch.Tensor, B: int) -> torch.Tensor:
+    shape = (B,) + like.shape[1:]
+    if like.is_floating_point():
+        return w.to(_WORD[like.element_size()]).view(like.dtype).reshape(shape)
+    return w.to(like.dtype).reshape(shape)
+
+
+def _run_data_sharded(body: Callable, rr, problem, draws: Draws | None, dev, group) -> RunResult:
+    """``shard="data"``: this rank's contiguous block of the trials padded to
+    a multiple of the ranks (copies of the last trial), run by ``body``;
+    each rank writes its block into zeros of the padded result and ONE
+    `all_reduce` after the last round assembles it (owner value plus zeros,
+    exact); the pad is cut off."""
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    mesh = make_sweep_mesh(group, dev)
+    B = rr.seeds.shape[0]
+    B_local = -(-B // mesh.size)
+    lo = mesh.rank * B_local
+    idx = torch.arange(lo, lo + B_local).clamp(max=B - 1)
+    hp = rr._replace(hparams={k: v[idx.numpy()] for k, v in rr.hparams.items()}).device_hparams(dev)
+    block = None if draws is None else draws.trials(idx).to(dev)
+    res = body(problem, rr.x0, rr.x_star, block, hp)
+    parts = (res.dist_sq, res.comm, res.x_final)
+    words = [_to_words(t) for t in parts]
+    full = torch.zeros((B_local * mesh.size, sum(w.shape[1] for w in words)), dtype=torch.int64,
+                       device=dev)
+    full[lo:lo + B_local] = torch.cat(words, dim=1)
+    full = mesh.all_reduce(full)[:B]
+    out, start = [], 0
+    for t, w in zip(parts, words):
+        out.append(_from_words(full[:, start:start + w.shape[1]], t, B))
+        start += w.shape[1]
+    return RunResult(*out)
+
+
+def _run_client_sharded(rr, problem, draws: Draws | None, dev, group, fused: bool) -> RunResult:
+    """``shard="clients"``: this rank's block of the problem padded with zero
+    clients; the rounds-defined algorithms on `rounds.client_sharded_scan`
+    (their registry solvers or, fused, their kernels on the resident
+    block), the others' drivers against the `ClientShardedProblem` view.
+    The draws carry global client ids; the outputs are replicated."""
+    from repro_torch.core.rounds import client_sharded_scan
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.problems.client_shard import ClientShardedProblem, shard_clients
+
+    mesh = make_client_mesh(group, dev)
+    local, valid = shard_clients(problem, mesh)
+    M = problem.num_clients
+    algo, spec, cfg = rr.algo, rr.aspec, rr.cfg
+    hp = rr.device_hparams(dev)
+    draws = None if draws is None else draws.to(dev)
+    if algo not in ROUND_DEFS:
+        return spec.scan_fn(ClientShardedProblem(local, valid, mesh, M), rr.x0, rr.x_star, draws,
+                            hp, **cfg)
+    if fused:
+        cfg = dict(fused=True, inner_steps=cfg[spec.fused_inner_steps],
+                   num_steps=cfg[spec.fused_round_steps],
+                   **{k: cfg[k] for k in ("batch_clients", "channel") if k in cfg})
+    return client_sharded_scan(algo, local, rr.x0, rr.x_star, draws, hp, mesh=mesh,
+                               num_clients=M, valid=valid, **cfg)
 
 
 def _result(rr, res: RunResult) -> BatchResult:
@@ -256,6 +355,7 @@ def run_batch(
     theory_constants=None,
     fused: bool = False,
     shard: str | None = None,
+    group=None,
     stop_eps: float | None = None,
     draws: Draws | None = None,
     device: str | torch.device | None = None,
@@ -273,24 +373,42 @@ def run_batch(
     indices and refresh coins (default: `draw_schedule`).  `stop_eps` stops
     early on the session substrate: the returned trajectories are the full
     run's prefix and `BatchResult.stopped_round` holds each trial's
-    first-hit round.
+    first-hit round.  `shard="data"` / `"clients"` runs the sweep over the
+    ranks of `group` (see the module docstring): every rank calls with the
+    same arguments and returns the whole result.
     """
     spec_ = as_runspec(algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
                        stepsize=stepsize, target_eps=target_eps,
                        theory_constants=theory_constants, static=static)
     if stop_eps is not None:
-        if fused or shard is not None:
+        if fused or shard is not None or group is not None:
             raise ValueError(
                 "stop_eps runs on the incremental session substrate; it cannot "
-                "be combined with fused= or shard="
+                "be combined with fused=, shard= or group="
             )
         from repro_torch.serve import open_session  # serve imports this module
 
         sess = open_session(dataclasses.replace(spec_, substrate="batched"), problem,
                             draws=draws, device=device)
         return sess.run_until(stop_eps)
-    dev, rr = _prepare(spec_, problem, device, shard)
+    dev, rr = _prepare(spec_, problem, device)
     algo, spec, cfg = rr.algo, rr.aspec, rr.cfg
+    if shard not in (None, "data", "clients"):
+        raise ValueError(f"unknown shard mode {shard!r}; supported: 'data', 'clients'")
+    if group is not None and shard is None:
+        raise ValueError(
+            "group= only applies with shard='data'/'clients' (did you forget it?)"
+        )
+    if shard == "clients":
+        from repro_torch.problems.client_shard import check_client_shardable
+
+        check_client_shardable(problem)
+        if fused and algo not in ROUND_DEFS:
+            raise ValueError(
+                "fused=True with shard='clients' supports only the "
+                f"rounds-defined algorithms {sorted(ROUND_DEFS)}; run "
+                f"{algo!r} with fused=False"
+            )
     if fused:
         if not (spec.fusable and cfg.get("prox_solver", "gd") == "gd"):
             raise ValueError(
@@ -299,15 +417,13 @@ def run_batch(
         if algo != "deep_svrp":  # deep_svrp's local loop needs only problem.grad
             fused_oracle_kind(problem)
     draws = _sweep_draws(spec, algo, cfg, rr.hparams, rr.seeds, problem.num_clients, draws)
+    if shard == "clients":
+        return _result(rr, _run_client_sharded(rr, problem, draws, dev, group, fused))
+    body = _sweep_body(rr, fused)
+    if shard == "data":
+        return _result(rr, _run_data_sharded(body, rr, problem, draws, dev, group))
     draws = None if draws is None else draws.to(dev)
-    hp = rr.device_hparams(dev)
-    if fused:
-        res = _fused_body(algo, tuple(sorted(cfg.items())))(problem, rr.x0, rr.x_star, draws, hp)
-    elif algo in ROUND_DEFS:
-        res = registry_batched_scan(algo, problem, rr.x0, rr.x_star, draws, hp, **cfg)
-    else:
-        res = spec.scan_fn(problem, rr.x0, rr.x_star, draws, hp, **cfg)
-    return _result(rr, res)
+    return _result(rr, body(problem, rr.x0, rr.x_star, draws, rr.device_hparams(dev)))
 
 
 def run_sequential(
@@ -332,7 +448,7 @@ def run_sequential(
     spec_ = as_runspec(algo, grid=grid, seeds=seeds, x0=x0, x_star=x_star,
                        stepsize=stepsize, target_eps=target_eps,
                        theory_constants=theory_constants, static=static)
-    dev, rr = _prepare(spec_, problem, device, None)
+    dev, rr = _prepare(spec_, problem, device)
     spec = rr.aspec
     draws = _sweep_draws(spec, rr.algo, rr.cfg, rr.hparams, rr.seeds, problem.num_clients, draws)
     hp_all = rr.device_hparams(dev)

@@ -42,6 +42,10 @@ class LogisticProblem:
     y: torch.Tensor  # (M, n), +-1
     lam: float
 
+    # Every tensor is client-major and zero pads are benign: shard="clients"
+    # applies (problems.client_shard).
+    client_shardable = True
+
     @property
     def num_clients(self) -> int:
         return self.Z.shape[0]

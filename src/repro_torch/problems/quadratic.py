@@ -41,6 +41,10 @@ class QuadraticProblem:
     A: torch.Tensor  # (M, d, d), symmetric, each >= mu I
     b: torch.Tensor  # (M, d)
 
+    # Every tensor is client-major and zero pads are benign: shard="clients"
+    # applies (problems.client_shard).
+    client_shardable = True
+
     # --- structural properties -------------------------------------------------
     @property
     def num_clients(self) -> int:

@@ -35,8 +35,14 @@ Substrates:
   gradient on the card) or the algorithm's step over the lanes;
 * ``substrate="sequential"``: one state per trial, each stepped by the same
   step definition over its own lane (the `run_sequential` oracle, steppable);
-* ``substrate="clients"``: the client-sharded substrate, not ported yet
-  (ROADMAP §1 item 6).
+* ``substrate="clients"``: the client-sharded substrate (the session
+  counterpart of ``run_batch(shard="clients")``): over the ranks of the
+  default process group (or a world of one), each rank's block of the
+  padded problem stays resident on its device across chunks, the state
+  over the ``(B,)`` lanes is replicated, and each round is
+  `core.rounds.client_sharded_step_def` (the rounds-defined algorithms) or
+  the algorithm's step against `problems.client_shard.ClientShardedProblem`.
+  Every rank opens the session with the same arguments and steps it alike.
 
 State stays on the device between `step` calls; the round layer replaces
 its tensors each round, so nothing is donated or copied back.
@@ -59,15 +65,9 @@ from repro_torch.core.baselines import (
 from repro_torch.core.catalyst import catalyzed_step_def
 from repro_torch.core.composite import composite_step_def
 from repro_torch.core.draws import Draws
-from repro_torch.core.rounds import ROUND_DEFS, registry_step_def
+from repro_torch.core.rounds import ROUND_DEFS, client_sharded_step_def, registry_step_def
 from repro_torch.core.types import StepDef, step_rounds
-from repro_torch.experiments.runner import (
-    BatchResult,
-    _not_ported,
-    _prepare,
-    _sweep_draws,
-    ledger_bytes,
-)
+from repro_torch.experiments.runner import BatchResult, _prepare, _sweep_draws, ledger_bytes
 from repro_torch.experiments.spec import RunSpec, as_runspec, check_substrate, session_horizon
 
 # Static-config keys that parameterize the registry round binding (the prox
@@ -109,6 +109,32 @@ def trial_step_def(algo: str, problem, x0, x_star, hp, cfg: Mapping[str, Any],
     raise KeyError(f"no incremental step definition for algo {algo!r}")
 
 
+def client_step_def(algo: str, problem, x0, x_star, hp, cfg: Mapping[str, Any],
+                    draws: Draws | None, device) -> StepDef:
+    """The `StepDef` of ANY `ALGOS` entry on the client-sharded substrate
+    over the default group's ranks: this rank's block of ``problem`` on
+    ``device``, the rounds-defined algorithms through
+    `client_sharded_step_def` (their registry solvers), the others'
+    steps against the `ClientShardedProblem` view."""
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.problems.client_shard import (
+        ClientShardedProblem,
+        check_client_shardable,
+        shard_clients,
+    )
+
+    check_client_shardable(problem)
+    mesh = make_client_mesh(device=device)
+    local, valid = shard_clients(problem, mesh)
+    M = problem.num_clients
+    if algo in ROUND_DEFS:
+        binding = {k: cfg[k] for k in _REGISTRY_BINDING if k in cfg}
+        return client_sharded_step_def(algo, local, x0, x_star, hp, draws, mesh=mesh,
+                                       num_clients=M, valid=valid, **binding)
+    return trial_step_def(algo, ClientShardedProblem(local, valid, mesh, M), x0, x_star, hp,
+                          cfg, draws)
+
+
 class FedSession:
     """A sweep held open: device-resident state, stepped n rounds at a time.
 
@@ -120,9 +146,7 @@ class FedSession:
     def __init__(self, spec: RunSpec, problem, *, draws: Draws | None = None,
                  device: str | torch.device | None = None) -> None:
         substrate = check_substrate(spec.substrate or "batched")
-        if substrate == "clients":
-            raise _not_ported("substrate='clients' (the client-sharded substrate)", "item 6")
-        dev, rr = _prepare(spec, problem, device, None)
+        dev, rr = _prepare(spec, problem, device)
         self._spec = spec
         self._problem = problem
         self._substrate = substrate
@@ -140,10 +164,13 @@ class FedSession:
         self._t = 0
         self._d2: list[torch.Tensor] = []  # (B, n) chunks
         self._comm: list[torch.Tensor] = []
+        record = None if self._draws is None else self._draws.to(dev)
         if substrate == "batched":
-            record = None if self._draws is None else self._draws.to(dev)
             self._sds = [trial_step_def(rr.algo, problem, rr.x0, rr.x_star, self._hp, rr.cfg,
                                         record)]
+        elif substrate == "clients":
+            self._sds = [client_step_def(rr.algo, problem, rr.x0, rr.x_star, self._hp, rr.cfg,
+                                         record, dev)]
         else:
             self._sds = [
                 trial_step_def(rr.algo, problem, rr.x0, rr.x_star, self._hp_i(i), rr.cfg,
@@ -207,7 +234,7 @@ class FedSession:
     def x(self) -> torch.Tensor:
         """(B, d) current iterates."""
         finals = [sd.final(s) for sd, s in zip(self._sds, self._state)]
-        return finals[0] if self._substrate == "batched" else torch.stack(finals)
+        return torch.stack(finals) if self._substrate == "sequential" else finals[0]
 
     def _hp_i(self, i: int):
         return type(self._hp)(*(h[i] for h in self._hp))
@@ -232,10 +259,10 @@ class FedSession:
         for i, sd in enumerate(self._sds):
             self._state[i], out = step_rounds(sd, self._state[i], self._t, n)
             outs.append(out)
-        if self._substrate == "batched":
-            d2, comm = outs[0]
-        else:
+        if self._substrate == "sequential":
             d2, comm = (torch.stack(v) for v in zip(*outs))
+        else:
+            d2, comm = outs[0]
         self.record(d2, comm)
         return d2, comm
 

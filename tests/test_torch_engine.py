@@ -195,14 +195,16 @@ def test_unknown_substrate_error_text_matches(problems):
 @pytest.mark.parametrize("what", ["fused_false", "shard", "stop_eps", "theory", "sequential",
                                   "quant8", "clients"])
 def test_unported_paths_raise(problems, what):
-    """The paths the first slice left out: those still not ported (``shard=``
-    and the ``"clients"`` session substrate) raise "not ported" and name
-    their ROADMAP item; those ported since (the registry substrate
-    ``fused=False``, ``stepsize="theory"``, `run_sequential`, the quant8
-    channel and ``stop_eps=``, which runs on the session substrate and
-    equals `open_session(...).run_until`) return a sweep of the expected
+    """The paths the first slice left out, each ported since: the registry
+    substrate ``fused=False``, ``stepsize="theory"``, `run_sequential`, the
+    quant8 channel and ``stop_eps=`` (which runs on the session substrate
+    and equals `open_session(...).run_until`) return a sweep of the expected
     shape that agrees with the fused one's comm (quant8: and prices each
-    vector at d int8 bytes plus one float32 scale a 256-value block)."""
+    vector at d int8 bytes plus one float32 scale a 256-value block);
+    ``shard="data"`` in a world of one equals the fused sweep bit for bit,
+    and the ``"clients"`` session substrate equals ``run_batch(shard=
+    "clients")`` bit for bit and the unsharded sweep to the reference's
+    rtol 1e-5 with comm equal."""
     _, port_p = problems["quadratic"]
     kw = dict(grid={"eta": 0.1, "p": 0.1, "smoothness": 1.0}, num_steps=4, device="cpu", **GD)
     if what == "quant8":
@@ -215,16 +217,26 @@ def test_unported_paths_raise(problems, what):
         assert res.dist_sq.shape == (1, 4) and np.isfinite(res.dist_sq.numpy()).all()
         return
     if what == "shard":
-        with pytest.raises(NotImplementedError, match="not ported.*item 6"):
-            run_batch("svrp", port_p, fused=True, shard="data", **kw)
+        fused = run_batch("svrp", port_p, fused=True, **kw)
+        res = run_batch("svrp", port_p, fused=True, shard="data", **kw)
+        for field in ("dist_sq", "comm", "x_final"):
+            assert torch.equal(getattr(res, field), getattr(fused, field)), field
         return
     if what in ("stop_eps", "clients"):
         from repro_torch.serve import open_session
 
         kw = {k: v for k, v in kw.items() if k not in GD}
         if what == "clients":
-            with pytest.raises(NotImplementedError, match="not ported.*item 6"):
-                open_session("svrp", port_p, substrate="clients", **kw)
+            sess = open_session("svrp", port_p, substrate="clients", **kw)
+            sess.step(1)
+            sess.step(3)
+            res = sess.result()
+            want = run_batch("svrp", port_p, shard="clients", **kw)
+            for field in ("dist_sq", "comm", "x_final"):
+                assert torch.equal(getattr(res, field), getattr(want, field)), field
+            plain = run_batch("svrp", port_p, **kw)
+            np.testing.assert_array_equal(res.comm.numpy(), plain.comm.numpy())
+            np.testing.assert_allclose(res.dist_sq.numpy(), plain.dist_sq.numpy(), rtol=1e-5)
             return
         res = run_batch("svrp", port_p, stop_eps=1e-6, **kw)
         want = open_session("svrp", port_p, **kw).run_until(1e-6)

@@ -257,7 +257,8 @@ def test_identical_error_text_across_entry_points(bad_call, probs):
 
 
 def test_runspec_and_clients_substrate(probs, cases):
-    """A RunSpec's substrate picks the session's; "clients" is ROADMAP item 6."""
+    """A RunSpec's substrate picks the session's; "clients" (in a world of
+    one) equals ``run_batch(shard="clients")`` bit for bit."""
     _, pq = probs
     kw = cases["svrp"][1]
     spec = RunSpec("svrp", grid=kw["grid"], seeds=SEEDS, substrate="sequential",
@@ -267,8 +268,13 @@ def test_runspec_and_clients_substrate(probs, cases):
     sess.step(12)
     rb = run_batch(dataclasses.replace(spec, substrate=None), pq, device="cpu")
     assert torch.equal(sess.comm, rb.comm)
-    with pytest.raises(NotImplementedError, match="not ported.*item 6"):
-        open_session("svrp", pq, substrate="clients", device="cpu", **kw)
+    clients = open_session(dataclasses.replace(spec, substrate="clients"), pq, device="cpu")
+    assert clients.substrate == "clients"
+    clients.step(5)
+    clients.step(7)
+    want = run_batch(dataclasses.replace(spec, substrate=None), pq, shard="clients", device="cpu")
+    for field in ("dist_sq", "comm", "x_final"):
+        assert torch.equal(getattr(clients.result(), field), getattr(want, field)), field
 
 
 # ------------------------------------------------------------ the federated LM
